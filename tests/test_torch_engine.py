@@ -1,0 +1,258 @@
+"""tpuvdb_torch.VectorDBEngine vs tpuvdb.VectorDBEngine.
+
+* The same op sequence through both engines with search_mode="exact" (put,
+  overwrite, delete, flush, search, compact, checkpoint, restart) returns
+  identical keys, with distances within rtol 1e-5 (plus atol 1e-4 for
+  distances near 0, where |q|^2 - (2 q.x - |x|^2) cancels to a few f32 ulps).
+* A data_dir written by either engine recovers in the other.
+* The default mode ("approx", the bucketed scan) keeps recall@10 >= 0.95
+  against exact.
+* Configurations of later slices raise NotImplementedError, and device=None
+  means CUDA.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tpuvdb.core.config import DBConfig as JaxConfig
+from tpuvdb.core.types import SearchRequest as JaxRequest
+from tpuvdb.core.types import VectorData as JaxData
+from tpuvdb.engine.engine import VectorDBEngine as JaxEngine
+from tpuvdb_torch import DBConfig, VectorDBEngine
+from tpuvdb_torch.core.types import SearchRequest, VectorData
+
+DIM = 16
+
+
+def _cfg(cls, **kw):
+    base = dict(vector_dim=DIM, shard_count=4, shard_capacity=4096,
+                block_size=128, mirror_init_cap=256,
+                checkpoint_every_puts=10_000, compact_every_puts=1_000_000,
+                search_mode="exact")
+    base.update(kw)
+    return cls(**base)
+
+
+class Pair:
+    """Drives the JAX engine and the port's engine with the same calls."""
+
+    def __init__(self, path, **kw):
+        self.paths = (str(path / "jax"), str(path / "torch"))
+        self.kw = kw
+        self.open()
+
+    def open(self):
+        self.jax = JaxEngine(_cfg(JaxConfig, **self.kw), data_dir=self.paths[0])
+        self.port = VectorDBEngine(_cfg(DBConfig, **self.kw),
+                                   data_dir=self.paths[1], device="cpu")
+
+    def both(self, name, *args, **kw):
+        return getattr(self.jax, name)(*args, **kw), \
+            getattr(self.port, name)(*args, **kw)
+
+    def check_search(self, queries, k=10):
+        (jd, jk), (td, tk) = self.both("search_batch", queries, k)
+        assert tk == jk
+        np.testing.assert_allclose(td, jd, rtol=1e-5, atol=1e-4)
+        for q in queries[:3]:
+            jr = self.jax.search(JaxRequest(query_vector=q, top_k=5,
+                                            filter_metadata={"g": "1"}))
+            tr = self.port.search(SearchRequest(query_vector=q, top_k=5,
+                                                filter_metadata={"g": "1"}))
+            assert tr.search_result.keys == jr.search_result.keys
+            np.testing.assert_allclose(tr.search_result.scores,
+                                       jr.search_result.scores,
+                                       rtol=1e-5, atol=1e-4)
+        assert self.port.count() == self.jax.count()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_op_sequence_matches_jax_engine(rng, tmp_path, dtype):
+    pair = Pair(tmp_path, storage_dtype=dtype)
+    n = 600
+    data = rng.standard_normal((n, DIM)).astype(np.float32)
+    keys = [f"k{i}" for i in range(n)]
+    meta = [{"g": str(i % 3)} for i in range(n)]
+    queries = rng.standard_normal((12, DIM)).astype(np.float32)
+    queries[0] = data[5]
+
+    pair.both("put_rows", keys[:400], data[:400], metadatas=meta[:400])
+    pair.check_search(queries)                          # builds the index
+    pair.both("put_rows", keys[400:], data[400:], metadatas=meta[400:])
+    over = rng.standard_normal((30, DIM)).astype(np.float32)
+    pair.both("put_rows", keys[:30], over, metadatas=meta[:30])  # overwrite
+    pair.jax.put(JaxData(key="solo", vector=queries[1], metadata={"g": "1"}))
+    pair.port.put(VectorData(key="solo", vector=queries[1],
+                             metadata={"g": "1"}))
+    pair.check_search(queries)                          # staged: host delta
+    for i in range(40, 120, 2):
+        pair.both("delete", keys[i])
+    pair.check_search(queries)                          # staged deletes
+    pair.both("flush")
+    pair.check_search(queries)
+    pair.both("compact")
+    pair.check_search(queries)
+    pair.both("save_checkpoint")
+    more = rng.standard_normal((50, DIM)).astype(np.float32)
+    pair.both("put_rows", [f"m{i}" for i in range(50)], more,
+              metadatas=[{"g": "1"}] * 50)
+    for i in range(200, 220):
+        pair.both("delete", keys[i])
+    pair.check_search(queries)
+    want = pair.port.search_batch(queries, 10)
+    pair.both("close")
+    pair.open()                                         # checkpoint restart
+    pair.check_search(queries)
+    if dtype == "float32":
+        # bf16 scores rows from the host delta in f32 but device rows in
+        # bf16, so a restart (which moves the tail onto the device) may
+        # reorder near neighbours there; in f32 it changes nothing
+        assert pair.port.search_batch(queries, 10)[1] == want[1]
+    assert pair.port.get("m3").vector_data.metadata == {"g": "1"}
+    assert not pair.port.get(keys[200]).success
+    pair.both("close")
+
+
+def test_filtered_search_on_device_matches_jax(rng, tmp_path):
+    """Large filtered sets score on the device: the filter is a bool mask
+    ANDed with the index's validity. The threshold is lowered so a small
+    corpus takes that path in both engines."""
+    pair = Pair(tmp_path)
+    for eng in (pair.jax, pair.port):
+        eng._FILTER_DEVICE_MIN = 50
+    data = rng.standard_normal((400, DIM)).astype(np.float32)
+    pair.both("put_rows", [f"k{i}" for i in range(400)], data,
+              metadatas=[{"g": str(i % 3)} for i in range(400)])
+    pair.both("delete", "k1")
+    queries = rng.standard_normal((4, DIM)).astype(np.float32)
+    queries[0] = data[4]  # k4 is in group "1"
+    pair.check_search(queries)
+    hits = pair.port.search(SearchRequest(query_vector=queries[0], top_k=5,
+                                          filter_metadata={"g": "1"}))
+    assert hits.search_result.keys[0] == "k4"
+    assert all(int(k[1:]) % 3 == 1 for k in hits.search_result.keys)
+    pair.both("close")
+
+
+def _write_and_crash(eng, rng, data_cls, prefix):
+    """Checkpoint, then leave a WAL tail (puts, an overwrite, deletes) and
+    close only the WAL, as a crash would."""
+    n = 300
+    data = rng.standard_normal((n, DIM)).astype(np.float32)
+    eng.put_rows([f"{prefix}{i}" for i in range(n)], data,
+                 metadatas=[{"g": str(i % 2)} for i in range(n)])
+    eng.delete(f"{prefix}3")
+    eng.save_checkpoint()
+    eng.put(data_cls(key=f"{prefix}7", vector=data[8] + 0.25,
+                     metadata={"g": "x"}))
+    eng.put_batch([data_cls(key=f"tail{i}", vector=data[i] + 0.5)
+                   for i in range(20)])
+    eng.delete(f"{prefix}11")
+    queries = rng.standard_normal((8, DIM)).astype(np.float32)
+    want = eng.search_batch(queries, 10)
+    count = eng.count()
+    eng.wal.close()
+    return queries, want, count
+
+
+@pytest.mark.parametrize("jax_docstore,jax_mirrors", [
+    ("auto", "ram"),      # native KV snapshot (docstore.kv) when it builds
+    ("python", "ram"),    # docstore.msgpack
+    ("python", "mmap"),   # hardlinked mirror files in the checkpoint
+])
+def test_jax_data_dir_recovers_in_port(rng, tmp_path, jax_docstore,
+                                       jax_mirrors):
+    eng = JaxEngine(_cfg(JaxConfig, docstore_backend=jax_docstore,
+                         mirror_backend=jax_mirrors),
+                    data_dir=str(tmp_path))
+    queries, (wd, wk), count = _write_and_crash(eng, rng, JaxData, "j")
+    port = VectorDBEngine(_cfg(DBConfig), data_dir=str(tmp_path),
+                          device="cpu")
+    assert port.count() == count
+    td, tk = port.search_batch(queries, 10)
+    assert tk == wk
+    np.testing.assert_allclose(td, wd, rtol=1e-5, atol=1e-4)
+    assert port.get("j7").vector_data.metadata == {"g": "x"}
+    assert not port.get("j11").success and not port.get("j3").success
+    port.close()
+
+
+def test_port_data_dir_recovers_in_jax(rng, tmp_path):
+    port = VectorDBEngine(_cfg(DBConfig), data_dir=str(tmp_path),
+                          device="cpu")
+    queries, (wd, wk), count = _write_and_crash(port, rng, VectorData, "t")
+    eng = JaxEngine(_cfg(JaxConfig), data_dir=str(tmp_path))
+    assert eng.count() == count
+    jd, jk = eng.search_batch(queries, 10)
+    assert jk == wk
+    np.testing.assert_allclose(jd, wd, rtol=1e-5, atol=1e-4)
+    assert eng.get("t7").vector_data.metadata == {"g": "x"}
+    assert not eng.get("t11").success and not eng.get("t3").success
+    eng.close()
+    # and back again, now from the JAX engine's close() checkpoint
+    port = VectorDBEngine(_cfg(DBConfig), data_dir=str(tmp_path),
+                          device="cpu")
+    assert port.search_batch(queries, 10)[1] == wk
+    port.close()
+
+
+def test_default_mode_recall_against_exact(rng):
+    n, d = 4000, 32
+    data = rng.standard_normal((n, d)).astype(np.float32)
+    keys = [f"k{i}" for i in range(n)]
+    queries = rng.standard_normal((64, d)).astype(np.float32)
+    results = {}
+    for mode in ("approx", "exact"):
+        eng = VectorDBEngine(_cfg(DBConfig, vector_dim=d, search_mode=mode,
+                                  block_size=512), device="cpu")
+        assert eng.config.search_mode == mode
+        eng.put_rows(keys, data)
+        results[mode] = eng.search_batch(queries, 10)[1]
+    hit = sum(len(set(a) & set(e))
+              for a, e in zip(results["approx"], results["exact"]))
+    assert hit / (10 * len(queries)) >= 0.95
+    assert DBConfig().search_mode == "approx"
+
+
+@pytest.mark.parametrize("kw", [
+    {"index_type": "ivf"},
+    {"storage_dtype": "int8"},
+    {"search_coalesce": True},
+    {"docstore_backend": "native"},
+    {"mirror_backend": "mmap"},
+])
+def test_waiting_configurations_raise(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        VectorDBEngine(_cfg(DBConfig, **kw), device="cpu")
+
+
+def test_mesh_and_mmap_auto_raise(tmp_path):
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        VectorDBEngine(_cfg(DBConfig), mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="mmap"):
+        VectorDBEngine(_cfg(DBConfig, mirror_backend="auto"),
+                       data_dir=str(tmp_path), device="cpu")
+    eng = VectorDBEngine(_cfg(DBConfig, mirror_backend="auto"), device="cpu")
+    assert eng.docstore.backend == "python"  # "auto" resolves to python
+
+
+def test_device_none_means_cuda():
+    if torch.cuda.is_available():
+        assert VectorDBEngine(_cfg(DBConfig)).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        VectorDBEngine(_cfg(DBConfig))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        from tpuvdb_torch.index.exact import DeviceExactIndex
+        from tpuvdb_torch.index.layout import StackedLayout
+
+        DeviceExactIndex(StackedLayout(1, 128, 8))
+
+
+def test_config_json_interchanges_with_jax():
+    cfg = _cfg(DBConfig, storage_dtype="bfloat16", mesh_shape=(2, 2))
+    jcfg = JaxConfig.from_json(cfg.to_json())
+    assert jcfg.to_json() == cfg.to_json()
+    assert DBConfig.from_json(_cfg(JaxConfig).to_json()) == _cfg(DBConfig)
+    assert cfg.torch_dtype() == torch.bfloat16

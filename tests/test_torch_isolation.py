@@ -1,0 +1,70 @@
+"""tpuvdb_torch and chip_smoke.py stand alone: no jax, nothing of tpuvdb.
+
+Only the tests import both packages. The port keeps its own copies of the
+host-only modules it needs, so it imports (and runs) where jax is absent.
+"""
+
+import os
+import re
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "tpuvdb_torch")
+
+_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|tpuvdb)(\.|\s|,|$)",
+                        re.MULTILINE)
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None          # any `import jax` now raises
+import tpuvdb_torch
+names = [m.name for m in pkgutil.walk_packages(tpuvdb_torch.__path__,
+                                               "tpuvdb_torch.")]
+for name in names:
+    importlib.import_module(name)
+from tpuvdb_torch import VectorDBEngine, DBConfig
+leaked = sorted(m for m in sys.modules
+                if m == "tpuvdb" or m.startswith("tpuvdb.")
+                or m == "jax" and sys.modules[m] is not None
+                or m.startswith("jax."))
+print(len(names), leaked)
+assert not leaked, leaked
+"""
+
+
+def _sources():
+    for dirpath, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_port_imports_without_jax_or_tpuvdb():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT
+    res = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    n_modules = int(res.stdout.split()[0])
+    assert n_modules >= 20  # every subpackage and module was walked
+
+
+def test_no_source_imports_jax_or_tpuvdb():
+    offenders = []
+    for path in _sources():
+        with open(path) as f:
+            for m in _FORBIDDEN.finditer(f.read()):
+                offenders.append(f"{os.path.relpath(path, ROOT)}: "
+                                 f"{m.group(0).strip()}")
+    assert not offenders, offenders
+
+
+def test_forbidden_pattern_allows_the_port_itself():
+    assert _FORBIDDEN.search("from jax import numpy")
+    assert _FORBIDDEN.search("import tpuvdb.engine")
+    assert _FORBIDDEN.search("  from tpuvdb.index import layout")
+    assert _FORBIDDEN.search("import jax, numpy")
+    assert not _FORBIDDEN.search("from tpuvdb_torch.index import layout")
+    assert not _FORBIDDEN.search("import tpuvdb_torch")

@@ -1,0 +1,37 @@
+"""tpuvdb_torch — the tpuvdb vector database in PyTorch on an NVIDIA H100.
+
+A second package beside `tpuvdb` (JAX on a TPU), with the same module
+layout and public names so each part finds its counterpart:
+
+  core/      config, wire types, errors       (copies of tpuvdb.core)
+  utils/     logging, MD5 routing, tracing    (copies; tracing on torch.profiler)
+  store/     WAL, doc store, checkpoints      (host-only copies, python backends;
+                                               on-disk formats byte-compatible)
+  index/     host mirrors + device exact index (corpus in CUDA tensors)
+  kernels/   distance/top-k torch ops and the hand-written CUDA scan
+             (csrc/scan.cu, the counterpart of tpuvdb.kernels.pallas_scan)
+  engine/    put/get/delete/search, flat index only
+
+It imports `torch`, never `jax`, and nothing of `tpuvdb`. Every entry point
+takes `device=None`, which means "cuda", and raises when CUDA is missing;
+pass `device="cpu"` to run the plain PyTorch versions on the CPU.
+"""
+
+__version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # lazy top-level conveniences, as in tpuvdb/__init__.py
+    if name == "VectorDBEngine":
+        from tpuvdb_torch.engine.engine import VectorDBEngine
+
+        return VectorDBEngine
+    if name == "DBConfig":
+        from tpuvdb_torch.core.config import DBConfig
+
+        return DBConfig
+    if name in ("VectorData", "SearchRequest", "SearchResult", "Response"):
+        from tpuvdb_torch.core import types
+
+        return getattr(types, name)
+    raise AttributeError(f"module 'tpuvdb_torch' has no attribute {name!r}")

@@ -1,0 +1,944 @@
+"""The database engine, flat index: the port of tpuvdb.engine.engine.
+
+put / get / delete / search orchestration over host state (WAL, doc store,
+shard mirrors) and one device index (`DeviceExactIndex`, torch tensors on
+`device`, None = "cuda"):
+
+  * keys route to shards by MD5 (utils/sharding_utils.py);
+  * an overwrite writes a fresh slot and soft-deletes the old one;
+  * every mutation goes to the WAL, checkpoints follow a put cadence;
+  * `get` reads the doc store and the host mirror, never the device;
+  * mutations stage in the mirrors and scatter to the device in batches;
+    staged and mid-scatter rows are served by a host delta scan, so a
+    search never waits for small write sets;
+  * search = device scan (+ host delta scan), key resolution, ascending
+    sort; filters and thresholds are honoured.
+
+The on-disk state (WAL segments, checkpoints) is the reference's, so a
+`data_dir` written by either package opens in the other.
+
+Configurations the port does not run yet raise NotImplementedError naming
+the ROADMAP.md item that brings them: IVF, int8 storage, a mesh, search
+coalescing, the native doc store and mmap mirrors.
+
+Snapshot rule. The reference's scatters donate the buffers a concurrent
+search holds, and that search retries on the "donated" error. The port's
+scatters write in place and raise nothing, so a search instead:
+  1. records `DeviceExactIndex.version` with its snapshot and retries if a
+     scatter bumped it while the scan ran;
+  2. drops any host-delta row whose row id the device scan also returned
+     (a scatter enqueued just before the snapshot is already on the device
+     while its batch is still in `_inflight`).
+Together these keep a row from coming back twice.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from tpuvdb_torch.core import errors
+from tpuvdb_torch.core.config import DBConfig
+from tpuvdb_torch.core.types import (
+    Response,
+    SearchHit,
+    SearchRequest,
+    SearchResult,
+    VectorData,
+)
+from tpuvdb_torch.device import resolve_device
+from tpuvdb_torch.index.exact import DeviceExactIndex
+from tpuvdb_torch.index.layout import ShardMirror
+from tpuvdb_torch.store.checkpoint import CheckpointManager
+from tpuvdb_torch.store.kv import DocEntry, DocStore
+from tpuvdb_torch.store.wal import WriteAheadLog
+from tpuvdb_torch.utils.logging import get_logger
+from tpuvdb_torch.utils.sharding_utils import get_shard_id
+from tpuvdb_torch.utils.tracing import StageTimer
+
+logger = get_logger("tpuvdb_torch.engine")
+
+
+def _check_supported(cfg: DBConfig, data_dir: Optional[str], mesh) -> None:
+    """Raise NotImplementedError for the configurations that later slices
+    of the port bring (ROADMAP.md queue 1)."""
+    waiting = []
+    if cfg.index_type == "ivf":
+        waiting.append("index_type='ivf' (item 7, IVF)")
+    if cfg.storage_dtype == "int8":
+        waiting.append("storage_dtype='int8' (item 6, int8 storage tier)")
+    if mesh is not None:
+        waiting.append("mesh (item 9, multi-GPU)")
+    if cfg.search_coalesce:
+        waiting.append("search_coalesce=True (item 10, service)")
+    if cfg.docstore_backend == "native":
+        waiting.append("docstore_backend='native' (item 12, native runtime)")
+    if (cfg.mirror_backend == "mmap"
+            or (cfg.mirror_backend == "auto" and data_dir is not None)):
+        waiting.append("mmap mirrors (item 12, native runtime and mmap)")
+    if waiting:
+        raise NotImplementedError(
+            "not ported yet (see ROADMAP.md queue 1): " + "; ".join(waiting))
+
+
+class VectorDBEngine:
+    def __init__(
+        self,
+        config: Optional[DBConfig] = None,
+        data_dir: Optional[str] = None,
+        mesh=None,
+        device=None,
+    ):
+        self.config = config or DBConfig()
+        if data_dir is None:
+            data_dir = self.config.data_dir  # None = in-memory
+        _check_supported(self.config, data_dir, mesh)
+        self.device = resolve_device(device)
+        self.data_dir = data_dir
+        self._lock = threading.RLock()
+
+        cfg = self.config
+        self.docstore = DocStore()
+        self.mirrors: List[ShardMirror] = [
+            self._new_mirror(i) for i in range(cfg.shard_count)
+        ]
+        self.wal: Optional[WriteAheadLog] = None
+        self.ckpts: Optional[CheckpointManager] = None
+        self._index: Optional[DeviceExactIndex] = None
+
+        # staged (shard, slot) writes/deletes not yet scattered to device
+        self._staged_updates: List[Tuple[int, int]] = []
+        self._staged_deletes: List[Tuple[int, int]] = []
+        # batches mid-scatter: still served by the host delta scan until the
+        # device write lands (read-your-writes across the async flush)
+        self._inflight: Dict[int, Tuple[list, list]] = {}
+        self._inflight_token = 0
+        self._flush_lock = threading.Lock()  # serializes device scatters
+        self._ckpt_lock = threading.Lock()   # serializes checkpoint writes
+        # ops arriving while an online compaction rebuilds (replayed onto
+        # the new state at swap time); None = no compaction running
+        self._compact_journal: Optional[list] = None
+        self._bg_flush_thread: Optional[threading.Thread] = None
+
+        self.timers = StageTimer()
+        # slot identity epoch: bumped by compaction, which reuses slots; a
+        # search that overlapped a bump retries
+        self._generation = 0
+        self._puts_since_ckpt = 0
+        self._puts_since_compact = 0
+        # high-water LSN of an existing WAL dir when the WAL is disabled
+        # (checkpoints record it so a re-enabled WAL never replays a
+        # stale tail over newer state)
+        self._wal_floor = 0
+        self.stats: Dict[str, int] = {
+            "puts": 0, "gets": 0, "deletes": 0, "searches": 0,
+            "flushes": 0, "compactions": 0, "checkpoints": 0,
+            "wal_replayed": 0, "search_retries": 0,
+        }
+
+        if data_dir is not None:
+            os.makedirs(data_dir, exist_ok=True)
+            self.ckpts = CheckpointManager(
+                os.path.join(data_dir, "checkpoints"), cfg.max_checkpoints)
+            self.wal = WriteAheadLog(
+                os.path.join(data_dir, "wal"),
+                max_bytes=cfg.wal_max_bytes,
+                retention_days=cfg.wal_retention_days,
+                fsync=cfg.wal_fsync,
+            ) if cfg.wal_enabled else None
+            if self.wal is None and os.path.isdir(
+                    os.path.join(data_dir, "wal")):
+                self._wal_floor = WriteAheadLog(
+                    os.path.join(data_dir, "wal")).last_seq
+            self._recover()
+            logger.info("engine opened: %d docs, data_dir=%s, dtype=%s, "
+                        "device=%s", len(self.docstore), data_dir,
+                        cfg.storage_dtype, self.device)
+
+    def _new_mirror(self, shard: int) -> ShardMirror:
+        cfg = self.config
+        return ShardMirror(cfg.vector_dim, cfg.shard_capacity,
+                           init_cap=cfg.mirror_init_cap, block=128,
+                           dtype=cfg.mirror_dtype)
+
+    # --------------------------------------------------------------- recovery
+
+    def _recover(self):
+        """Checkpoint restore + WAL tail replay. The checkpoint records the
+        last WAL LSN it covers; only newer records replay."""
+        wal_pos = 0
+        restored = self.ckpts.load_latest(self.config,
+                                          mirror_factory=self._new_mirror)
+        if restored is not None:
+            self.docstore, self.mirrors, wal_pos = restored
+            if len(self.mirrors) != self.config.shard_count:
+                raise errors.CheckpointError(
+                    f"checkpoint has {len(self.mirrors)} shards, "
+                    f"config wants {self.config.shard_count}")
+        if self.wal is None and self._wal_floor > wal_pos:
+            logger.warning(
+                "WAL disabled but %d unapplied record(s) exist beyond the "
+                "checkpoint (seq %d..%d); this run's state supersedes them "
+                "and the next checkpoint makes that durable",
+                self._wal_floor - wal_pos, wal_pos + 1, self._wal_floor)
+        for rec in (self.wal.replay(after_seq=wal_pos)
+                    if self.wal is not None else ()):
+            op = rec.get("op")
+            if op == "put":
+                vd = VectorData(key=rec["key"], vector=rec["vector"],
+                                metadata=rec.get("metadata", {}),
+                                timestamp=rec.get("timestamp", 0))
+                r = self.put(vd, replay_mode=True)
+                if not r.success:
+                    logger.warning("WAL replay dropped put %s: %s",
+                                   rec["key"], r.message)
+            elif op == "delete":
+                self.delete(rec["key"], replay_mode=True)
+            self.stats["wal_replayed"] += 1
+
+    # ------------------------------------------------------------------- puts
+
+    def put(self, data: VectorData, replay_mode: bool = False) -> Response:
+        try:
+            vec = data.vector_np(self.config.vector_dim)
+        except ValueError as e:
+            return Response.fail(str(e))
+        do_compact = do_ckpt = False
+        with self._lock:
+            try:
+                self._put_one(data.key, vec, data.metadata, data.timestamp,
+                              replay_mode)
+            except errors.CapacityExceeded as e:
+                return Response.fail(f"capacity exceeded: {e}")
+            if not replay_mode:
+                do_compact, do_ckpt = self._maintenance_due()
+        self._run_maintenance(do_compact, do_ckpt)
+        logger.debug("put %s", data.key)
+        return Response.ok(f"put {data.key}")
+
+    def put_batch(self, batch: Sequence[VectorData],
+                  replay_mode: bool = False) -> Response:
+        """Group-commit ingest: one WAL write+fsync for the whole batch."""
+        try:
+            vecs = [d.vector_np(self.config.vector_dim) for d in batch]
+        except ValueError as e:
+            return Response.fail(str(e))
+        return self.put_rows(
+            [d.key for d in batch],
+            np.stack(vecs) if vecs else np.zeros((0, self.config.vector_dim),
+                                                 np.float32),
+            metadatas=[d.metadata for d in batch],
+            timestamps=[d.timestamp for d in batch],
+            replay_mode=replay_mode,
+        )
+
+    def put_rows(
+        self,
+        keys: Sequence[str],
+        vectors: np.ndarray,
+        metadatas: Optional[Sequence[Dict[str, str]]] = None,
+        timestamps: Optional[Sequence[int]] = None,
+        replay_mode: bool = False,
+    ) -> Response:
+        """Columnar bulk ingest: rows group by shard, slots allocate in one
+        consecutive reservation per shard, the mirror write runs vectorized
+        per shard, and the whole call is one WAL group commit. The batch is
+        all-or-nothing on capacity."""
+        vecs = np.asarray(vectors, np.float32)
+        if vecs.ndim != 2 or vecs.shape[1] != self.config.vector_dim:
+            return Response.fail(
+                f"expected (n, {self.config.vector_dim}) vectors, "
+                f"got {vecs.shape}")
+        n = vecs.shape[0]
+        if len(keys) != n:
+            return Response.fail(f"{len(keys)} keys for {n} vectors")
+        empty_md: Dict[str, str] = {}
+        with self._lock:
+            shard_ids = np.fromiter(
+                (get_shard_id(k, self.config.shard_count) for k in keys),
+                np.int32, n)
+            counts = np.bincount(shard_ids,
+                                 minlength=self.config.shard_count)
+            for s in range(self.config.shard_count):
+                c = int(counts[s])
+                m = self.mirrors[s]
+                if c and m.used() + c > m.capacity:
+                    return Response.fail(
+                        f"capacity exceeded: shard {s} needs {c} slots, "
+                        f"{m.capacity - m.used()} free (no records applied)")
+            applied = 0
+            wal_records = []
+            journal = self._compact_journal
+            for s in range(self.config.shard_count):
+                idx = np.flatnonzero(shard_ids == s)
+                if not len(idx):
+                    continue
+                mirror = self.mirrors[s]
+                first = mirror.alloc(len(idx))
+                mirror.write_batch(first, vecs[idx])
+                idx_list = idx.tolist()
+                entries = []
+                for j, i in enumerate(idx_list):
+                    md = metadatas[i] if metadatas is not None else empty_md
+                    entries.append(DocEntry(
+                        key=keys[i], shard=s, slot=first + j,
+                        metadata=dict(md),
+                        timestamp=(timestamps[i] if timestamps is not None
+                                   else 0)))
+                prevs = self.docstore.put_many(entries)
+                self._staged_updates.extend(
+                    (s, first + j) for j in range(len(idx_list)))
+                for j, (i, prev) in enumerate(zip(idx_list, prevs)):
+                    if prev is not None:
+                        # overwrite = fresh slot + soft-delete the old one
+                        self.mirrors[prev[0]].mark_deleted(prev[1])
+                        self._staged_deletes.append(prev)
+                    e = entries[j]
+                    if journal is not None:
+                        journal.append(("put", e.key, vecs[i].copy(),
+                                        dict(e.metadata), e.timestamp))
+                    if not replay_mode and self.wal is not None:
+                        wal_records.append({
+                            "op": "put", "key": e.key, "vector": vecs[i],
+                            "metadata": dict(e.metadata),
+                            "timestamp": e.timestamp,
+                        })
+                applied += len(idx)
+            if self.wal is not None and wal_records:
+                self.wal.append_batch(wal_records)
+            self.stats["puts"] += applied
+            self._puts_since_ckpt += applied
+            self._puts_since_compact += applied
+            do_compact, do_ckpt = (self._maintenance_due() if not replay_mode
+                                   else (False, False))
+        self._run_maintenance(do_compact, do_ckpt)
+        return Response.ok(f"put {n} records")
+
+    def _put_one(self, key, vec, metadata, timestamp, replay_mode):
+        shard = get_shard_id(key, self.config.shard_count)
+        mirror = self.mirrors[shard]
+        prev = self.docstore.get(key)
+        # allocate the new slot BEFORE touching the old one: if alloc raises
+        # CapacityExceeded on an overwrite, the existing record stays intact
+        slot = mirror.alloc()
+        mirror.write(slot, vec)
+        if prev is not None:
+            self.mirrors[prev.shard].mark_deleted(prev.slot)
+            self._staged_deletes.append((prev.shard, prev.slot))
+        if self.wal is not None and not replay_mode:
+            self.wal.append("put", key, vector=vec, metadata=metadata,
+                            timestamp=timestamp)
+        self.docstore.put(DocEntry(key=key, shard=shard, slot=slot,
+                                   metadata=dict(metadata),
+                                   timestamp=timestamp))
+        self._staged_updates.append((shard, slot))
+        if self._compact_journal is not None:
+            self._compact_journal.append(
+                ("put", key, vec.copy(), dict(metadata), timestamp))
+        self.stats["puts"] += 1
+        self._puts_since_ckpt += 1
+        self._puts_since_compact += 1
+
+    def _maintenance_due(self):
+        """Check cadences under the lock; the work runs with the lock
+        released (compact's swap takes _flush_lock before the engine lock)."""
+        cfg = self.config
+        do_compact = self._puts_since_compact >= cfg.compact_every_puts
+        do_ckpt = (self.ckpts is not None
+                   and self._puts_since_ckpt >= cfg.checkpoint_every_puts)
+        return do_compact, do_ckpt
+
+    def _run_maintenance(self, do_compact: bool, do_ckpt: bool):
+        if do_compact:
+            self.compact()
+        if do_ckpt:
+            self.save_checkpoint()
+
+    # ---------------------------------------------------------------- get/del
+
+    def get(self, key: str) -> Response:
+        with self._lock:
+            self.stats["gets"] += 1
+            e = self.docstore.get(key)
+            if e is None:
+                return Response.fail(f"{errors.NOT_FOUND_PREFIX}: {key}")
+            vec = self.mirrors[e.shard].vector_at(e.slot)
+            return Response.ok(
+                "ok",
+                vector_data=VectorData(
+                    key=key, vector=[float(x) for x in vec],
+                    metadata=dict(e.metadata), timestamp=e.timestamp,
+                ),
+            )
+
+    def delete(self, key: str, replay_mode: bool = False) -> Response:
+        with self._lock:
+            e = self.docstore.delete(key)
+            if e is None:
+                return Response.fail(f"{errors.NOT_FOUND_PREFIX}: {key}")
+            self.mirrors[e.shard].mark_deleted(e.slot)
+            self._staged_deletes.append((e.shard, e.slot))
+            if self._compact_journal is not None:
+                self._compact_journal.append(("delete", key, None, None, 0))
+            if self.wal is not None and not replay_mode:
+                self.wal.append("delete", key)
+            self.stats["deletes"] += 1
+            logger.debug("delete %s", key)
+            return Response.ok(f"deleted {key}")
+
+    # ------------------------------------------------------------------ flush
+
+    def flush(self):
+        """Apply staged mirror writes/deletes to the device index."""
+        self._flush_flat()
+
+    def _flush_flat(self):
+        """The device scatter runs OUTSIDE the engine lock (serialized by
+        _flush_lock) so puts/searches proceed during it; the batch being
+        scattered stays visible to the host delta scan via _inflight until
+        the scatter lands."""
+        with self._lock:
+            if self._index is None or self._index.needs_rebuild(self.mirrors):
+                self._rebuild_device_index()
+                return
+            if not (self._staged_updates or self._staged_deletes):
+                return
+            ups = self._staged_updates
+            dels = self._staged_deletes
+            self._staged_updates = []
+            self._staged_deletes = []
+            self._inflight_token += 1
+            token = self._inflight_token
+            self._inflight[token] = (ups, dels)
+            layout = self._index.layout
+            index = self._index
+            if ups:
+                ups_arr = np.asarray(ups, np.int64)
+                rows = ups_arr[:, 0] * layout.phys_cap + ups_arr[:, 1]
+                vecs = np.empty((len(ups), layout.dim), np.float32)
+                valid = np.empty(len(ups), bool)
+                for s in np.unique(ups_arr[:, 0]).tolist():
+                    m = ups_arr[:, 0] == s
+                    slots = ups_arr[m, 1]
+                    vecs[m] = self.mirrors[s].rows_f32(slots)
+                    valid[m] = self.mirrors[s].valid[slots]
+            if dels:
+                dels_arr = np.asarray(dels, np.int64)
+                del_rows = dels_arr[:, 0] * layout.phys_cap + dels_arr[:, 1]
+        try:
+            with self._flush_lock:
+                if ups:
+                    index.apply_updates(rows, vecs, valid)
+                if dels:
+                    index.apply_deletes(del_rows)
+        finally:
+            with self._lock:
+                self._inflight.pop(token, None)
+                self.stats["flushes"] += 1
+
+    def _rebuild_device_index(self):
+        self._index = DeviceExactIndex.build(
+            self.mirrors,
+            dtype=self.config.torch_dtype(),
+            block_size=self.config.block_size,
+            search_mode=self.config.search_mode,
+            recall_target=self.config.recall_target,
+            device=self.device,
+        )
+        self._staged_updates.clear()
+        self._staged_deletes.clear()
+        self.stats["flushes"] += 1
+
+    # ----------------------------------------------------------------- search
+
+    def search(self, req: SearchRequest) -> Response:
+        try:
+            q = req.query_np(self.config.vector_dim)
+        except ValueError as e:
+            return Response.fail(str(e))
+        k = req.top_k if req.top_k > 0 else self.config.default_top_k
+        hits = self.search_hits(q, k, filter_metadata=req.filter_metadata,
+                                threshold=req.threshold)
+        return Response.ok(f"{len(hits)} results",
+                           search_result=SearchResult.from_hits(hits))
+
+    def search_hits(
+        self,
+        query: np.ndarray,
+        k: int,
+        filter_metadata: Optional[Dict[str, str]] = None,
+        threshold: float = 0.0,
+    ) -> List[SearchHit]:
+        if filter_metadata:
+            return self._filtered_search(query, k, filter_metadata, threshold)
+        dists, keys_rows = self.search_batch(query.reshape(1, -1), k,
+                                             overfetch=threshold > 0)
+        hits: List[SearchHit] = []
+        # lock: docstore entry and mirror vector must come from the same
+        # generation (a compaction swap between the two reads would mismatch)
+        with self._lock:
+            for key, score in zip(keys_rows[0], dists[0]):
+                if key is None:
+                    continue
+                if threshold > 0 and score > threshold:
+                    continue
+                e = self.docstore.get(key)
+                if e is None:
+                    continue
+                vec = self.mirrors[e.shard].vector_at(e.slot)
+                hits.append(SearchHit(key=key, score=float(score),
+                                      vector=[float(x) for x in vec],
+                                      metadata=dict(e.metadata)))
+                if len(hits) >= k:
+                    break
+        return hits
+
+    # filtered sets above this size score on the device (masked scan)
+    # instead of on the host
+    _FILTER_DEVICE_MIN = 8192
+
+    def _filtered_search(
+        self, query: np.ndarray, k: int,
+        filter_metadata: Dict[str, str], threshold: float,
+    ) -> List[SearchHit]:
+        """Filter pushdown via the metadata inverted index: score only the
+        slots that match ALL filter terms. Small candidate sets score on
+        the host; large ones run a device scan with the filter folded into
+        the validity mask."""
+        with self._lock:
+            cands = self.docstore.find_by_metadata(filter_metadata)
+            if not cands:
+                return []
+            pairs = [(s, sl) for (s, sl) in cands
+                     if self.mirrors[s].is_valid(sl)]
+            if not pairs:
+                return []
+            use_device = len(pairs) >= self._FILTER_DEVICE_MIN
+        if use_device:
+            # flush OUTSIDE the lock (flush takes the flush lock; taking it
+            # while holding the engine lock would invert the lock order)
+            with self._lock:
+                stale = (self._index is None
+                         or self._index.needs_rebuild(self.mirrors)
+                         or self._staged_updates or self._staged_deletes)
+            if stale:
+                self.flush()
+            with self._lock:
+                return self._filtered_search_device(query, k, pairs, threshold)
+        with self._lock:
+            mat = np.stack([self.mirrors[s].vector_at(sl) for s, sl in pairs])
+            q = query.reshape(-1).astype(np.float32)
+            d2 = np.sum((mat - q[None, :]) ** 2, axis=1)
+            order = np.argsort(d2, kind="stable")[: max(k, 0)]
+            hits: List[SearchHit] = []
+            for i in order:
+                score = float(d2[i])
+                if threshold > 0 and score > threshold:
+                    continue
+                s, sl = pairs[i]
+                key = self.docstore.key_at(s, sl)
+                if key is None:
+                    continue
+                e = self.docstore.get(key)
+                hits.append(SearchHit(key=key, score=score,
+                                      vector=[float(x) for x in mat[i]],
+                                      metadata=dict(e.metadata) if e else {}))
+                if len(hits) >= k:
+                    break
+            self.stats["searches"] += 1
+            return hits
+
+    def _filtered_search_device(self, query, k, pairs, threshold):
+        """Called under the engine lock, post-flush. Masked device scan:
+        the filter is a bool mask ANDed with the index's validity on the
+        device."""
+        index = self._index
+        if index is None:
+            return []
+        layout = index.layout
+        rows = torch.tensor([layout.row_of(s, sl) for s, sl in pairs],
+                            dtype=torch.int64, device=index.device)
+        mask = torch.zeros(layout.total_rows, dtype=torch.bool,
+                           device=index.device)
+        mask[rows] = True
+        dists, idx = index.search(query.reshape(1, -1), k,
+                                  valid=index.valid & mask)
+        hits: List[SearchHit] = []
+        for score, r in zip(dists[0], idx[0]):
+            if r < 0 or (threshold > 0 and score > threshold):
+                continue
+            s, sl = layout.shard_slot_of(int(r))
+            key = self.docstore.key_at(s, sl)
+            if key is None:
+                continue
+            e = self.docstore.get(key)
+            vec = self.mirrors[s].vector_at(sl)
+            hits.append(SearchHit(key=key, score=float(score),
+                                  vector=[float(x) for x in vec],
+                                  metadata=dict(e.metadata) if e else {}))
+        self.stats["searches"] += 1
+        return hits
+
+    def search_batch(
+        self, queries: np.ndarray, k: int, overfetch: bool = False
+    ) -> Tuple[np.ndarray, List[List[Optional[str]]]]:
+        """Raw batched search: returns (dists (Q, fetch_k), keys
+        list-of-lists). With overfetch=True, fetches extra candidates so
+        post-filters (metadata/threshold) can refill."""
+        q = np.atleast_2d(np.asarray(queries, np.float32))
+        return self._search_batch_direct(q, k, overfetch)
+
+    def _search_batch_direct(
+        self, queries: np.ndarray, k: int, overfetch: bool = False
+    ) -> Tuple[np.ndarray, List[List[Optional[str]]]]:
+        for attempt in range(4):
+            if attempt >= 2:
+                # bounded backoff: let the flush/compaction churn that
+                # invalidated the previous snapshots settle
+                time.sleep(0.002 * attempt)
+            status, res = self._try_search_batch(queries, k, overfetch)
+            if status == "flush":
+                with self.timers.stage("search.flush"):
+                    self.flush()
+                status, res = self._try_search_batch(queries, k, overfetch)
+            if status == "ok":
+                return res
+            with self._lock:
+                self.stats["search_retries"] += 1
+        # every lock-free snapshot got invalidated: serialize against the
+        # invalidators (scatters and compaction swaps both hold _flush_lock)
+        for _ in range(3):
+            with self.timers.stage("search.flush"):
+                self.flush()
+            with self._flush_lock:
+                status, res = self._try_search_batch(queries, k, overfetch)
+                if status == "ok":
+                    return res
+        raise RuntimeError("search retry limit exceeded (compaction storm)")
+
+    def _try_search_batch(self, queries, k, overfetch):
+        """One lock-free search attempt. Returns (status, result):
+        "ok" — result is (dists, keys); "flush" — caller must flush and
+        retry (no index yet / layout outgrown / staging buffer large);
+        "retry" — a scatter or a compaction overlapped the scan."""
+        with self._lock:
+            if (self._index is None
+                    and sum(m.live() for m in self.mirrors) == 0):
+                # an empty engine never builds an index: empty results
+                q = np.atleast_2d(np.asarray(queries))
+                fetch = max(2 * k, k + 16) if overfetch else k
+                empty_d = np.full((q.shape[0], fetch), np.inf,
+                                  dtype=np.float32)
+                empty_k = [[None] * fetch for _ in range(q.shape[0])]
+                self.stats["searches"] += 1
+                return "ok", (empty_d, empty_k)
+            # flush only when unavoidable; small staged write sets are
+            # served by the host-side delta scan so ingest never stalls
+            # queries
+            must_flush = (
+                self._index is None
+                or self._index.needs_rebuild(self.mirrors)
+                or len(self._staged_updates) + len(self._staged_deletes)
+                > self.config.flush_batch
+            )
+        if must_flush:
+            return "flush", None
+        with self._lock:
+            if self._index is None:
+                return "retry", None  # flush raced with a compaction
+            index = self._index
+            layout = index.layout
+            fetch_k = max(2 * k, k + 16) if overfetch else k
+            out_k = min(fetch_k, layout.total_rows)
+            fetch_k = out_k
+            self.stats["searches"] += 1
+            gen = self._generation
+            version = index.version
+            # host-delta snapshot: staged AND mid-scatter (inflight) slots,
+            # so freshly-put vectors stay visible across the flush
+            delta = []
+            n_del = len(self._staged_deletes)
+            pending = list(self._staged_updates)
+            for ups, dels in self._inflight.values():
+                pending.extend(ups)
+                n_del += len(dels)
+            for s, sl in pending:
+                if self.mirrors[s].is_valid(sl):
+                    delta.append((layout.row_of(s, sl),
+                                  self.mirrors[s].vector_at(sl).copy()))
+        # the device call runs OUTSIDE the engine lock; slots are
+        # append-only, so concurrent puts/deletes cannot corrupt it
+        with self.timers.stage("search.device"):
+            dists, rows = self._flat_search_rows(queries, fetch_k, index,
+                                                 delta, n_del)
+        if index.version != version:
+            return "retry", None  # a scatter overlapped the scan
+        with self.timers.stage("search.assemble"):
+            return self._assemble_results(dists, rows, gen, fetch_k,
+                                          layout, out_k)
+
+    def _assemble_results(self, dists, rows, gen, fetch_k, layout, out_k):
+        """Resolve device rows to keys and compact live hits per row."""
+        with self._lock:
+            if self._generation != gen:
+                return "retry", None  # compacted mid-search: slots moved
+            # the scan returns the full width (fetch_k padded by the
+            # staged-delete count): staged-deleted slots resolve to no key
+            # here, so compact live hits to the front and truncate
+            qn, width = rows.shape
+            res_k = min(out_k, width)
+            # fast path: every caller-visible row resolves live
+            r_cut = np.ascontiguousarray(rows[:, :res_k]).reshape(-1)
+            keys, n_missing = self.docstore.keys_rows(
+                r_cut, layout.phys_cap, row=res_k)
+            if n_missing == 0:
+                out_d = np.asarray(dists, np.float32)[:, :res_k]
+                return "ok", (out_d, keys)
+            # slow path: some candidate is dead / padded / staged-deleted
+            flat = rows.reshape(-1)
+            nn = flat >= 0
+            live = np.zeros(flat.shape[0], bool)
+            if nn.any():
+                live[nn] = self.docstore.slots_live(
+                    flat[nn] // layout.phys_cap, flat[nn] % layout.phys_cap)
+            live = live.reshape(qn, width)
+            order = np.argsort(~live, axis=1, kind="stable")
+            live_sorted = np.take_along_axis(live, order, axis=1)[:, :res_k]
+            d_sorted = np.take_along_axis(
+                np.asarray(dists, np.float32), order, axis=1)[:, :res_k]
+            r_sorted = np.take_along_axis(rows, order, axis=1)[:, :res_k]
+            pad = res_k - r_sorted.shape[1]
+            if pad:
+                live_sorted = np.pad(live_sorted, ((0, 0), (0, pad)))
+                d_sorted = np.pad(d_sorted, ((0, 0), (0, pad)))
+                r_sorted = np.pad(r_sorted, ((0, 0), (0, pad)),
+                                  constant_values=-1)
+            sel = live_sorted.reshape(-1)
+            keys_flat: List[Optional[str]] = [None] * sel.shape[0]
+            if sel.any():
+                rr = r_sorted.reshape(-1)[sel]
+                resolved = self.docstore.keys_at_bulk(
+                    rr // layout.phys_cap, rr % layout.phys_cap)
+                for pos, key in zip(np.flatnonzero(sel).tolist(), resolved):
+                    keys_flat[pos] = key
+        out_d = np.where(live_sorted, d_sorted, np.inf).astype(np.float32)
+        keys = [keys_flat[i * res_k:(i + 1) * res_k] for i in range(qn)]
+        return "ok", (out_d, keys)
+
+    def _flat_search_rows(self, queries: np.ndarray, k: int, index, delta,
+                          n_del):
+        """Device scan + host delta scan over staged-but-unflushed writes.
+
+        Staged deletes need no masking: deletion already unmaps the old
+        slot in the doc store, so stale device hits resolve to no key and
+        are dropped at key resolution; the device fetch is padded by the
+        staged-delete count to compensate. A delta row that the device
+        scan also returned (its scatter landed before the scan) is dropped,
+        so no row comes back twice.
+        """
+        dev_k = min(k + n_del, index.layout.total_rows)
+        dists, rows = index.search(queries, dev_k)
+        rows = rows.astype(np.int64)
+        if not delta:
+            return dists, rows
+        mat = np.stack([v for _, v in delta])
+        q = np.asarray(queries, np.float32)
+        d2 = (np.sum(q * q, axis=1, keepdims=True)
+              + np.einsum("nd,nd->n", mat, mat)[None, :]
+              - 2.0 * (q @ mat.T))
+        drows = np.array([r for r, _ in delta], np.int64)
+        qn = queries.shape[0]
+        total = index.layout.total_rows
+        qoff = np.arange(qn, dtype=np.int64)[:, None] * total
+        on_device = np.isin(qoff + drows[None, :],
+                            (qoff + rows)[rows >= 0]).reshape(qn, len(delta))
+        d2 = np.where(on_device, np.inf, d2)
+        drows_q = np.where(on_device, -1, drows[None, :])
+        all_d = np.concatenate([dists, d2], axis=1)
+        all_r = np.concatenate([rows, drows_q], axis=1)
+        order = np.argsort(all_d, axis=1, kind="stable")
+        # full width returned (>= k + n_del): the caller drops rows whose
+        # slot was staged-deleted, so truncating here would hand back
+        # deleted slots in place of live candidates
+        return (np.take_along_axis(all_d, order, axis=1),
+                np.take_along_axis(all_r, order, axis=1))
+
+    # ---------------------------------------------------- background flushing
+
+    def start_background_flush(self, interval_s: float = 0.05):
+        """Drain staged writes to the device off the serving path."""
+        if self._bg_flush_thread is not None:
+            return
+        self._bg_flush_stop = threading.Event()
+
+        def loop():
+            while not self._bg_flush_stop.wait(interval_s):
+                try:
+                    with self._lock:
+                        if not (self._staged_updates or self._staged_deletes):
+                            continue
+                    with self.timers.stage("flush.background"):
+                        self.flush()
+                except Exception:
+                    # keep draining: a failed flush leaves its rows staged
+                    # for the next attempt or for the search path's flush
+                    logger.exception("background flush failed")
+
+        self._bg_flush_thread = threading.Thread(
+            target=loop, daemon=True, name="tpuvdb-torch-flush")
+        self._bg_flush_thread.start()
+
+    def stop_background_flush(self):
+        t = self._bg_flush_thread
+        if t is not None:
+            self._bg_flush_stop.set()
+            t.join(timeout=2)
+            self._bg_flush_thread = None
+
+    # ------------------------------------------------------------ maintenance
+
+    def compact(self, online: bool = True):
+        """Rebuild mirrors densely, dropping soft-deleted slots.
+
+        online=True (default): snapshot under a brief lock, rebuild OUTSIDE
+        the locks while serving continues, journal interim ops, then swap
+        and replay the journal. online=False is the fully-locked variant.
+        Lock order: _flush_lock before the engine lock (as flush's scatter
+        phase), so an in-flight scatter drains before slots move."""
+        if not online:
+            with self._flush_lock, self._lock:
+                snap = self.docstore.export_snapshot()
+                new_mirrors, new_docstore = self._rebuild_dense(
+                    snap, self.mirrors)
+                self._swap_compacted(new_mirrors, new_docstore)
+            return
+        with self._lock:
+            if self._compact_journal is not None:
+                return  # a compaction is already in flight
+            self._compact_journal = []
+            snap = self.docstore.export_snapshot()
+            old_mirrors = self.mirrors
+        try:
+            # written slots are immutable, so reading old mirror rows
+            # races with nothing
+            new_mirrors, new_docstore = self._rebuild_dense(snap, old_mirrors)
+        except Exception:
+            with self._lock:
+                self._compact_journal = None
+            raise
+        with self._flush_lock, self._lock:
+            journal = self._compact_journal
+            self._compact_journal = None
+            self._swap_compacted(new_mirrors, new_docstore)
+            # replay ops that landed during the rebuild (already WAL'd)
+            for op, key, vec, metadata, ts in journal:
+                if op == "put":
+                    self._put_one(key, vec, metadata, ts, replay_mode=True)
+                else:
+                    e = self.docstore.delete(key)
+                    if e is not None:
+                        self.mirrors[e.shard].mark_deleted(e.slot)
+                        self._staged_deletes.append((e.shard, e.slot))
+
+    def _rebuild_dense(self, snap, old_mirrors):
+        """Columnar dense rebuild from an export_snapshot(): one gather and
+        one write per shard in the stored dtype, then the doc store."""
+        keys, shards, slots, tss, mds = DocStore.snapshot_columns(snap)
+        new_mirrors = [self._new_mirror(i)
+                       for i in range(self.config.shard_count)]
+        new_docstore = DocStore()
+        n = len(keys)
+        new_slots = np.empty(n, np.int64)
+        for s in range(self.config.shard_count):
+            idx = np.flatnonzero(shards == s)
+            if not idx.size:
+                continue
+            vec, scale, sq = old_mirrors[s].rows_raw(slots[idx])
+            first = new_mirrors[s].alloc(idx.size)
+            new_mirrors[s].write_raw_batch(first, vec, scale, sq)
+            new_slots[idx] = first + np.arange(idx.size, dtype=np.int64)
+        new_docstore.put_many([
+            DocEntry(key=keys[i], shard=int(shards[i]),
+                     slot=int(new_slots[i]), metadata=mds[i],
+                     timestamp=int(tss[i]))
+            for i in range(n)
+        ])
+        return new_mirrors, new_docstore
+
+    def _swap_compacted(self, new_mirrors, new_docstore):
+        self.mirrors = new_mirrors
+        self.docstore = new_docstore
+        self._generation += 1  # compaction reuses slots
+        self._index = None
+        self._staged_updates.clear()
+        self._staged_deletes.clear()
+        # in-flight scatter batches reference pre-compaction slots; their
+        # data is covered by the snapshot/journal, and leaving them visible
+        # would alias reused slot numbers in the new mirrors
+        self._inflight.clear()
+        self._puts_since_compact = 0
+        self.stats["compactions"] += 1
+        logger.info("compacted: %d live docs", len(self.docstore))
+
+    def save_checkpoint(self) -> Optional[str]:
+        """Consistent snapshot under the lock (memory copies), disk writes
+        with the lock released."""
+        if self.ckpts is None:
+            return None
+        with self._ckpt_lock:  # one checkpoint at a time
+            tmp = self.ckpts.begin()
+            with self._lock:
+                wal_pos = (self.wal.last_seq if self.wal is not None
+                           else self._wal_floor)
+                doc_rows = [(e.key, e.shard, e.slot, e.metadata, e.timestamp)
+                            for e in self.docstore.entries()]
+                # views + a small validity copy: rows [:n) are immutable,
+                # so the off-lock writer below reads them safely
+                shard_snaps = [m.checkpoint_snapshot() for m in self.mirrors]
+                self._puts_since_ckpt = 0
+            path = self.ckpts.finish(tmp, self.config, doc_rows, shard_snaps,
+                                     wal_pos, dim=self.config.vector_dim)
+            if self.wal is not None:
+                self.wal.truncate_through(wal_pos)
+            with self._lock:
+                self.stats["checkpoints"] += 1
+            logger.info("checkpoint saved: %s", path)
+            return path
+
+    # ------------------------------------------------------------------ admin
+
+    def count(self) -> int:
+        return len(self.docstore)
+
+    def info(self) -> Dict:
+        with self._lock:
+            return {
+                "docs": len(self.docstore),
+                "shards": [
+                    {"used": m.used(), "live": m.live(), "deleted": m.deleted,
+                     "phys_cap": m.phys_cap}
+                    for m in self.mirrors
+                ],
+                "index_type": self.config.index_type,
+                "device": str(self.device),
+                "device_rows": (self._index.layout.total_rows
+                                if self._index else 0),
+                "device_bytes": self._index.nbytes() if self._index else 0,
+                "staged": len(self._staged_updates) + len(self._staged_deletes),
+                "stats": dict(self.stats),
+                "latency": self.timers.snapshot(),
+            }
+
+    def close(self):
+        # never hold the engine lock here: save_checkpoint takes
+        # _ckpt_lock -> _lock, as cadence-triggered checkpoints do
+        self.stop_background_flush()
+        if self.ckpts is not None:
+            self.save_checkpoint()
+        if self.wal is not None:
+            self.wal.close()

@@ -1,0 +1,22 @@
+from tpuvdb_torch.kernels.distance import (
+    l2sq_full,
+    l2sq_topk,
+    l2sq_topk_blockwise,
+)
+from tpuvdb_torch.kernels.scan import (
+    scan_candidates,
+    scan_candidates_plain,
+    scan_l2sq_topk,
+)
+from tpuvdb_torch.kernels.topk import mask_scores, merge_topk
+
+__all__ = [
+    "l2sq_topk",
+    "l2sq_topk_blockwise",
+    "l2sq_full",
+    "merge_topk",
+    "mask_scores",
+    "scan_candidates",
+    "scan_candidates_plain",
+    "scan_l2sq_topk",
+]

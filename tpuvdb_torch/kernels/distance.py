@@ -1,0 +1,157 @@
+"""Exact k-NN scans as torch ops, and the `l2sq_topk` dispatcher (torch
+port of tpuvdb.kernels.distance).
+
+Math: for squared L2 the scans track the *negated partial score*
+    neg = 2 * q . x - ||x||^2
+which orders identically to -(||q - x||^2); the per-query constant ||q||^2
+is added back at finalization, so returned scores are true squared-L2
+distances, ascending.
+
+Precision: f32 corpora score in full f32 (TF32 is off, see device.py), as
+`Precision.HIGHEST` does in the reference. bf16 corpora round the queries
+to bf16 and accumulate the exact bf16 x bf16 products in f32, as the
+reference's `preferred_element_type=float32` dot does.
+
+Dispatch (`l2sq_topk`):
+  "exact"            l2sq_full / l2sq_topk_blockwise, exact torch.topk —
+                     the reference leaves these to XLA, so torch ops here.
+  "approx", "pallas" the bucketed scan (kernels/scan.py): the hand-written
+                     CUDA kernel on the GPU, its plain torch twin on the
+                     CPU. The reference's "approx" is jax.lax.approx_max_k,
+                     a TPU hardware top-k with no GPU counterpart; the port
+                     serves both modes with the scan kernel, and
+                     `recall_target` (an approx_max_k knob) is ignored.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from tpuvdb_torch import device as _device  # noqa: F401  (TF32 off)
+from tpuvdb_torch.kernels import topk as tk
+
+
+def queries_like(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
+    """Queries as f32 carrying the corpus dtype's rounding (bf16 corpora
+    see bf16-rounded queries, as the reference's cast does)."""
+    q = queries.to(torch.float32)
+    if corpus.dtype == torch.bfloat16:
+        q = q.to(torch.bfloat16).to(torch.float32)
+    elif corpus.dtype != torch.float32:
+        raise NotImplementedError(
+            f"corpus dtype {corpus.dtype}: only float32 and bfloat16 are "
+            "ported (int8 storage waits for the int8 tier, ROADMAP queue 1)")
+    return q
+
+
+def _partial_neg_scores(qc: torch.Tensor, chunk: torch.Tensor,
+                        chunk_sq: torch.Tensor) -> torch.Tensor:
+    """(Q, B) negated partial scores 2 q.x - ||x||^2 in f32."""
+    dots = qc @ chunk.to(torch.float32).T
+    return 2.0 * dots - chunk_sq[None, :]
+
+
+def _q_sq(queries: torch.Tensor) -> torch.Tensor:
+    q = queries.to(torch.float32)
+    return (q * q).sum(dim=-1, keepdim=True)
+
+
+def _finish(neg: torch.Tensor, idx: torch.Tensor, q_sq: torch.Tensor):
+    idx = torch.where(neg == float("-inf"), torch.full_like(idx, -1), idx)
+    dist = torch.where(idx >= 0, q_sq - neg,
+                       torch.full_like(neg, float("inf")))
+    return dist, idx
+
+
+def l2sq_topk_blockwise(
+    queries: torch.Tensor,       # (Q, d) float32
+    corpus: torch.Tensor,        # (N, d) storage dtype; N % block_size == 0
+    corpus_sqnorms: torch.Tensor,  # (N,) float32
+    valid: torch.Tensor,         # (N,) bool
+    k: int,
+    block_size: int = 8192,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Streaming exact top-k: one (Q, B) block at a time folded into a
+    (Q, k) running top-k. Returns (dists, idx), each (Q, k); empty slots
+    are +inf / -1 (the reference leaves the row id of a masked slot in
+    place; the port returns -1, as l2sq_full does in both)."""
+    n = corpus.shape[0]
+    if n % block_size != 0:
+        raise ValueError(f"corpus rows {n} not a multiple of block_size {block_size}")
+    qc = queries_like(queries, corpus)
+    neg, idx = tk.empty_topk(queries.shape[0], k, device=corpus.device)
+    col = torch.arange(block_size, dtype=torch.int32, device=corpus.device)
+    for start in range(0, n, block_size):
+        end = start + block_size
+        scores = _partial_neg_scores(qc, corpus[start:end],
+                                     corpus_sqnorms[start:end])
+        scores = tk.mask_scores(scores, valid[None, start:end])
+        gidx = (start + col).expand(scores.shape[0], block_size)
+        neg, idx = tk.merge_topk(neg, idx, scores, gidx, k)
+    return _finish(neg, idx, _q_sq(queries))
+
+
+def l2sq_full(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    corpus_sqnorms: torch.Tensor,
+    valid: torch.Tensor,
+    k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-GEMM exact top-k for small corpora (materializes (Q, N))."""
+    qc = queries_like(queries, corpus)
+    scores = _partial_neg_scores(qc, corpus, corpus_sqnorms)
+    scores = tk.mask_scores(scores, valid[None, :])
+    kk = min(k, corpus.shape[0])
+    neg, idx = torch.topk(scores, kk, dim=1)
+    idx = idx.to(torch.int32)
+    if kk < k:  # pad so callers always see (Q, k)
+        neg = torch.nn.functional.pad(neg, (0, k - kk), value=float("-inf"))
+        idx = torch.nn.functional.pad(idx, (0, k - kk), value=-1)
+    return _finish(neg, idx, _q_sq(queries))
+
+
+def l2sq_topk(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    corpus_sqnorms: torch.Tensor,
+    valid: torch.Tensor,
+    k: int,
+    mode: str = "approx",
+    recall_target: float = 0.95,
+    block_size: int = 65536,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dispatcher: 'exact' (exact top-k merge), or 'approx'/'pallas' (the
+    bucketed scan kernel; recall_target is ignored there)."""
+    n = corpus.shape[0]
+    if mode == "exact":
+        if n % block_size != 0 or n <= block_size:
+            return l2sq_full(queries, corpus, corpus_sqnorms, valid, k)
+        return l2sq_topk_blockwise(queries, corpus, corpus_sqnorms, valid,
+                                   k=k, block_size=block_size)
+    if mode in ("approx", "pallas"):
+        from tpuvdb_torch.kernels.scan import scan_l2sq_topk
+
+        return scan_l2sq_topk(queries, corpus, corpus_sqnorms, valid, k=k)
+    raise ValueError(f"unknown search mode: {mode}")
+
+
+def numpy_oracle(queries, corpus, valid, k):
+    """Pure-numpy exact scan — the correctness oracle for all scans."""
+    import numpy as np
+
+    q = np.asarray(queries, dtype=np.float64)
+    c = np.asarray(corpus, dtype=np.float64)
+    v = np.asarray(valid, dtype=bool)
+    d2 = (
+        np.sum(q * q, axis=1, keepdims=True)
+        + np.sum(c * c, axis=1)[None, :]
+        - 2.0 * (q @ c.T)
+    )
+    d2[:, ~v] = np.inf
+    idx = np.argsort(d2, axis=1, kind="stable")[:, :k]
+    dist = np.take_along_axis(d2, idx, axis=1)
+    idx = np.where(np.isfinite(dist), idx, -1)
+    return dist, idx

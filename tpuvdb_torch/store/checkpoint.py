@@ -1,0 +1,201 @@
+"""Checkpoint / restore: the port's copy of tpuvdb.store.checkpoint.
+
+A checkpoint is `checkpoint_<ts>/` containing:
+    config.json      — DBConfig used at save time
+    docstore.msgpack — key -> (shard, slot, metadata, ts)
+    shard_<i>.npz    — per-shard mirror metadata + inline raw-dtype rows,
+                       scales and sqnorms (format 2)
+    wal_pos.txt      — max WAL LSN covered by this checkpoint
+    MANIFEST.json    — shard count/dim/format + completeness marker
+                       (written last, so a torn checkpoint never restores)
+
+The layout is the reference's, so checkpoints restore across the two
+packages. Restore also reads what only the reference writes: a native
+`docstore.kv` snapshot, hardlinked mmap mirror files (`shard_<i>.vec/.sq/
+.scale`) and format-1 shards. IVF extras (`ivf_warm.npz`,
+`ivf_packed.npz`) are neither written nor read until IVF is ported.
+
+Retention keeps the newest `max_checkpoints`.
+"""
+
+from __future__ import annotations
+
+import glob
+import json
+import os
+import shutil
+import time
+from typing import Callable, List, Optional, Tuple
+
+import msgpack
+import numpy as np
+
+from tpuvdb_torch.core import errors
+from tpuvdb_torch.core.config import DBConfig
+from tpuvdb_torch.index.layout import ShardMirror
+from tpuvdb_torch.store.kv import DocStore
+
+
+def _fsync_path(p: str) -> None:
+    fd = os.open(p, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def _fsync_tree(d: str) -> None:
+    """fsync every file in d, then d itself: the engine truncates the
+    covering WAL right after a checkpoint, so all of it must be on disk."""
+    for name in os.listdir(d):
+        _fsync_path(os.path.join(d, name))
+    _fsync_path(d)
+
+
+class CheckpointManager:
+    def __init__(self, ckpt_dir: str, max_checkpoints: int = 3):
+        self.ckpt_dir = ckpt_dir
+        self.max_checkpoints = max_checkpoints
+        os.makedirs(ckpt_dir, exist_ok=True)
+
+    def _paths(self) -> List[str]:
+        return sorted(glob.glob(os.path.join(self.ckpt_dir, "checkpoint_*")))
+
+    def latest(self) -> Optional[str]:
+        for path in reversed(self._paths()):
+            if os.path.exists(os.path.join(path, "MANIFEST.json")):
+                return path
+        return None
+
+    # ---------------------------------------------------------------- writing
+
+    def begin(self) -> str:
+        """Create and return the staging directory for the next checkpoint;
+        torn staging dirs are GC'd, never restored."""
+        ts = int(time.time() * 1000)
+        path = os.path.join(self.ckpt_dir, f"checkpoint_{ts}")
+        tmp = path + ".tmp"
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        return tmp
+
+    def finish(
+        self,
+        tmp: str,
+        config: DBConfig,
+        doc_rows: List[tuple],
+        shard_snaps: List[dict],          # ShardMirror.checkpoint_snapshot()
+        wal_pos: int,
+        dim: int,
+    ) -> str:
+        """Write and commit the checkpoint from snapshot descriptors that
+        the caller captured under its lock; runs with the lock released."""
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            f.write(config.to_json())
+        blob = msgpack.packb({"docs": doc_rows}, use_bin_type=True)
+        with open(os.path.join(tmp, "docstore.msgpack"), "wb") as f:
+            f.write(blob)
+            f.flush()
+            os.fsync(f.fileno())
+        for i, s in enumerate(shard_snaps):
+            extra = {"vectors": s["vec"], "sqnorms": s["sq"]}
+            if s["scale"] is not None:
+                extra["scales"] = s["scale"]
+            np.savez(os.path.join(tmp, f"shard_{i}.npz"), **extra,
+                     fmt=2, dtype=s["dtype"], n=np.int64(s["n"]),
+                     deleted=np.int64(s["deleted"]), valid=s["valid"])
+        with open(os.path.join(tmp, "wal_pos.txt"), "w") as f:
+            f.write(str(int(wal_pos)))
+        with open(os.path.join(tmp, "MANIFEST.json"), "w") as f:
+            json.dump({"num_shards": len(shard_snaps), "dim": dim,
+                       "format": 2, "docstore": "msgpack",
+                       "timestamp": int(os.path.basename(tmp)
+                                        .split("_")[1].split(".")[0])}, f)
+        _fsync_tree(tmp)
+        path = tmp[: -len(".tmp")]
+        os.replace(tmp, path)
+        _fsync_path(self.ckpt_dir)
+        self._gc()
+        return path
+
+    def _gc(self):
+        paths = [p for p in self._paths() if os.path.exists(os.path.join(p, "MANIFEST.json"))]
+        for p in paths[: -self.max_checkpoints]:
+            shutil.rmtree(p, ignore_errors=True)
+        for p in glob.glob(os.path.join(self.ckpt_dir, "*.tmp")):
+            shutil.rmtree(p, ignore_errors=True)
+
+    # ---------------------------------------------------------------- loading
+
+    def load_latest(
+        self,
+        config: DBConfig,
+        mirror_factory: Optional[Callable[[int], ShardMirror]] = None,
+    ) -> Optional[Tuple[DocStore, List[ShardMirror], int]]:
+        """Restore (docstore, mirrors, wal_pos) from the newest complete
+        checkpoint, or None if there is none."""
+        path = self.latest()
+        if path is None:
+            return None
+        with open(os.path.join(path, "MANIFEST.json")) as f:
+            manifest = json.load(f)
+        if manifest["dim"] != config.vector_dim:
+            raise errors.CheckpointError(
+                f"checkpoint dim {manifest['dim']} != configured {config.vector_dim}")
+        kv_path = os.path.join(path, "docstore.kv")
+        if manifest.get("docstore") == "kv" or os.path.exists(kv_path):
+            docstore = DocStore.load_native_file(kv_path)
+        else:
+            docstore = DocStore.load(os.path.join(path, "docstore.msgpack"))
+        if mirror_factory is None:
+            def mirror_factory(i, _cfg=config):
+                return ShardMirror(dim=_cfg.vector_dim,
+                                   capacity=_cfg.shard_capacity,
+                                   init_cap=_cfg.mirror_init_cap, block=128,
+                                   dtype=_cfg.mirror_dtype)
+        mirrors = []
+        for i in range(manifest["num_shards"]):
+            m = mirror_factory(i)
+            self._restore_shard(path, i, m)
+            mirrors.append(m)
+        with open(os.path.join(path, "wal_pos.txt")) as f:
+            wal_pos = int(f.read().strip())
+        return docstore, mirrors, wal_pos
+
+    def _restore_shard(self, path: str, i: int, m: ShardMirror) -> None:
+        z = np.load(os.path.join(path, f"shard_{i}.npz"), allow_pickle=False)
+        if "fmt" not in z:  # format-1 checkpoint: f32 rows inline
+            n = int(z["next_slot"])
+            m.load_f32(z["vectors"], z["valid"], n, int(z["deleted"]))
+            return
+        n = int(z["n"])
+        deleted = int(z["deleted"])
+        valid = z["valid"]
+        dtype = str(z["dtype"])
+        if "linked" in z:
+            # the reference's mmap mirrors: rows live in hardlinked files
+            linked = json.loads(str(z["linked"]))
+            srcs = {part: os.path.join(path, name)
+                    for part, name in linked.items()}
+            file_rows = int(z["file_rows"])
+            qdtype = np.int8 if dtype == "int8" else np.float32
+            vec = np.memmap(srcs["vec"], dtype=qdtype, mode="r",
+                            shape=(file_rows, m.dim))[:n]
+            sq = np.memmap(srcs["sq"], dtype=np.float32, mode="r",
+                           shape=(file_rows,))[:n]
+            scale = (np.memmap(srcs["scale"], dtype=np.float32, mode="r",
+                               shape=(file_rows,))[:n]
+                     if "scale" in srcs else None)
+        else:
+            vec = z["vectors"]
+            sq = z["sqnorms"]
+            scale = z["scales"] if "scales" in z else None
+        if dtype == m.dtype:
+            m.load_raw(vec, scale, sq, valid, n, deleted)
+        elif dtype == "int8":  # int8 checkpoint -> f32 mirror: dequantize
+            f32 = (np.asarray(vec, np.float32)
+                   * np.asarray(scale, np.float32)[:, None]) if n else vec
+            m.load_f32(f32, valid, n, deleted)
+        else:  # f32 checkpoint -> int8 mirror: vectorized quantize
+            m.load_f32(np.asarray(vec, np.float32), valid, n, deleted)
