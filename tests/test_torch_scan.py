@@ -10,9 +10,9 @@ are padded with dead rows / zero queries; a row's bucket is its global row
 id mod n_buckets in both, so padding moves nothing.
 
 The CUDA kernel itself cannot run here; `test_kernel_matches_plain_on_card`
-holds it against the plain version when a card is present. The machine
-with the card has no JAX, so the JAX side is imported by the `ref` fixture
-and the card test runs there on its own:
+holds it against the plain version when a card is present. The card test
+needs no JAX (only the `ref` fixture imports it), so it runs there with
+no conftest:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_scan.py
 """
@@ -24,7 +24,7 @@ import pytest
 import torch
 
 from tpuvdb_torch.kernels import scan
-from tpuvdb_torch.kernels.distance import l2sq_topk
+from tpuvdb_torch.kernels.distance import l2sq_topk, numpy_oracle, scan_max_k
 
 SCORE_RTOL = 1e-4
 NEG_INF = scan.NEG_INF
@@ -147,13 +147,20 @@ def test_l2sq_topk_pallas_mode_matches_pallas_l2sq_topk(rng, ref):
 
 
 def test_l2sq_topk_pads_k_beyond_buckets(rng):
-    q, corpus, sq, valid, _ = _inputs(rng, 300, 16, 3, n_dead=0)
-    dist, idx = scan.scan_l2sq_topk(
-        torch.from_numpy(q), torch.from_numpy(corpus), torch.from_numpy(sq),
-        torch.from_numpy(valid), k=600, n_buckets=512)
+    """The scan called directly returns at most n_buckets hits and pads
+    the rest; the l2sq_topk dispatcher never routes such a k to it (k=600
+    is past scan_max_k), so "approx" returns all live rows there."""
+    q, corpus, sq, valid, _ = _inputs(rng, 700, 16, 3, n_dead=0)
+    args = (torch.from_numpy(q), torch.from_numpy(corpus),
+            torch.from_numpy(sq), torch.from_numpy(valid))
+    dist, idx = scan.scan_l2sq_topk(*args, k=600, n_buckets=512)
     assert idx.shape == (3, 600)
-    assert (idx[:, 300:] == -1).all() and torch.isinf(dist[:, 300:]).all()
-    assert sorted(idx[0, :300].tolist()) == list(range(300))
+    assert (idx[:, 512:] == -1).all() and torch.isinf(dist[:, 512:]).all()
+    assert (idx[:, :512] >= 0).all()
+    assert scan_max_k(0.95) == 51 and scan_max_k(0.99) == 10
+    dist, idx = l2sq_topk(*args, k=600, mode="approx", recall_target=0.95)
+    _, want = numpy_oracle(q, corpus, valid, 600)
+    np.testing.assert_array_equal(idx.numpy(), want)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():

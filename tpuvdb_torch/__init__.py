@@ -7,10 +7,11 @@ layout and public names so each part finds its counterpart:
   utils/     logging, MD5 routing, tracing    (copies; tracing on torch.profiler)
   store/     WAL, doc store, checkpoints      (host-only copies, python backends;
                                                on-disk formats byte-compatible)
-  index/     host mirrors + device exact index (corpus in CUDA tensors)
-  kernels/   distance/top-k torch ops and the hand-written CUDA scan
-             (csrc/scan.cu, the counterpart of tpuvdb.kernels.pallas_scan)
-  engine/    put/get/delete/search, flat index only
+  index/     host mirrors, device exact index and IVF index (CUDA tensors)
+  kernels/   distance/top-k and k-means torch ops, and the hand-written CUDA
+             kernels: csrc/scan.cu (tpuvdb.kernels.pallas_scan) and
+             csrc/ivf_probe.cu (the f32/bf16 probes of pallas_ivf)
+  engine/    put/get/delete/search, flat and IVF indexes
 
 It imports `torch`, never `jax`, and nothing of `tpuvdb`. Every entry point
 takes `device=None`, which means "cuda", and raises when CUDA is missing;

@@ -69,10 +69,11 @@ class DBConfig:
     search_coalesce_max: int = 4096
     search_coalesce_inflight: int = 4
     # "approx" and "pallas" both run the hand-written bucketed scan kernel
-    # (kernels/scan.py); "exact" is an exact torch.topk merge
+    # (kernels/scan.py) for k up to what its buckets serve at recall_target,
+    # and the exact path above it; "exact" is an exact torch.topk merge.
+    # Both apply to the flat index; IVF probes its cells the same way always
     search_mode: str = "approx"
-    recall_target: float = 0.95    # read by the reference's approx_max_k;
-                                   # the port's scan ignores it
+    recall_target: float = 0.95
 
     # -- index selection --
     index_type: str = "flat"       # "flat" | "ivf" (IVF not ported yet)

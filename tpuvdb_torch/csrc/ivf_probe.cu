@@ -1,0 +1,331 @@
+// IVF probe over packed f32/bf16 cells, with a per-(query, slot) running
+// max, for Hopper (sm_90a).
+//
+// Replaces the two TPU kernels of tpuvdb/kernels/pallas_ivf.py that probe
+// f32/bf16 cells:
+//   _probe_kernel         (expanded form, launched by pallas_ivf_candidates)
+//   _probe_kernel_packed  (compact form, launched by
+//                          pallas_ivf_candidates_packed)
+//
+// Both fold 128-row chunks of the packed cell array into a (QT, 128 * S)
+// candidate buffer per tile of QT <= 8 queries. A chunk c lands in segment
+// s(c); its row c * 128 + j in slot s(c) * 128 + j, with the score
+//
+//     2 * q . x - ||x||^2 + mask      (mask 0 live, -FLT_MAX dead)
+//
+// and the reference keeps, per slot, the first strict maximum in list order.
+// The two forms differ only in where the chunk list comes from:
+//   expanded  the tile's sorted list of chunk ids, with a segment per entry
+//             (the chunk's rank among the tile's distinct chunks, mod S);
+//   compact   the tile's sorted probed cell ids; entry g is chunk
+//             min(off128[cells[g / w128]] + g % w128, n_chunks - 1) and its
+//             segment is chunk mod S.
+// In both, one chunk always lands in the same slots with the same scores,
+// and distinct chunks first appear in ascending order (ascending ids in the
+// expanded list; off128 ascends with the cell id in the compact one). So the
+// sequential fold keeps, per slot, the maximum score and, among equal
+// scores, the lowest row id, whatever the order or the repeats. That makes
+// the fold order-free, and blocks split a tile's list freely.
+//
+// Design (simple first; tensor cores and TMA are later work):
+//   * grid = (query tiles) x (splits of the tile's list); 128 threads, one
+//     per row of a chunk. A block stages its tile's queries in shared memory
+//     (zero rows past QT), then walks its entries: thread j reads row
+//     chunk * 128 + j in 16-deep slices and accumulates its 8 dot products
+//     in f32 FMA (bf16 rows widened exactly; queries come pre-rounded to
+//     bf16, so each product is the exact bf16 x bf16 product, as the
+//     reference's f32-accumulating dot).
+//   * the candidate buffer lives in device memory as 64-bit keys
+//     (order-preserving score bits << 32 | ~row), folded with atomicMax: the
+//     largest key is the largest score and, on a tie, the lowest row. Rows
+//     whose score is <= -FLT_MAX (dead rows) are skipped, as the strict `>`
+//     from -FLT_MAX never lets them in; an empty slot keeps key 0, which
+//     decodes to (-FLT_MAX, -1). A second kernel decodes the keys.
+//   * an entry equal to the one before it (a chunk or a cell shared by the
+//     tile's queries) is skipped: it would fold the same keys again.
+//   * an entry that names no chunk, segment or cell of the arrays (an id out
+//     of range) scores nothing, so no list reads or writes outside them.
+//   * device memory, not shared memory, holds the buffer: at a wide fetch
+//     (k = 1,024, compact, S = 32) a tile's buffer is 8 x 4,096 x 8 B =
+//     256 KiB, more than a block's 227 KiB.
+//
+// Bound on an H100 SXM: each distinct chunk moves 128 * d * 4 bytes (f32)
+// and costs 2 * QT * 128 * d operations; at d = 512 that is 256 KiB against
+// 1 MFLOP per chunk and tile, so a probe of few tiles is bound by bytes
+// (3.35 TB/s) and a probe of many tiles sharing chunks by operations
+// (67 TFLOP/s f32 FMA outside the tensor cores).
+//
+// Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
+// -Xcompiler -fPIC; bound with ctypes (tpuvdb_torch/kernels/ivf_probe.py).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cfloat>
+#include <cstdint>
+
+namespace {
+
+constexpr int kRows = 128;   // rows per chunk = threads per block
+constexpr int kMaxQT = 8;    // queries per tile
+constexpr int kKT = 16;      // depth of one register slice of a row
+constexpr float kNegInf = -FLT_MAX;  // finfo(float32).min, as the reference
+
+// One kKT-deep slice of a row as f32; zeros past d.
+__device__ __forceinline__ void load_slice(const float* __restrict__ x,
+                                           long long row, int d, int k0,
+                                           bool vec, float (&v)[kKT]) {
+  const float* p = x + row * static_cast<long long>(d) + k0;
+  if (vec && k0 + kKT <= d) {
+    const float4* p4 = reinterpret_cast<const float4*>(p);
+#pragma unroll
+    for (int j = 0; j < kKT / 4; ++j) {
+      const float4 t = __ldg(p4 + j);
+      v[4 * j] = t.x;
+      v[4 * j + 1] = t.y;
+      v[4 * j + 2] = t.z;
+      v[4 * j + 3] = t.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kKT; ++j) v[j] = (k0 + j < d) ? __ldg(p + j) : 0.f;
+  }
+}
+
+__device__ __forceinline__ void load_slice(const __nv_bfloat16* __restrict__ x,
+                                           long long row, int d, int k0,
+                                           bool vec, float (&v)[kKT]) {
+  const __nv_bfloat16* p = x + row * static_cast<long long>(d) + k0;
+  if (vec && k0 + kKT <= d) {
+    const uint4* p4 = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+    for (int j = 0; j < kKT / 8; ++j) {
+      const uint4 t = __ldg(p4 + j);
+      const uint32_t w[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // a bf16 is the high half of an f32: widening is a shift
+        v[8 * j + 2 * e] = __uint_as_float(w[e] << 16);
+        v[8 * j + 2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kKT; ++j)
+      v[j] = (k0 + j < d) ? __bfloat162float(p[j]) : 0.f;
+  }
+}
+
+// f32 bits mapped so that unsigned order is float order
+__device__ __forceinline__ unsigned int order_bits(float f) {
+  const unsigned int b = __float_as_uint(f);
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+__device__ __forceinline__ float unorder_bits(unsigned int u) {
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
+}
+
+template <typename T, bool kCompact>
+__global__ void __launch_bounds__(kRows)
+probe_fold_kernel(const float* __restrict__ q, const T* __restrict__ x,
+                  const float* __restrict__ sq, const float* __restrict__ mask,
+                  const int* __restrict__ cells, const int* __restrict__ segs,
+                  const int* __restrict__ off128,
+                  unsigned long long* __restrict__ keys, int qt, int d,
+                  int width, int w128, int n_chunks, int nlist, int n_seg,
+                  int entries_per_block, bool vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);  // [kMaxQT][d_pad]
+  const int d_pad = (d + kKT - 1) / kKT * kKT;
+  const int tile = blockIdx.x;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < kMaxQT * d_pad; i += kRows) {
+    const int qi = i / d_pad;
+    const int k = i % d_pad;
+    qs[i] = (qi < qt && k < d)
+                ? q[static_cast<long long>(tile * qt + qi) * d + k]
+                : 0.f;
+  }
+  __syncthreads();
+
+  const int n_entries = kCompact ? width * w128 : width;
+  const int e_begin = blockIdx.y * entries_per_block;
+  const int e_end = min(e_begin + entries_per_block, n_entries);
+  const int* tcells = cells + static_cast<long long>(tile) * width;
+  const int* tsegs = kCompact ? nullptr
+                              : segs + static_cast<long long>(tile) * width;
+  const int n_slots = kRows * n_seg;
+  unsigned long long* tkeys =
+      keys + static_cast<long long>(tile) * qt * n_slots;
+
+  for (int e = e_begin; e < e_end; ++e) {
+    int chunk, seg;
+    if (kCompact) {
+      const int u = e / w128;
+      const int cell = tcells[u];
+      if (u > 0 && cell == tcells[u - 1]) continue;  // shared cell
+      if (cell < 0 || cell >= nlist) continue;       // no such cell
+      chunk = min(off128[cell] + e % w128, n_chunks - 1);
+      seg = chunk % n_seg;
+    } else {
+      chunk = tcells[e];
+      if (e > 0 && chunk == tcells[e - 1]) continue;  // shared chunk
+      seg = tsegs[e];
+      if (seg < 0 || seg >= n_seg) continue;          // no such segment
+    }
+    if (chunk < 0 || chunk >= n_chunks) continue;
+    const long long row = static_cast<long long>(chunk) * kRows + tid;
+
+    float acc[kMaxQT];
+#pragma unroll
+    for (int i = 0; i < kMaxQT; ++i) acc[i] = 0.f;
+    for (int k0 = 0; k0 < d; k0 += kKT) {
+      float v[kKT];
+      load_slice(x, row, d, k0, vec, v);
+#pragma unroll
+      for (int i = 0; i < kMaxQT; ++i) {
+        const float* qi = qs + i * d_pad + k0;
+        float a = acc[i];
+#pragma unroll
+        for (int j = 0; j < kKT; j += 4) {
+          const float4 qv = *reinterpret_cast<const float4*>(qi + j);
+          a = fmaf(qv.x, v[j], a);
+          a = fmaf(qv.y, v[j + 1], a);
+          a = fmaf(qv.z, v[j + 2], a);
+          a = fmaf(qv.w, v[j + 3], a);
+        }
+        acc[i] = a;
+      }
+    }
+
+    const float sq_r = __ldg(sq + row);
+    const float mask_r = __ldg(mask + row);
+    const unsigned long long low = ~static_cast<unsigned int>(row);
+#pragma unroll
+    for (int i = 0; i < kMaxQT; ++i) {
+      if (i >= qt) break;
+      const float score = 2.f * acc[i] - sq_r + mask_r;
+      if (!(score > kNegInf)) continue;  // dead row: never enters a slot
+      const unsigned long long key =
+          (static_cast<unsigned long long>(order_bits(score)) << 32) | low;
+      unsigned long long* slot =
+          tkeys + static_cast<long long>(i) * n_slots + seg * kRows + tid;
+      if (key > __ldcg(slot)) atomicMax(slot, key);
+    }
+  }
+}
+
+__global__ void decode_kernel(const unsigned long long* __restrict__ keys,
+                              float* __restrict__ val, int* __restrict__ idx,
+                              long long count) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  const unsigned long long key = keys[i];
+  if (key == 0ull) {
+    val[i] = kNegInf;
+    idx[i] = -1;
+  } else {
+    val[i] = unorder_bits(static_cast<unsigned int>(key >> 32));
+    idx[i] = static_cast<int>(~static_cast<unsigned int>(key));
+  }
+}
+
+template <typename T, bool kCompact>
+int launch(const float* q, const T* x, const float* sq, const float* mask,
+           const int* cells, const int* segs, const int* off128,
+           unsigned long long* keys, float* val, int* idx, int tiles, int qt,
+           int d, int width, int w128, int n_chunks, int nlist, int n_seg,
+           int splits, int entries_per_block, int vec, int device,
+           cudaStream_t stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  const long long count = static_cast<long long>(tiles) * qt * kRows * n_seg;
+  e = cudaMemsetAsync(keys, 0, count * sizeof(unsigned long long), stream);
+  if (e != cudaSuccess) return e;
+  const int d_pad = (d + kKT - 1) / kKT * kKT;
+  const size_t smem = static_cast<size_t>(kMaxQT) * d_pad * sizeof(float);
+  e = cudaFuncSetAttribute(probe_fold_kernel<T, kCompact>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const dim3 grid(tiles, splits);
+  probe_fold_kernel<T, kCompact><<<grid, kRows, smem, stream>>>(
+      q, x, sq, mask, cells, segs, off128, keys, qt, d, width, w128, n_chunks,
+      nlist, n_seg, entries_per_block, vec != 0);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int blocks = static_cast<int>((count + 255) / 256);
+  decode_kernel<<<blocks, 256, 0, stream>>>(keys, val, idx, count);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int tpuvdb_ivf_rows_per_chunk() { return kRows; }
+int tpuvdb_ivf_max_query_tile() { return kMaxQT; }
+
+// Expanded form: cells = chunk ids (tiles, width) sorted per tile, segs the
+// segment of each entry.
+int tpuvdb_ivf_expanded_f32(const float* q, const float* x, const float* sq,
+                            const float* mask, const int* cells,
+                            const int* segs, unsigned long long* keys,
+                            float* val, int* idx, int tiles, int qt, int d,
+                            int width, int n_chunks, int n_seg, int splits,
+                            int entries_per_block, int vec, int device,
+                            cudaStream_t stream) {
+  return launch<float, false>(q, x, sq, mask, cells, segs, nullptr, keys, val,
+                              idx, tiles, qt, d, width, 1, n_chunks, 0, n_seg,
+                              splits, entries_per_block, vec, device, stream);
+}
+
+int tpuvdb_ivf_expanded_bf16(const float* q, const void* x, const float* sq,
+                             const float* mask, const int* cells,
+                             const int* segs, unsigned long long* keys,
+                             float* val, int* idx, int tiles, int qt, int d,
+                             int width, int n_chunks, int n_seg, int splits,
+                             int entries_per_block, int vec, int device,
+                             cudaStream_t stream) {
+  return launch<__nv_bfloat16, false>(
+      q, static_cast<const __nv_bfloat16*>(x), sq, mask, cells, segs, nullptr,
+      keys, val, idx, tiles, qt, d, width, 1, n_chunks, 0, n_seg, splits,
+      entries_per_block, vec, device, stream);
+}
+
+// Compact form: cells = probed cell ids (tiles, width) sorted per tile,
+// off128 the per-cell start in chunks (nlist entries), w128 the scan window
+// in chunks.
+int tpuvdb_ivf_compact_f32(const float* q, const float* x, const float* sq,
+                           const float* mask, const int* cells,
+                           const int* off128, unsigned long long* keys,
+                           float* val, int* idx, int tiles, int qt, int d,
+                           int width, int w128, int n_chunks, int nlist,
+                           int n_seg, int splits, int entries_per_block,
+                           int vec, int device, cudaStream_t stream) {
+  return launch<float, true>(q, x, sq, mask, cells, nullptr, off128, keys, val,
+                             idx, tiles, qt, d, width, w128, n_chunks, nlist,
+                             n_seg, splits, entries_per_block, vec, device,
+                             stream);
+}
+
+int tpuvdb_ivf_compact_bf16(const float* q, const void* x, const float* sq,
+                            const float* mask, const int* cells,
+                            const int* off128, unsigned long long* keys,
+                            float* val, int* idx, int tiles, int qt, int d,
+                            int width, int w128, int n_chunks, int nlist,
+                            int n_seg, int splits, int entries_per_block,
+                            int vec, int device, cudaStream_t stream) {
+  return launch<__nv_bfloat16, true>(
+      q, static_cast<const __nv_bfloat16*>(x), sq, mask, cells, nullptr,
+      off128, keys, val, idx, tiles, qt, d, width, w128, n_chunks, nlist,
+      n_seg, splits, entries_per_block, vec, device, stream);
+}
+
+const char* tpuvdb_ivf_error(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -1,8 +1,9 @@
-"""The database engine, flat index: the port of tpuvdb.engine.engine.
+"""The database engine: the port of tpuvdb.engine.engine.
 
 put / get / delete / search orchestration over host state (WAL, doc store,
-shard mirrors) and one device index (`DeviceExactIndex`, torch tensors on
-`device`, None = "cuda"):
+shard mirrors) and one device index, torch tensors on `device` (None =
+"cuda"): `DeviceExactIndex` (index_type="flat") or `IVFIndex`
+(index_type="ivf", f32/bf16 cells):
 
   * keys route to shards by MD5 (utils/sharding_utils.py);
   * an overwrite writes a fresh slot and soft-deletes the old one;
@@ -17,8 +18,14 @@ shard mirrors) and one device index (`DeviceExactIndex`, torch tensors on
 The on-disk state (WAL segments, checkpoints) is the reference's, so a
 `data_dir` written by either package opens in the other.
 
+IVF keeps, as the reference does, a standing delta of flushed inserts
+that are scanned exactly on the host until `ivf_delta_max` of them drain
+into the clustered index (`IVFIndex.append_rows`, or a rebuild when the
+cells and spill are full). A restart rebuilds by assignment against the
+checkpointed centroids (`ivf_warm.npz`) unless the corpus drifted.
+
 Configurations the port does not run yet raise NotImplementedError naming
-the ROADMAP.md item that brings them: IVF, int8 storage, a mesh, search
+the ROADMAP.md item that brings them: int8 storage, IVF-PQ, a mesh, search
 coalescing, the native doc store and mmap mirrors.
 
 Snapshot rule. The reference's scatters donate the buffers a concurrent
@@ -29,11 +36,14 @@ scatters write in place and raise nothing, so a search instead:
   2. drops any host-delta row whose row id the device scan also returned
      (a scatter enqueued just before the snapshot is already on the device
      while its batch is still in `_inflight`).
-Together these keep a row from coming back twice.
+Together these keep a row from coming back twice. IVF follows the same
+rule with `IVFIndex.version` (bumped by appends and deletes, which write in
+place); an append also bumps the engine generation, as in the reference.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import threading
 import time
@@ -53,7 +63,8 @@ from tpuvdb_torch.core.types import (
 )
 from tpuvdb_torch.device import resolve_device
 from tpuvdb_torch.index.exact import DeviceExactIndex
-from tpuvdb_torch.index.layout import ShardMirror
+from tpuvdb_torch.index.ivf import IVFIndex, MirrorRowSource
+from tpuvdb_torch.index.layout import ShardMirror, StackedLayout
 from tpuvdb_torch.store.checkpoint import CheckpointManager
 from tpuvdb_torch.store.kv import DocEntry, DocStore
 from tpuvdb_torch.store.wal import WriteAheadLog
@@ -68,12 +79,15 @@ def _check_supported(cfg: DBConfig, data_dir: Optional[str], mesh) -> None:
     """Raise NotImplementedError for the configurations that later slices
     of the port bring (ROADMAP.md queue 1)."""
     waiting = []
-    if cfg.index_type == "ivf":
-        waiting.append("index_type='ivf' (item 7, IVF)")
+    if cfg.index_type == "ivf" and cfg.ivf_pq_subq > 0:
+        waiting.append("index_type='ivf' with ivf_pq_subq > 0 (item 8, "
+                       "IVF-PQ)")
     if cfg.storage_dtype == "int8":
-        waiting.append("storage_dtype='int8' (item 6, int8 storage tier)")
+        waiting.append("storage_dtype='int8' (item 6, int8 storage tier, "
+                       "with the IVF int8 probes for index_type='ivf')")
     if mesh is not None:
-        waiting.append("mesh (item 9, multi-GPU)")
+        waiting.append("mesh (item 9, multi-GPU, the sharded IVF index "
+                       "included)")
     if cfg.search_coalesce:
         waiting.append("search_coalesce=True (item 10, service)")
     if cfg.docstore_backend == "native":
@@ -110,6 +124,15 @@ class VectorDBEngine:
         self.wal: Optional[WriteAheadLog] = None
         self.ckpts: Optional[CheckpointManager] = None
         self._index: Optional[DeviceExactIndex] = None
+        # IVF state (index_type="ivf"): the clustered index + a delta of
+        # fresh inserts scanned exactly on the host until they drain
+        self._ivf: Optional[IVFIndex] = None
+        self._ivf_layout: Optional[StackedLayout] = None
+        self._ivf_delta: Dict[Tuple[int, int], np.ndarray] = {}
+        # checkpoint warm state: (centroids, trained_live, mut_at_train)
+        # to save, and the loaded one a restart consumes once
+        self._ivf_train_state = None
+        self._ivf_warm = None
 
         # staged (shard, slot) writes/deletes not yet scattered to device
         self._staged_updates: List[Tuple[int, int]] = []
@@ -131,6 +154,9 @@ class VectorDBEngine:
         self._generation = 0
         self._puts_since_ckpt = 0
         self._puts_since_compact = 0
+        # accepted mutations (puts + deletes), saved with the IVF warm
+        # state so a restart sees churn since k-means training
+        self._mut_count = 0
         # high-water LSN of an existing WAL dir when the WAL is disabled
         # (checkpoints record it so a re-enabled WAL never replays a
         # stale tail over newer state)
@@ -180,6 +206,15 @@ class VectorDBEngine:
                 raise errors.CheckpointError(
                     f"checkpoint has {len(self.mirrors)} shards, "
                     f"config wants {self.config.shard_count}")
+        if self.config.index_type == "ivf":
+            self._ivf_warm = self.ckpts.load_ivf_warm()
+            if self._ivf_warm is not None:
+                cents0, live0, mut0, mut_ckpt = self._ivf_warm
+                # WAL tail replay re-increments on top of the checkpoint
+                self._mut_count = mut_ckpt
+                # carried forward now: a checkpoint taken before the first
+                # rebuild must not drop the warm state
+                self._ivf_train_state = (cents0, live0, mut0)
         if self.wal is None and self._wal_floor > wal_pos:
             logger.warning(
                 "WAL disabled but %d unapplied record(s) exist beyond the "
@@ -312,6 +347,7 @@ class VectorDBEngine:
             if self.wal is not None and wal_records:
                 self.wal.append_batch(wal_records)
             self.stats["puts"] += applied
+            self._mut_count += applied
             self._puts_since_ckpt += applied
             self._puts_since_compact += applied
             do_compact, do_ckpt = (self._maintenance_due() if not replay_mode
@@ -341,6 +377,7 @@ class VectorDBEngine:
             self._compact_journal.append(
                 ("put", key, vec.copy(), dict(metadata), timestamp))
         self.stats["puts"] += 1
+        self._mut_count += 1
         self._puts_since_ckpt += 1
         self._puts_since_compact += 1
 
@@ -388,6 +425,7 @@ class VectorDBEngine:
             if self.wal is not None and not replay_mode:
                 self.wal.append("delete", key)
             self.stats["deletes"] += 1
+            self._mut_count += 1
             logger.debug("delete %s", key)
             return Response.ok(f"deleted {key}")
 
@@ -395,6 +433,10 @@ class VectorDBEngine:
 
     def flush(self):
         """Apply staged mirror writes/deletes to the device index."""
+        if self.config.index_type == "ivf":
+            with self._lock:
+                self._flush_ivf()
+            return
         self._flush_flat()
 
     def _flush_flat(self):
@@ -452,6 +494,122 @@ class VectorDBEngine:
         )
         self._staged_updates.clear()
         self._staged_deletes.clear()
+        self.stats["flushes"] += 1
+
+    def _consume_ivf_warm(self, live):
+        """(warm_cents | None, trained_live, mut_at_train) for a rebuild.
+        The checkpoint's warm state is consumed once, and accepted only
+        when its geometry matches, the live rows are within 2x of the
+        training-time count, and the mutations since training stay under
+        the training corpus size (delete N + insert N churn never moves
+        the live ratio, so the count alone cannot see it)."""
+        warm = self._ivf_warm
+        self._ivf_warm = None
+        if warm is None:
+            return None, live, self._mut_count
+        cents0, live0, mut0 = np.asarray(warm[0]), warm[1], warm[2]
+        geom_ok = (cents0.ndim == 2
+                   and cents0.shape[-1] == self.config.vector_dim)
+        ratio_ok = live0 > 0 and 0.5 <= live / live0 <= 2.0
+        churn_ok = (self._mut_count - mut0) <= max(live0, 1)
+        if geom_ok and ratio_ok and churn_ok:
+            return cents0, live0, mut0
+        return None, live, self._mut_count
+
+    def _flush_ivf(self):
+        """Called under the engine lock. Staged inserts join the standing
+        host delta; past ivf_delta_max they drain into the clustered index
+        by append (or a rebuild when it is full); staged deletes clear
+        validity in place. A missing or outgrown index rebuilds."""
+        cfg = self.config
+        needs_rebuild = (
+            self._ivf is None
+            or self._ivf_layout is None
+            or any(m.phys_cap > self._ivf_layout.phys_cap
+                   for m in self.mirrors))
+        overflow = (len(self._ivf_delta) + len(self._staged_updates)
+                    > cfg.ivf_delta_max)
+        if not needs_rebuild and overflow:
+            for s, sl in self._staged_updates:
+                if self.mirrors[s].is_valid(sl):
+                    self._ivf_delta[(s, sl)] = (
+                        self.mirrors[s].vector_at(sl).copy())
+            self._staged_updates.clear()
+            # staged deletes drain first: a put-then-deleted slot must not
+            # take one of the fixed cell/spill append slots; deletes of rows
+            # already in the index are invalidated after the append so the
+            # rebuilt inverse maps include new rows
+            del_rows = []
+            for s, sl in self._staged_deletes:
+                self._ivf_delta.pop((s, sl), None)
+                del_rows.append(self._ivf_layout.row_of(s, sl))
+            self._staged_deletes.clear()
+            pairs = [((s, sl), v) for (s, sl), v in self._ivf_delta.items()
+                     if self.mirrors[s].is_valid(sl)]
+            appended = True
+            if pairs:
+                rows = np.asarray([self._ivf_layout.row_of(s, sl)
+                                   for (s, sl), _ in pairs], np.int64)
+                appended = self._ivf.append_rows(
+                    rows, np.stack([v for _, v in pairs]))
+            if appended:
+                self._ivf_delta.clear()
+                if del_rows:
+                    self._ivf.invalidate_rows(np.asarray(del_rows, np.int64))
+                self.stats["ivf_appends"] = (
+                    self.stats.get("ivf_appends", 0) + len(pairs))
+                # an off-lock search that snapshotted the delta before this
+                # append could score a row twice (delta + appended copy):
+                # the generation bump makes it retry
+                self._generation += 1
+            else:
+                needs_rebuild = True
+        if needs_rebuild:
+            layout = StackedLayout.for_mirrors(self.mirrors, block=128)
+            source = MirrorRowSource(self.mirrors, layout)
+            valid = source.valid_array()
+            live = int(valid.sum())
+            if live == 0:
+                self._ivf = None
+            else:
+                nlist = max(1, min(cfg.ivf_nlist, live // 8 or 1))
+                # the first rebuild after recovery reuses the checkpointed
+                # centroids (assignment only, no k-means training) within
+                # the drift/churn bounds of _consume_ivf_warm
+                warm_cents, trained_live, mut_train = \
+                    self._consume_ivf_warm(live)
+                self._ivf = IVFIndex.build_streaming(
+                    source, valid, nlist=nlist,
+                    # nprobe follows the actual cell count: warm centroids
+                    # override nlist inside build
+                    nprobe=min(cfg.ivf_nprobe,
+                               len(warm_cents) if warm_cents is not None
+                               else nlist),
+                    kmeans_iters=cfg.ivf_kmeans_iters,
+                    train_sample=cfg.ivf_train_sample,
+                    dtype=cfg.torch_dtype(),
+                    centroids=warm_cents,
+                    device=self.device,
+                )
+                self._ivf_train_state = (self._ivf.centroids_np(),
+                                         trained_live, mut_train)
+            self._ivf_layout = layout
+            self._ivf_delta.clear()
+            self._staged_updates.clear()
+            self._staged_deletes.clear()
+        else:
+            for s, sl in self._staged_updates:
+                if self.mirrors[s].is_valid(sl):
+                    self._ivf_delta[(s, sl)] = (
+                        self.mirrors[s].vector_at(sl).copy())
+            self._staged_updates.clear()
+            if self._staged_deletes:
+                rows = []
+                for s, sl in self._staged_deletes:
+                    self._ivf_delta.pop((s, sl), None)
+                    rows.append(self._ivf_layout.row_of(s, sl))
+                self._ivf.invalidate_rows(np.asarray(rows, np.int64))
+                self._staged_deletes.clear()
         self.stats["flushes"] += 1
 
     # ----------------------------------------------------------------- search
@@ -518,17 +676,25 @@ class VectorDBEngine:
                      if self.mirrors[s].is_valid(sl)]
             if not pairs:
                 return []
+            ivf_mode = self.config.index_type == "ivf"
             use_device = len(pairs) >= self._FILTER_DEVICE_MIN
         if use_device:
             # flush OUTSIDE the lock (flush takes the flush lock; taking it
             # while holding the engine lock would invert the lock order)
             with self._lock:
-                stale = (self._index is None
-                         or self._index.needs_rebuild(self.mirrors)
-                         or self._staged_updates or self._staged_deletes)
+                if ivf_mode:
+                    stale = (self._ivf is None or self._staged_updates
+                             or self._staged_deletes)
+                else:
+                    stale = (self._index is None
+                             or self._index.needs_rebuild(self.mirrors)
+                             or self._staged_updates or self._staged_deletes)
             if stale:
                 self.flush()
             with self._lock:
+                if ivf_mode:
+                    return self._filtered_search_device_ivf(
+                        query, k, pairs, threshold)
                 return self._filtered_search_device(query, k, pairs, threshold)
         with self._lock:
             mat = np.stack([self.mirrors[s].vector_at(sl) for s, sl in pairs])
@@ -584,6 +750,51 @@ class VectorDBEngine:
         self.stats["searches"] += 1
         return hits
 
+    def _filtered_search_device_ivf(self, query, k, pairs, threshold):
+        """Called under the engine lock, post-flush: the candidate set
+        folds into the IVF probe's validity operand
+        (IVFIndex.masked_valid); candidates still in the unclustered delta
+        score exactly on the host and merge. Probe coverage bounds recall,
+        as for unfiltered IVF."""
+        if self._ivf is None:
+            return []
+        layout = self._ivf_layout
+        delta_pairs = [p for p in pairs if p in self._ivf_delta]
+        in_delta = set(delta_pairs)
+        main_rows = np.asarray(
+            [layout.row_of(s, sl) for s, sl in pairs
+             if (s, sl) not in in_delta], np.int64)
+        q = np.asarray(query, np.float32).reshape(1, -1)
+        cand: List[Tuple[float, Tuple[int, int]]] = []
+        if main_rows.size:
+            override = self._ivf.masked_valid(main_rows)
+            dists, rows = self._ivf.search(q, k, valid_override=override)
+            for score, r in zip(dists[0], rows[0]):
+                if r >= 0 and np.isfinite(score):
+                    cand.append((float(score), layout.shard_slot_of(int(r))))
+        if delta_pairs:
+            mat = np.stack([self._ivf_delta[p] for p in delta_pairs])
+            d2 = np.sum((mat - q.reshape(-1)[None, :]) ** 2, axis=1)
+            cand.extend((float(d2[i]), delta_pairs[i])
+                        for i in range(len(delta_pairs)))
+        cand.sort(key=lambda t: t[0])
+        hits: List[SearchHit] = []
+        for score, (s, sl) in cand:
+            if threshold > 0 and score > threshold:
+                continue
+            key = self.docstore.key_at(s, sl)
+            if key is None:
+                continue
+            e = self.docstore.get(key)
+            vec = self.mirrors[s].vector_at(sl)
+            hits.append(SearchHit(key=key, score=score,
+                                  vector=[float(x) for x in vec],
+                                  metadata=dict(e.metadata) if e else {}))
+            if len(hits) >= k:
+                break
+        self.stats["searches"] += 1
+        return hits
+
     def search_batch(
         self, queries: np.ndarray, k: int, overfetch: bool = False
     ) -> Tuple[np.ndarray, List[List[Optional[str]]]]:
@@ -627,8 +838,9 @@ class VectorDBEngine:
         retry (no index yet / layout outgrown / staging buffer large);
         "retry" — a scatter or a compaction overlapped the scan."""
         with self._lock:
-            if (self._index is None
-                    and sum(m.live() for m in self.mirrors) == 0):
+            ivf_mode = self.config.index_type == "ivf"
+            no_index = self._ivf is None if ivf_mode else self._index is None
+            if no_index and sum(m.live() for m in self.mirrors) == 0:
                 # an empty engine never builds an index: empty results
                 q = np.atleast_2d(np.asarray(queries))
                 fetch = max(2 * k, k + 16) if overfetch else k
@@ -641,18 +853,18 @@ class VectorDBEngine:
             # served by the host-side delta scan so ingest never stalls
             # queries
             must_flush = (
-                self._index is None
-                or self._index.needs_rebuild(self.mirrors)
+                no_index
+                or (not ivf_mode and self._index.needs_rebuild(self.mirrors))
                 or len(self._staged_updates) + len(self._staged_deletes)
                 > self.config.flush_batch
             )
         if must_flush:
             return "flush", None
         with self._lock:
-            if self._index is None:
+            index = self._ivf if ivf_mode else self._index
+            if index is None:
                 return "retry", None  # flush raced with a compaction
-            index = self._index
-            layout = index.layout
+            layout = self._ivf_layout if ivf_mode else index.layout
             fetch_k = max(2 * k, k + 16) if overfetch else k
             out_k = min(fetch_k, layout.total_rows)
             fetch_k = out_k
@@ -671,13 +883,23 @@ class VectorDBEngine:
                 if self.mirrors[s].is_valid(sl):
                     delta.append((layout.row_of(s, sl),
                                   self.mirrors[s].vector_at(sl).copy()))
+            if ivf_mode:
+                # IVF's standing delta (flushed-but-unclustered inserts)
+                # joins the same host-side exact scan
+                for (s, sl), v in self._ivf_delta.items():
+                    if self.mirrors[s].is_valid(sl):
+                        delta.append((layout.row_of(s, sl), v))
         # the device call runs OUTSIDE the engine lock; slots are
         # append-only, so concurrent puts/deletes cannot corrupt it
         with self.timers.stage("search.device"):
-            dists, rows = self._flat_search_rows(queries, fetch_k, index,
-                                                 delta, n_del)
+            if ivf_mode:
+                dists, rows = self._ivf_search_rows(
+                    queries, fetch_k, index, delta, n_del, layout.total_rows)
+            else:
+                dists, rows = self._flat_search_rows(queries, fetch_k, index,
+                                                     delta, n_del)
         if index.version != version:
-            return "retry", None  # a scatter overlapped the scan
+            return "retry", None  # an in-place write overlapped the probe
         with self.timers.stage("search.assemble"):
             return self._assemble_results(dists, rows, gen, fetch_k,
                                           layout, out_k)
@@ -743,7 +965,23 @@ class VectorDBEngine:
         """
         dev_k = min(k + n_del, index.layout.total_rows)
         dists, rows = index.search(queries, dev_k)
-        rows = rows.astype(np.int64)
+        return self._merge_delta(queries, dists, rows.astype(np.int64),
+                                 delta, index.layout.total_rows)
+
+    def _ivf_search_rows(self, queries: np.ndarray, k: int, ivf, delta,
+                         n_del, total_rows):
+        """IVF probe + host exact scan of the delta snapshot (staged
+        writes and the standing unclustered delta), merged as in
+        _flat_search_rows. The fetch is k + n_del wide; the reference's
+        power-of-two width and bf16 wire distances (XLA compile and relay
+        workarounds) are not carried over."""
+        dists, rows = ivf.search(queries, k + n_del)
+        return self._merge_delta(queries, dists, rows, delta, total_rows)
+
+    @staticmethod
+    def _merge_delta(queries, dists, rows, delta, total):
+        """Merge the device top-k with the exact scores of the host delta
+        rows, dropping a delta row the device also returned; full width."""
         if not delta:
             return dists, rows
         mat = np.stack([v for _, v in delta])
@@ -753,7 +991,6 @@ class VectorDBEngine:
               - 2.0 * (q @ mat.T))
         drows = np.array([r for r, _ in delta], np.int64)
         qn = queries.shape[0]
-        total = index.layout.total_rows
         qoff = np.arange(qn, dtype=np.int64)[:, None] * total
         on_device = np.isin(qoff + drows[None, :],
                             (qoff + rows)[rows >= 0]).reshape(qn, len(delta))
@@ -835,7 +1072,9 @@ class VectorDBEngine:
             journal = self._compact_journal
             self._compact_journal = None
             self._swap_compacted(new_mirrors, new_docstore)
-            # replay ops that landed during the rebuild (already WAL'd)
+            # replay ops that landed during the rebuild (already WAL'd and
+            # already counted: the churn counter stays where it is)
+            mut0 = self._mut_count
             for op, key, vec, metadata, ts in journal:
                 if op == "put":
                     self._put_one(key, vec, metadata, ts, replay_mode=True)
@@ -844,6 +1083,7 @@ class VectorDBEngine:
                     if e is not None:
                         self.mirrors[e.shard].mark_deleted(e.slot)
                         self._staged_deletes.append((e.shard, e.slot))
+            self._mut_count = mut0
 
     def _rebuild_dense(self, snap, old_mirrors):
         """Columnar dense rebuild from an export_snapshot(): one gather and
@@ -875,6 +1115,9 @@ class VectorDBEngine:
         self.docstore = new_docstore
         self._generation += 1  # compaction reuses slots
         self._index = None
+        self._ivf = None
+        self._ivf_layout = None
+        self._ivf_delta.clear()
         self._staged_updates.clear()
         self._staged_deletes.clear()
         # in-flight scatter batches reference pre-compaction slots; their
@@ -900,9 +1143,13 @@ class VectorDBEngine:
                 # views + a small validity copy: rows [:n) are immutable,
                 # so the off-lock writer below reads them safely
                 shard_snaps = [m.checkpoint_snapshot() for m in self.mirrors]
+                ts_ = self._ivf_train_state
+                ivf_warm = ((*ts_, self._mut_count) if ts_ is not None
+                            else None)
                 self._puts_since_ckpt = 0
             path = self.ckpts.finish(tmp, self.config, doc_rows, shard_snaps,
-                                     wal_pos, dim=self.config.vector_dim)
+                                     wal_pos, dim=self.config.vector_dim,
+                                     ivf_warm=ivf_warm)
             if self.wal is not None:
                 self.wal.truncate_through(wal_pos)
             with self._lock:
@@ -917,6 +1164,7 @@ class VectorDBEngine:
 
     def info(self) -> Dict:
         with self._lock:
+            index = self._ivf if self._ivf is not None else self._index
             return {
                 "docs": len(self.docstore),
                 "shards": [
@@ -928,7 +1176,10 @@ class VectorDBEngine:
                 "device": str(self.device),
                 "device_rows": (self._index.layout.total_rows
                                 if self._index else 0),
-                "device_bytes": self._index.nbytes() if self._index else 0,
+                "device_bytes": index.nbytes() if index else 0,
+                "ivf": (dataclasses.asdict(self._ivf.stats())
+                        if self._ivf else None),
+                "ivf_delta": len(self._ivf_delta),
                 "staged": len(self._staged_updates) + len(self._staged_deletes),
                 "stats": dict(self.stats),
                 "latency": self.timers.snapshot(),

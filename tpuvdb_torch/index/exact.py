@@ -55,7 +55,7 @@ class DeviceExactIndex:
         self.dtype = dtype
         self.block_size = block_size
         self.search_mode = search_mode
-        self.recall_target = recall_target  # unused by the scan kernel
+        self.recall_target = recall_target  # the largest k the scan serves
         n, d = layout.total_rows, layout.dim
         self.vectors = torch.zeros((n, d), dtype=dtype, device=self.device)
         self.sqnorms = torch.zeros(n, dtype=torch.float32, device=self.device)

@@ -3,6 +3,13 @@ from tpuvdb_torch.kernels.distance import (
     l2sq_topk,
     l2sq_topk_blockwise,
 )
+from tpuvdb_torch.kernels.ivf_probe import (
+    ivf_candidates,
+    ivf_candidates_packed,
+    ivf_candidates_packed_plain,
+    ivf_candidates_plain,
+    ivf_probe_search,
+)
 from tpuvdb_torch.kernels.scan import (
     scan_candidates,
     scan_candidates_plain,
@@ -11,6 +18,11 @@ from tpuvdb_torch.kernels.scan import (
 from tpuvdb_torch.kernels.topk import mask_scores, merge_topk
 
 __all__ = [
+    "ivf_candidates",
+    "ivf_candidates_packed",
+    "ivf_candidates_packed_plain",
+    "ivf_candidates_plain",
+    "ivf_probe_search",
     "l2sq_topk",
     "l2sq_topk_blockwise",
     "l2sq_full",

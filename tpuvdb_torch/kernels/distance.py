@@ -17,10 +17,16 @@ Dispatch (`l2sq_topk`):
                      the reference leaves these to XLA, so torch ops here.
   "approx", "pallas" the bucketed scan (kernels/scan.py): the hand-written
                      CUDA kernel on the GPU, its plain torch twin on the
-                     CPU. The reference's "approx" is jax.lax.approx_max_k,
-                     a TPU hardware top-k with no GPU counterpart; the port
-                     serves both modes with the scan kernel, and
-                     `recall_target` (an approx_max_k knob) is ignored.
+                     CPU, wherever its buckets serve k at `recall_target`;
+                     the exact path above for any larger k.
+
+The reference's "approx" is jax.lax.approx_max_k at `recall_target`, which
+returns k hits at that recall for any k. The scan keeps one row per bucket:
+with the true top-k spread over B buckets, the expected share of it lost to
+collisions is about k / (2B). So the scan serves k <= 2B(1 - recall_target)
+(k <= 51 at B = 512 and the default 0.95), and a larger k takes the exact
+path, a torch matmul plus topk, as the reference's approx_max_k is XLA
+outside Pallas. The choice depends on k and recall_target only.
 """
 
 from __future__ import annotations
@@ -113,6 +119,16 @@ def l2sq_full(
     return _finish(neg, idx, _q_sq(queries))
 
 
+SCAN_BUCKETS = 512
+
+
+def scan_max_k(recall_target: float, n_buckets: int = SCAN_BUCKETS) -> int:
+    """Largest k the bucketed scan serves at `recall_target`: the expected
+    share of the true top-k lost to bucket collisions, about k / (2B), must
+    stay within 1 - recall_target."""
+    return int(2 * n_buckets * (1.0 - recall_target))
+
+
 def l2sq_topk(
     queries: torch.Tensor,
     corpus: torch.Tensor,
@@ -124,18 +140,19 @@ def l2sq_topk(
     block_size: int = 65536,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dispatcher: 'exact' (exact top-k merge), or 'approx'/'pallas' (the
-    bucketed scan kernel; recall_target is ignored there)."""
-    n = corpus.shape[0]
-    if mode == "exact":
-        if n % block_size != 0 or n <= block_size:
-            return l2sq_full(queries, corpus, corpus_sqnorms, valid, k)
-        return l2sq_topk_blockwise(queries, corpus, corpus_sqnorms, valid,
-                                   k=k, block_size=block_size)
-    if mode in ("approx", "pallas"):
+    bucketed scan kernel where k <= scan_max_k(recall_target), else exact)."""
+    if mode not in ("exact", "approx", "pallas"):
+        raise ValueError(f"unknown search mode: {mode}")
+    if mode != "exact" and k <= scan_max_k(recall_target):
         from tpuvdb_torch.kernels.scan import scan_l2sq_topk
 
-        return scan_l2sq_topk(queries, corpus, corpus_sqnorms, valid, k=k)
-    raise ValueError(f"unknown search mode: {mode}")
+        return scan_l2sq_topk(queries, corpus, corpus_sqnorms, valid, k=k,
+                              n_buckets=SCAN_BUCKETS)
+    n = corpus.shape[0]
+    if n % block_size != 0 or n <= block_size:
+        return l2sq_full(queries, corpus, corpus_sqnorms, valid, k)
+    return l2sq_topk_blockwise(queries, corpus, corpus_sqnorms, valid,
+                               k=k, block_size=block_size)
 
 
 def numpy_oracle(queries, corpus, valid, k):

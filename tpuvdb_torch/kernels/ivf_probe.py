@@ -1,0 +1,474 @@
+"""IVF probe: the port of tpuvdb/kernels/pallas_ivf.py for f32/bf16 cells.
+
+Two candidate functions, one per form of the reference's packed-layout
+probe, each a hand-written CUDA kernel in `tpuvdb_torch/csrc/ivf_probe.cu`
+on CUDA tensors (built with nvcc for sm_90a into `tpuvdb_torch/build/` on
+first use, bound with ctypes) and a plain PyTorch twin on CPU tensors:
+
+  ivf_candidates          replaces pallas_ivf._probe_kernel (the
+                          `pl.pallas_call` of pallas_ivf_candidates,
+                          pallas_ivf.py:401): the tile's sorted chunk ids,
+                          with a segment per entry.
+  ivf_candidates_packed   replaces pallas_ivf._probe_kernel_packed (the call
+                          of pallas_ivf_candidates_packed, :473): the tile's
+                          sorted probed cells plus the per-cell chunk start
+                          `off128`; segment = chunk mod n_segments.
+
+For each tile of `query_tile` queries both return, per query and slot
+(segment * 128 + column), the best score `2 q.x - ||x||^2 + mask` among the
+rows chunk * 128 + column of the chunks in that segment, and its row (the
+lowest on a tie; -1 and f32-min for an empty slot). That is what the
+reference's sequential strict-`>` fold computes, because a chunk always
+lands in the same slots and distinct chunks first appear in ascending order
+(csrc/ivf_probe.cu explains why); the plain twins compute it directly, with
+a max and a min-id per slot, so neither depends on the order of the list.
+An entry whose chunk, segment or cell id is out of range scores nothing;
+lists of the wrong shape raise, on either device. On a CUDA tensor a
+wrapper launches its kernel or raises; `LAUNCHES_EXPANDED` and
+`LAUNCHES_COMPACT` count launches.
+
+`ivf_probe_search` is the port of `pallas_ivf_search` on the packed layout
+(cell_offsets given; the fixed-stride layout is not used by IVFIndex): the
+coarse pick is a full-f32 matmul and `torch.topk(nprobe)` per query, each
+tile of 8 queries (fewer when Q < 8) probes the sorted union of its queries'
+cells, the spill rows are scanned exactly, and an exact top-k finishes, all
+as in the reference. The dispatch between the forms is kept as a result
+contract: the two choose different candidate sets, so the expanded form
+runs while Q_pad * nprobe * w128 <= 2**20 (`EXPANDED_MAX`, the reference's
+`_EXPANDED_PREFETCH_MAX`, a TPU SMEM limit there) and the compact form above
+it or with `force_compact=True`, and the port's candidates equal the
+reference's at every size. `cps_override` and `coarse_approx` (TPU grid-step
+and partial-reduction levers) are not ported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from tpuvdb_torch.kernels.cuda_build import CudaLibrary
+from tpuvdb_torch.kernels.distance import queries_like
+
+NEG_INF = float(torch.finfo(torch.float32).min)
+CHUNK = 128          # rows per chunk, the reference's lane width
+MAX_QUERY_TILE = 8   # queries per tile, the reference's query_tile
+EXPANDED_MAX = 1 << 20
+PLAIN_BLOCK_CHUNKS = 512  # chunks gathered at once by the plain twins
+
+LAUNCHES_EXPANDED = 0  # ivf_candidates kernel launches (CUDA tensors)
+LAUNCHES_COMPACT = 0   # ivf_candidates_packed kernel launches
+
+_INT_MAX = torch.iinfo(torch.int32).max
+_sm_counts = {}
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for fn in (lib.tpuvdb_ivf_expanded_f32, lib.tpuvdb_ivf_expanded_bf16):
+        fn.restype = i
+        fn.argtypes = [p] * 9 + [i] * 10 + [p]
+    for fn in (lib.tpuvdb_ivf_compact_f32, lib.tpuvdb_ivf_compact_bf16):
+        fn.restype = i
+        fn.argtypes = [p] * 9 + [i] * 12 + [p]
+    lib.tpuvdb_ivf_error.restype = ctypes.c_char_p
+    lib.tpuvdb_ivf_error.argtypes = [i]
+
+
+LIBRARY = CudaLibrary("ivf_probe.cu", "libtpuvdb_ivf_probe.so", _bind)
+
+
+# ------------------------------------------------------------ plain twins
+
+
+def _fold_block(run_val, run_idx, scores, ids, slots):
+    """Fold (QT, R) scores of rows `ids` landing in `slots` into the
+    running (QT, n_slots) best: the max score, then the lowest id among
+    the rows reaching it; scores <= f32-min never enter."""
+    qn, n_slots = run_val.shape
+    slot_e = slots.expand(qn, -1)
+    bval = torch.full_like(run_val, NEG_INF).scatter_reduce(
+        1, slot_e, scores, "amax")
+    hit = (scores == bval.gather(1, slot_e)) & (scores > NEG_INF)
+    cand = torch.where(hit, ids.expand(qn, -1), _INT_MAX)
+    bidx = torch.full_like(run_idx, _INT_MAX).scatter_reduce(
+        1, slot_e, cand, "amin")
+    cur = torch.where(run_idx < 0, _INT_MAX, run_idx)
+    better = (bval > run_val) | ((bval == run_val) & (bidx < cur))
+    better &= bval > NEG_INF
+    return (torch.where(better, bval, run_val),
+            torch.where(better, bidx, run_idx))
+
+
+def _plain_fold(q, grouped, sq, mask, tile_chunks, tile_segs, n_segments,
+                query_tile):
+    """Shared body of the plain twins: per tile, the distinct chunks and
+    their segments, folded in blocks of PLAIN_BLOCK_CHUNKS."""
+    qp = q.shape[0]
+    n_chunks = grouped.shape[0] // CHUNK
+    dev = grouped.device
+    n_slots = CHUNK * n_segments
+    val = torch.full((qp, n_slots), NEG_INF, dtype=torch.float32, device=dev)
+    idx = torch.full((qp, n_slots), -1, dtype=torch.int32, device=dev)
+    col = torch.arange(CHUNK, dtype=torch.int64, device=dev)
+    for t, (chunks, segs) in enumerate(zip(tile_chunks, tile_segs)):
+        keep = (chunks >= 0) & (chunks < n_chunks)
+        uniq, first = _first_occurrence(chunks[keep].long())
+        useg = segs[keep].long()[first]
+        # as the kernel: a chunk whose (first) segment is out of range
+        # scores nothing
+        ok = (useg >= 0) & (useg < n_segments)
+        uniq, useg = uniq[ok], useg[ok]
+        qt = q[t * query_tile:(t + 1) * query_tile]
+        rv, ri = val[t * query_tile:(t + 1) * query_tile], \
+            idx[t * query_tile:(t + 1) * query_tile]
+        for lo in range(0, uniq.shape[0], PLAIN_BLOCK_CHUNKS):
+            c = uniq[lo:lo + PLAIN_BLOCK_CHUNKS]
+            rows = (c[:, None] * CHUNK + col).reshape(-1)
+            x = grouped[rows].to(torch.float32)
+            scores = 2.0 * (qt @ x.T) - sq[rows] + mask[rows]
+            slots = (useg[lo:lo + PLAIN_BLOCK_CHUNKS, None] * CHUNK
+                     + col).reshape(1, -1)
+            rv, ri = _fold_block(rv, ri, scores, rows.to(torch.int32)[None],
+                                 slots)
+        val[t * query_tile:(t + 1) * query_tile] = rv
+        idx[t * query_tile:(t + 1) * query_tile] = ri
+    return val, idx
+
+
+def _first_occurrence(x: torch.Tensor):
+    """(sorted distinct values of x, index in x of each one's first
+    occurrence)."""
+    uniq, inv = torch.unique(x, sorted=True, return_inverse=True)
+    pos = torch.arange(x.shape[0], device=x.device)
+    first = torch.full(uniq.shape, x.shape[0], dtype=torch.int64,
+                       device=x.device).scatter_reduce(0, inv, pos, "amin")
+    return uniq, first
+
+
+def ivf_candidates_plain(queries, cells, segs, grouped, grouped_sq, neg_mask,
+                         n_segments: int, query_tile: int):
+    """Plain twin of the expanded-form kernel (see ivf_candidates)."""
+    q = queries_like(queries, grouped)
+    return _plain_fold(q, grouped, grouped_sq.reshape(-1),
+                       neg_mask.reshape(-1), cells, segs, n_segments,
+                       query_tile)
+
+
+def packed_chunks(cells, off128, w128: int, n_chunks: int):
+    """The compact form's chunk list: entry g of a tile is chunk
+    min(off128[cells[g // w128]] + g % w128, n_chunks - 1), or -1 (no
+    chunk) where the cell id is not one of off128's."""
+    w = torch.arange(w128, dtype=torch.int64, device=cells.device)
+    nlist = off128.numel()
+    ok = (cells >= 0) & (cells < nlist)
+    start = off128.long()[cells.long().clamp(0, max(nlist - 1, 0))]
+    chunks = (start[:, :, None] + w).clamp(max=n_chunks - 1)
+    chunks = torch.where(ok[:, :, None], chunks, -1)
+    return chunks.reshape(cells.shape[0], -1)
+
+
+def ivf_candidates_packed_plain(queries, cells, off128, grouped, grouped_sq,
+                                neg_mask, w128: int, n_segments: int,
+                                query_tile: int):
+    """Plain twin of the compact-form kernel (see ivf_candidates_packed)."""
+    q = queries_like(queries, grouped)
+    chunks = packed_chunks(cells, off128, w128, grouped.shape[0] // CHUNK)
+    return _plain_fold(q, grouped, grouped_sq.reshape(-1),
+                       neg_mask.reshape(-1), chunks, chunks % n_segments,
+                       n_segments, query_tile)
+
+
+# --------------------------------------------------------------- wrappers
+
+
+def _check(name, queries, grouped, sq, mask, *int_arrays):
+    """Raise unless the kernel takes these devices, dtypes and layouts."""
+    dev = grouped.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    for t in (queries, sq, mask) + int_arrays:
+        if t.device != dev:
+            raise ValueError(f"{name}: inputs on {t.device}, cells on {dev}")
+    if grouped.dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(
+            f"{name} takes float32 or bfloat16 cells, not {grouped.dtype} "
+            "(int8 cells wait for the int8 slice)")
+    if sq.dtype != torch.float32 or mask.dtype != torch.float32:
+        raise ValueError(f"{name}: grouped_sq and neg_mask must be float32")
+    for t in int_arrays:
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name}: index arrays must be int32")
+    if not grouped.is_contiguous():
+        raise ValueError(f"{name}: grouped must be contiguous")
+    n, d = grouped.shape
+    if n % CHUNK or n >= 2 ** 31:
+        raise ValueError(f"{name}: grouped rows {n} must be a multiple of "
+                         f"{CHUNK} below 2**31")
+    if queries.dim() != 2 or queries.shape[1] != d:
+        raise ValueError(f"{name}: queries {tuple(queries.shape)} vs dim {d}")
+    if sq.numel() != n or mask.numel() != n:
+        raise ValueError(f"{name}: grouped_sq/neg_mask must have {n} rows")
+
+
+def _check_lists(name, queries, query_tile, n_segments, cells, segs=None,
+                 off128=None):
+    """Raise unless the per-tile lists fit the queries and the outputs: the
+    kernel indexes the queries and its outputs by tile, so a list of the
+    wrong shape raises here, on either device. Values need no check: an
+    entry whose segment or cell id is out of range scores nothing, in the
+    kernel and in the plain twins alike."""
+    if not 1 <= query_tile <= MAX_QUERY_TILE:
+        raise ValueError(f"{name}: query_tile must be 1..{MAX_QUERY_TILE}")
+    if queries.shape[0] % query_tile:
+        raise ValueError(f"{name}: queries {queries.shape[0]} % query_tile "
+                         f"{query_tile} != 0")
+    if n_segments < 1:
+        raise ValueError(f"{name}: n_segments must be >= 1")
+    if cells.dim() != 2 or cells.shape[0] * query_tile != queries.shape[0]:
+        raise ValueError(f"{name}: cells {tuple(cells.shape)} must have one "
+                         f"row per tile of {query_tile} of the "
+                         f"{queries.shape[0]} queries")
+    if segs is not None and segs.shape != cells.shape:
+        raise ValueError(f"{name}: segs {tuple(segs.shape)} must have the "
+                         f"shape of cells {tuple(cells.shape)}")
+    if off128 is not None and off128.dim() != 1:
+        raise ValueError(f"{name}: off128 must be 1-D")
+
+
+def _launch_shape(tiles: int, n_entries: int, dev) -> Tuple[int, int]:
+    """(splits, entries_per_block): about four blocks per SM in all."""
+    if dev.index not in _sm_counts:
+        _sm_counts[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    want = -(-4 * _sm_counts[dev.index] // tiles)
+    splits = max(1, min(n_entries, want, 65535))
+    epb = -(-n_entries // splits)
+    return -(-n_entries // epb), epb
+
+
+def _outputs(qp, n_segments, dev):
+    n_slots = CHUNK * n_segments
+    keys = torch.empty((qp, n_slots), dtype=torch.int64, device=dev)
+    val = torch.empty((qp, n_slots), dtype=torch.float32, device=dev)
+    idx = torch.empty((qp, n_slots), dtype=torch.int32, device=dev)
+    return keys, val, idx
+
+
+def ivf_candidates(
+    queries: torch.Tensor,     # (Q_pad, d) f32; Q_pad % query_tile == 0
+    cells: torch.Tensor,       # (tiles, W) int32 chunk ids, sorted per tile
+    segs: torch.Tensor,        # (tiles, W) int32 segment of each entry
+    grouped: torch.Tensor,     # (n_chunks * 128, d) f32 or bf16
+    grouped_sq: torch.Tensor,  # (n_chunks * 128,) f32
+    neg_mask: torch.Tensor,    # (n_chunks * 128,) f32: 0 live / NEG_INF dead
+    n_segments: int,
+    query_tile: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expanded-form probe: (cand_val f32, cand_idx int32), each
+    (Q_pad, 128 * n_segments)."""
+    global LAUNCHES_EXPANDED
+    _check_lists("ivf_candidates", queries, query_tile, n_segments, cells,
+                 segs=segs)
+    if grouped.device.type == "cpu":
+        return ivf_candidates_plain(queries, cells, segs, grouped,
+                                    grouped_sq, neg_mask, n_segments,
+                                    query_tile)
+    # held in names until the launch: a temporary passed as a pointer
+    # could be freed, and its memory reused, before the kernel runs
+    sq = grouped_sq.reshape(-1).contiguous()
+    mask = neg_mask.reshape(-1).contiguous()
+    _check("ivf_candidates", queries, grouped, sq, mask, cells, segs)
+    lib = LIBRARY.load()
+    q = queries_like(queries, grouped).contiguous()
+    cells, segs = cells.contiguous(), segs.contiguous()
+    dev = grouped.device
+    tiles, width = cells.shape
+    keys, val, idx = _outputs(q.shape[0], n_segments, dev)
+    if tiles == 0 or width == 0:
+        return val.fill_(NEG_INF), idx.fill_(-1)
+    splits, epb = _launch_shape(tiles, width, dev)
+    f32 = grouped.dtype == torch.float32
+    d = grouped.shape[1]
+    vec = d % (4 if f32 else 8) == 0 and grouped.data_ptr() % 16 == 0
+    fn = lib.tpuvdb_ivf_expanded_f32 if f32 else lib.tpuvdb_ivf_expanded_bf16
+    rc = fn(q.data_ptr(), grouped.data_ptr(), sq.data_ptr(),
+            mask.data_ptr(), cells.data_ptr(), segs.data_ptr(),
+            keys.data_ptr(), val.data_ptr(), idx.data_ptr(), tiles,
+            query_tile, d, width, grouped.shape[0] // CHUNK, n_segments,
+            splits, epb, int(vec), dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("ivf probe kernel launch failed: "
+                           f"{lib.tpuvdb_ivf_error(rc).decode()}")
+    LAUNCHES_EXPANDED += 1
+    return val, idx
+
+
+def ivf_candidates_packed(
+    queries: torch.Tensor,     # (Q_pad, d) f32; Q_pad % query_tile == 0
+    cells: torch.Tensor,       # (tiles, U) int32 probed cells, sorted
+    off128: torch.Tensor,      # (nlist,) int32 per-cell start / 128
+    grouped: torch.Tensor,     # (n_chunks * 128, d) f32 or bf16
+    grouped_sq: torch.Tensor,  # (n_chunks * 128,) f32
+    neg_mask: torch.Tensor,    # (n_chunks * 128,) f32
+    w128: int,                 # scan window in chunks
+    n_segments: int,
+    query_tile: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Compact-form probe: (cand_val f32, cand_idx int32), each
+    (Q_pad, 128 * n_segments)."""
+    global LAUNCHES_COMPACT
+    _check_lists("ivf_candidates_packed", queries, query_tile, n_segments,
+                 cells, off128=off128)
+    if grouped.device.type == "cpu":
+        return ivf_candidates_packed_plain(queries, cells, off128, grouped,
+                                           grouped_sq, neg_mask, w128,
+                                           n_segments, query_tile)
+    # held in names until the launch: a temporary passed as a pointer
+    # could be freed, and its memory reused, before the kernel runs
+    sq = grouped_sq.reshape(-1).contiguous()
+    mask = neg_mask.reshape(-1).contiguous()
+    _check("ivf_candidates_packed", queries, grouped, sq, mask, cells, off128)
+    lib = LIBRARY.load()
+    q = queries_like(queries, grouped).contiguous()
+    cells, off128 = cells.contiguous(), off128.contiguous()
+    dev = grouped.device
+    tiles, width = cells.shape
+    keys, val, idx = _outputs(q.shape[0], n_segments, dev)
+    if tiles == 0 or width == 0:
+        return val.fill_(NEG_INF), idx.fill_(-1)
+    splits, epb = _launch_shape(tiles, width * w128, dev)
+    f32 = grouped.dtype == torch.float32
+    d = grouped.shape[1]
+    vec = d % (4 if f32 else 8) == 0 and grouped.data_ptr() % 16 == 0
+    fn = lib.tpuvdb_ivf_compact_f32 if f32 else lib.tpuvdb_ivf_compact_bf16
+    rc = fn(q.data_ptr(), grouped.data_ptr(), sq.data_ptr(),
+            mask.data_ptr(), cells.data_ptr(), off128.data_ptr(),
+            keys.data_ptr(), val.data_ptr(), idx.data_ptr(), tiles,
+            query_tile, d, width, w128, grouped.shape[0] // CHUNK,
+            off128.numel(), n_segments, splits, epb, int(vec), dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("ivf probe kernel launch failed: "
+                           f"{lib.tpuvdb_ivf_error(rc).decode()}")
+    LAUNCHES_COMPACT += 1
+    return val, idx
+
+
+# ----------------------------------------------------------- full search
+
+
+class ProbePlan(NamedTuple):
+    """The kernel inputs of one probe: padded queries, the form, the
+    per-tile lists and the segment count."""
+    queries: torch.Tensor  # (Q_pad, d) f32
+    query_tile: int
+    compact: bool
+    cells: torch.Tensor    # expanded: chunk ids; compact: cell ids
+    segs: Optional[torch.Tensor]   # expanded only
+    off128: torch.Tensor
+    w128: int
+    n_segments: int
+
+
+def probe_plan(queries, centroids, cell_offsets, cell_pad: int, k: int,
+               nprobe: int, query_tile: int = MAX_QUERY_TILE,
+               force_compact: bool = False) -> ProbePlan:
+    """Coarse pick and per-tile lists, as pallas_ivf_search builds them."""
+    qn, d = queries.shape
+    if qn == 0:
+        raise ValueError("ivf_probe_search: empty query batch")
+    qt = min(query_tile, max(1, qn))
+    q = queries.to(torch.float32)
+    pad_q = (-qn) % qt
+    if pad_q:
+        q = torch.cat([q, q.new_zeros((pad_q, d))])
+    c_sq = (centroids * centroids).sum(dim=-1)
+    c_scores = 2.0 * (q @ centroids.T) - c_sq[None, :]
+    cells_pq = torch.topk(c_scores, nprobe, dim=1).indices  # (Q_pad, nprobe)
+    cells = torch.sort(cells_pq.reshape(-1, qt * nprobe).to(torch.int32),
+                       dim=1).values                       # (tiles, U)
+    w128 = cell_pad // CHUNK
+    off128 = (cell_offsets // CHUNK).to(torch.int32)
+    n_segments = max(4, -(-2 * k // CHUNK))
+    n_expanded = cells.shape[0] * cells.shape[1] * w128
+    if n_expanded <= EXPANDED_MAX and not force_compact:
+        w = torch.arange(w128, dtype=torch.int32, device=cells.device)
+        chunks = (off128[cells.long()][:, :, None] + w).reshape(
+            cells.shape[0], -1)
+        chunks = torch.sort(chunks, dim=1).values
+        # segment = rank among the tile's distinct sorted chunks
+        distinct = torch.ones_like(chunks, dtype=torch.bool)
+        distinct[:, 1:] = chunks[:, 1:] != chunks[:, :-1]
+        ranks = torch.cumsum(distinct.to(torch.int32), dim=1) - 1
+        segs = (ranks % n_segments).to(torch.int32)
+        return ProbePlan(q, qt, False, chunks, segs, off128, w128, n_segments)
+    # hash-derived segments balance only statistically: 2x, as the reference
+    return ProbePlan(q, qt, True, cells, None, off128, w128, 2 * n_segments)
+
+
+def plan_candidates(plan: ProbePlan, grouped, grouped_sq, neg_mask,
+                    plain: bool = False):
+    """Run a plan through its form's wrapper (or, with plain=True, through
+    the plain twin on the same device)."""
+    if plan.compact:
+        fn = ivf_candidates_packed_plain if plain else ivf_candidates_packed
+        return fn(plan.queries, plan.cells, plan.off128, grouped, grouped_sq,
+                  neg_mask, plan.w128, plan.n_segments, plan.query_tile)
+    fn = ivf_candidates_plain if plain else ivf_candidates
+    return fn(plan.queries, plan.cells, plan.segs, grouped, grouped_sq,
+              neg_mask, plan.n_segments, plan.query_tile)
+
+
+def ivf_probe_search(
+    queries: torch.Tensor,        # (Q, d) f32
+    centroids: torch.Tensor,      # (nlist, d) f32
+    grouped: torch.Tensor,        # (N_g, d) f32 or bf16, cells packed
+    grouped_sq: torch.Tensor,     # (N_g,) f32
+    grouped_valid: torch.Tensor,  # (N_g,) bool
+    cell_offsets: torch.Tensor,   # (nlist,) packed start row per cell
+    cell_pad: int,                # scan window (rows), multiple of 128
+    k: int,
+    nprobe: int,
+    query_tile: int = MAX_QUERY_TILE,
+    spill: Optional[torch.Tensor] = None,        # (S, d)
+    spill_sq: Optional[torch.Tensor] = None,     # (S,)
+    spill_valid: Optional[torch.Tensor] = None,  # (S,) bool
+    force_compact: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dist, grouped_row), each (Q, k): exact ascending squared L2 of the
+    candidates; spill row j has id N_g + j; empty slots +inf / -1."""
+    qn = queries.shape[0]
+    plan = probe_plan(queries, centroids, cell_offsets, cell_pad, k, nprobe,
+                      query_tile, force_compact)
+    neg_mask = torch.zeros(grouped_valid.shape, dtype=torch.float32,
+                           device=grouped.device).masked_fill_(
+                               ~grouped_valid, NEG_INF)
+    cand_val, cand_idx = plan_candidates(plan, grouped, grouped_sq, neg_mask)
+    cand_val, cand_idx = cand_val[:qn], cand_idx[:qn]
+    if spill is not None and spill.shape[0] > 0:
+        qc = queries_like(queries, spill)
+        sneg = 2.0 * (qc @ spill.to(torch.float32).T) - spill_sq[None, :]
+        sneg = torch.where(spill_valid[None, :], sneg,
+                           torch.full_like(sneg, NEG_INF))
+        sids = grouped.shape[0] + torch.arange(
+            spill.shape[0], dtype=torch.int32, device=grouped.device)
+        cand_val = torch.cat([cand_val, sneg], dim=1)
+        cand_idx = torch.cat([cand_idx, sids.expand(qn, -1)], dim=1)
+    kk = min(k, cand_val.shape[1])
+    # a stable sort: equal scores keep candidate order, as lax.top_k does
+    neg, pos = torch.sort(cand_val, dim=1, descending=True, stable=True)
+    neg, pos = neg[:, :kk], pos[:, :kk]
+    idx = torch.gather(cand_idx, 1, pos)
+    if kk < k:
+        neg = F.pad(neg, (0, k - kk), value=NEG_INF)
+        idx = F.pad(idx, (0, k - kk), value=-1)
+    q = queries.to(torch.float32)
+    q_sq = (q * q).sum(dim=-1, keepdim=True)
+    idx = torch.where(neg <= NEG_INF, torch.full_like(idx, -1), idx)
+    dist = torch.where(idx >= 0, q_sq - neg,
+                       torch.full_like(neg, float("inf")))
+    return dist, idx

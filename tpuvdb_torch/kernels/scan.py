@@ -11,7 +11,8 @@ tiling and are gone, with fit_block_rows and _fit_sub_rows).
 On a CUDA tensor it launches the hand-written kernel in
 `tpuvdb_torch/csrc/scan.cu` (replacing `pallas_scan._scan_kernel`, the
 `pl.pallas_call` at pallas_scan.py:120), built with nvcc for sm_90a into
-`tpuvdb_torch/build/` on first use and bound with ctypes, or raises. On a
+`tpuvdb_torch/build/` on first use (kernels/cuda_build.py) and bound
+with ctypes, or raises. On a
 CPU tensor it runs `scan_candidates_plain`, the same function in torch ops.
 `LAUNCHES` counts kernel launches.
 
@@ -29,73 +30,34 @@ stays torch ops as it stays XLA in the reference.
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
-import threading
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
+from tpuvdb_torch.kernels.cuda_build import CudaLibrary
 from tpuvdb_torch.kernels.distance import queries_like
 
 NEG_INF = float(torch.finfo(torch.float32).min)
 
 LAUNCHES = 0  # kernel launches through scan_candidates on CUDA tensors
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "scan.cu")
-BUILD_DIR = os.path.join(_PKG, "build")
-LIBRARY = os.path.join(BUILD_DIR, "libtpuvdb_scan.so")
-BUILD_LOG = ""  # nvcc's output of the last build (-Xptxas -v resource use)
-
 MIN_BUCKETS = 256   # 256 consecutive rows per kernel step need distinct buckets
 PLAIN_BLOCK_ROWS = 16384
 
-_lib = None
-_lib_lock = threading.Lock()
 _sm_counts = {}
 
 
-def nvcc_command(out: str):
-    nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                        "bin", "nvcc")
-    return [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            "-o", out, SOURCE]
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for fn in (lib.tpuvdb_scan_f32, lib.tpuvdb_scan_bf16):
+        fn.restype = i
+        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.tpuvdb_scan_error.restype = ctypes.c_char_p
+    lib.tpuvdb_scan_error.argtypes = [i]
 
 
-def build() -> str:
-    """Compile csrc/scan.cu into build/ unless an up-to-date library is
-    there. Raises with nvcc's output if the build fails."""
-    global BUILD_LOG
-    if (os.path.exists(LIBRARY)
-            and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE)):
-        return LIBRARY
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
-    res = subprocess.run(nvcc_command(tmp), capture_output=True, text=True)
-    BUILD_LOG = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {SOURCE}:\n{BUILD_LOG}")
-    os.replace(tmp, LIBRARY)
-    return LIBRARY
-
-
-def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            p, i = ctypes.c_void_p, ctypes.c_int
-            for fn in (lib.tpuvdb_scan_f32, lib.tpuvdb_scan_bf16):
-                fn.restype = i
-                fn.argtypes = [p, p, p, p, p, p, p, p,
-                               i, i, i, i, i, i, i, i, p]
-            lib.tpuvdb_scan_error.restype = ctypes.c_char_p
-            lib.tpuvdb_scan_error.argtypes = [i]
-            _lib = lib
-        return _lib
+LIBRARY = CudaLibrary("scan.cu", "libtpuvdb_scan.so", _bind)
 
 
 def _splits(nq: int, n: int, dev: torch.device) -> Tuple[int, int]:
@@ -104,7 +66,7 @@ def _splits(nq: int, n: int, dev: torch.device) -> Tuple[int, int]:
     if dev.index not in _sm_counts:
         _sm_counts[dev.index] = torch.cuda.get_device_properties(
             dev).multi_processor_count
-    lib = _load()
+    lib = LIBRARY.load()
     n_tiles = -(-n // lib.tpuvdb_scan_rows_per_step())
     q_tiles = -(-nq // lib.tpuvdb_scan_queries_per_block())
     want = -(-4 * _sm_counts[dev.index] // q_tiles)
@@ -150,7 +112,7 @@ def scan_candidates(
         # more buckets than fit the block's shared memory fail at launch
         raise ValueError(f"n_buckets={n_buckets}: the scan kernel needs "
                          f">= {MIN_BUCKETS} buckets")
-    lib = _load()
+    lib = LIBRARY.load()
     q = queries_like(queries, corpus).contiguous()
     sq = sq.contiguous()
     mask = mask.contiguous()

@@ -6,14 +6,18 @@ A checkpoint is `checkpoint_<ts>/` containing:
     shard_<i>.npz    — per-shard mirror metadata + inline raw-dtype rows,
                        scales and sqnorms (format 2)
     wal_pos.txt      — max WAL LSN covered by this checkpoint
+    ivf_warm.npz     — IVF engines: trained centroids, the live-row count
+                       and mutation count at training, the mutation count
+                       at the checkpoint (a restart reuses the centroids)
     MANIFEST.json    — shard count/dim/format + completeness marker
                        (written last, so a torn checkpoint never restores)
 
 The layout is the reference's, so checkpoints restore across the two
 packages. Restore also reads what only the reference writes: a native
 `docstore.kv` snapshot, hardlinked mmap mirror files (`shard_<i>.vec/.sq/
-.scale`) and format-1 shards. IVF extras (`ivf_warm.npz`,
-`ivf_packed.npz`) are neither written nor read until IVF is ported.
+.scale`) and format-1 shards. The IVF-PQ extras (PQ codebooks and rotation
+in `ivf_warm.npz`, `ivf_packed.npz`) wait for the IVF-PQ slice: they are
+not written, and a warm state's PQ keys are ignored.
 
 Retention keeps the newest `max_checkpoints`.
 """
@@ -25,6 +29,7 @@ import json
 import os
 import shutil
 import time
+import zipfile
 from typing import Callable, List, Optional, Tuple
 
 import msgpack
@@ -88,6 +93,7 @@ class CheckpointManager:
         shard_snaps: List[dict],          # ShardMirror.checkpoint_snapshot()
         wal_pos: int,
         dim: int,
+        ivf_warm=None,  # (centroids, trained_live, mut_at_train, mut_now)
     ) -> str:
         """Write and commit the checkpoint from snapshot descriptors that
         the caller captured under its lock; runs with the lock released."""
@@ -107,6 +113,13 @@ class CheckpointManager:
                      deleted=np.int64(s["deleted"]), valid=s["valid"])
         with open(os.path.join(tmp, "wal_pos.txt"), "w") as f:
             f.write(str(int(wal_pos)))
+        if ivf_warm is not None:
+            cents, trained_live, mut_at_train, mut_now = ivf_warm
+            np.savez(os.path.join(tmp, "ivf_warm.npz"),
+                     centroids=np.asarray(cents, np.float32),
+                     trained_live=np.int64(trained_live),
+                     mut_at_train=np.int64(mut_at_train),
+                     mut_at_ckpt=np.int64(mut_now))
         with open(os.path.join(tmp, "MANIFEST.json"), "w") as f:
             json.dump({"num_shards": len(shard_snaps), "dim": dim,
                        "format": 2, "docstore": "msgpack",
@@ -199,3 +212,23 @@ class CheckpointManager:
             m.load_f32(f32, valid, n, deleted)
         else:  # f32 checkpoint -> int8 mirror: vectorized quantize
             m.load_f32(np.asarray(vec, np.float32), valid, n, deleted)
+
+    def load_ivf_warm(self):
+        """(centroids, trained_live, mut_at_train, mut_at_ckpt) of the
+        newest checkpoint, or None (no checkpoint, a flat engine's, or a
+        torn file). Checkpoints without the mutation keys give 0 for them,
+        as the reference reads them."""
+        path = self.latest()
+        if path is None:
+            return None
+        p = os.path.join(path, "ivf_warm.npz")
+        if not os.path.exists(p):
+            return None
+        try:
+            with np.load(p) as z:
+                mt = int(z["mut_at_train"]) if "mut_at_train" in z else 0
+                mc = int(z["mut_at_ckpt"]) if "mut_at_ckpt" in z else 0
+                return (np.array(z["centroids"]), int(z["trained_live"]),
+                        mt, mc)
+        except (OSError, ValueError, KeyError, zipfile.BadZipFile):
+            return None  # torn/corrupt extras never block recovery
