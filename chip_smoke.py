@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 It runs every phase, in this order; any failure exits non-zero, and nothing
-is caught and carried on. The kernels (csrc/scan.cu, csrc/ivf_probe.cu) are
-built first with nvcc for sm_90a, one nvcc per source, side by side.
+is caught and carried on. The kernels (csrc/scan.cu; csrc/ivf_probe.cu with
+the f32/bf16 and the int8 probes) are built first with nvcc for sm_90a, one
+nvcc per source, side by side.
 
   kernel      Holds the scan
               kernel against its plain PyTorch version on 1,048,576 x 512
@@ -66,6 +67,36 @@ built first with nvcc for sm_90a, one nvcc per source, side by side.
               a delta overflow that drains by append; and a 50,000-row
               data_dir restart that reuses the warm centroids (k-means is
               made to fail) and returns identical keys.
+  int8 kernel Inside the ivf kernel phase, on the same corpus and dead rows:
+              IVFIndex.build(nlist 1,024, nprobe 64, dtype=torch.int8), and
+              both int8 probe kernels against their plain twins at Q = 1, 8
+              and 256, the compact form through force_compact and at
+              Q = 1,024 above 2**20 entries. Exact int32 dots and f32
+              operations rounded once each in both, so candidate ids and
+              scores must be equal bit for bit (max_abs_err 0). The bound
+              counts 1 byte per element plus 12 per row (scale, norm, mask)
+              over the HBM rate and the int8 operations over the
+              tensor-core int8 peak.
+  flat int8   DBConfig(vector_dim=512, storage_dtype="int8"), the rest at
+              its defaults (4 shards, flat, rescore_mode="exact",
+              rescore_overfetch=16), over the engine phase's 1,000,000 unit
+              rows: build time, b1 / b32 / b256 at k=10 with the stage
+              timers and the host rescore's share, b256 under
+              torch.profiler (the torch ops of the int8 scan), recall@10 >=
+              0.95 against an exact f32 scan, the device index's bytes
+              beside an f32 one's; then a rescore_mode="device" engine and
+              a "none" engine at b256 (latency and recall, reported). This
+              path is torch ops (`_int_mm`, top-k): it launches no
+              hand-written kernel, and the line it prints says so.
+  ivf int8    The IVF serving configuration with storage_dtype="int8" over
+              the ivf engine phase's rows: build time, b1 / b8 / b32 / b256
+              at k=10, recall@10 >= 0.95 with the exact rescore and the
+              recall of a rescore_mode="none" engine (reported), a b1,024
+              index search through the compact int8 kernel, the write
+              checks with a delta-overflow append, and a 50,000-row warm
+              restart (with int8 mirrors). The int8 probe launches are
+              zeroed before the engine's searches and before the index
+              search, and must be > 0 after each.
 
 The last two lines of standard output are the card's name and power limit
 (as nvidia-smi reports them) and the JSON result line.
@@ -89,9 +120,10 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth,
-# f32 outside the tensor cores, dense bf16 on the tensor cores
+# f32 outside the tensor cores, dense bf16 and int8 on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12,
+              torch.int8: 1979e12}
 
 SCAN_N = 1 << 20
 SCAN_D = 512
@@ -122,6 +154,7 @@ IVF_SCORE_TOL = 1e-5     # of 2|q||x|max + |x|max^2 per query
 IVF_ENGINE_ROWS = 1_000_000
 IVF_BATCHES = (1, 8, 32, 256)
 IVF_RESTART_ROWS = 50_000
+SIDE_REPS = 30           # b256 searches of the "device" / "none" engines
 
 
 def log(msg: str) -> None:
@@ -274,10 +307,35 @@ def _unit_rows(rng, n: int, d: int) -> np.ndarray:
     return x
 
 
+def _timed_searches(eng, label: str, queries, batches, out: dict,
+                    reps: int = SEARCH_REPS) -> None:
+    """Closed-loop search_batch calls at k=10 for each batch size: p50,
+    p90, QPS over the window and the engine's stage timers, into out[bN]."""
+    from tpuvdb_torch.utils.tracing import StageTimer
+
+    for b in batches:
+        q = queries[:b]
+        eng.search_batch(q, 10)  # warm
+        eng.timers = StageTimer()
+        times = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            eng.search_batch(q, 10)
+            times.append(time.perf_counter() - t)
+        p50, p90 = (float(np.percentile(times, p)) * 1e3 for p in (50, 90))
+        qps = b * len(times) / sum(times)
+        stages = {name: st["p50_ms"]
+                  for name, st in eng.timers.snapshot().items()}
+        out[f"b{b}"] = {"p50_ms": p50, "p90_ms": p90, "n": len(times),
+                        "qps": qps, "stage_p50_ms": stages}
+        log(f"{label} search b{b} k=10: p50 {p50:.3f} ms, p90 {p90:.3f} ms "
+            f"(n={len(times)}), {qps:.1f} QPS over the window, "
+            f"stage p50s {stages}")
+
+
 def phase_engine(tt, scan) -> dict:
     from tpuvdb_torch.core.types import SearchRequest, VectorData
     from tpuvdb_torch.kernels.distance import l2sq_topk
-    from tpuvdb_torch.utils.tracing import StageTimer
 
     rng = np.random.default_rng(0)
     cfg = tt.DBConfig(vector_dim=512)
@@ -299,25 +357,8 @@ def phase_engine(tt, scan) -> dict:
 
     out = {"ingest_s": ingest_s, "rows": ENGINE_ROWS,
            "device_rows": idx.layout.total_rows}
-    for b in ENGINE_BATCHES:
-        q = queries[:b]
-        eng.search_batch(q, 10)  # warm
-        eng.timers = StageTimer()
-        times = []
-        for _ in range(SEARCH_REPS):
-            t = time.perf_counter()
-            eng.search_batch(q, 10)
-            times.append(time.perf_counter() - t)
-        p50, p90 = (float(np.percentile(times, p)) * 1e3 for p in (50, 90))
-        qps = b * len(times) / sum(times)
-        stages = {name: st["p50_ms"]
-                  for name, st in eng.timers.snapshot().items()}
-        out[f"b{b}"] = {"p50_ms": p50, "p90_ms": p90, "n": len(times),
-                        "qps": qps, "stage_p50_ms": stages}
-        log(f"engine search b{b} k=10: p50 {p50:.3f} ms, p90 {p90:.3f} ms "
-            f"(n={len(times)}), {qps:.1f} QPS over the window, "
-            f"stage p50s {stages}")
-    out["b256_device"] = _device_share(eng, queries)
+    _timed_searches(eng, "engine", queries, ENGINE_BATCHES, out)
+    out["b256_device"] = _device_share(eng, queries, "engine")
 
     # recall@10 against an exact scan of the same device corpus
     d_a, k_a = eng.search_batch(queries, 10)
@@ -362,9 +403,11 @@ def phase_engine(tt, scan) -> dict:
     return out
 
 
-def _device_share(eng, queries) -> dict:
+def _device_share(eng, queries, label: str) -> dict:
     """Device busy time over wall time for b256 searches, from a
-    torch.profiler trace (kernel self times summed); "not measured" if the
+    torch.profiler trace: the self times of the device-side events
+    (kernels and copies) summed. The host-side op that launched a kernel
+    reports the same time again and is left out. "not measured" if the
     profiler sees no device activity."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -376,12 +419,14 @@ def _device_share(eng, queries) -> dict:
         wall_ms = (time.perf_counter() - t) * 1e3
     by_name = {}
     for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0))
         if us > 0:
             by_name[ev.key] = us / 1e3 / reps
     busy = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     res = {"wall_ms_per_search": wall_ms / reps}
     if busy <= 0:
         res["device_busy"] = "not measured"
@@ -389,7 +434,7 @@ def _device_share(eng, queries) -> dict:
         res.update(device_busy_ms_per_search=busy,
                    device_idle_share=1.0 - busy * reps / wall_ms,
                    top_device_ms=dict(top))
-    log(f"engine b256 under torch.profiler: {json.dumps(res)}")
+    log(f"{label} b256 under torch.profiler: {json.dumps(res)}")
     return res
 
 
@@ -443,10 +488,12 @@ def clustered_corpus(n: int, dim: int, seed: int = 0, n_clusters: int = 1024,
     return corpus, queries
 
 
-def _plan_work(ivf_probe, plan, n_chunks: int, d: int, item: int) -> dict:
+def _plan_work(ivf_probe, plan, n_chunks: int, d: int, item: int,
+               row_extra: int = 8) -> dict:
     """Rows and bytes this plan's probe needs: per tile its distinct
     chunks (the operations), over all tiles their union (each chunk read
-    once); outputs written once."""
+    once, `row_extra` bytes a row beside its d elements: norm and mask,
+    and the scale of an int8 row); outputs written once."""
     if plan.compact:
         lists = ivf_probe.packed_chunks(plan.cells, plan.off128, plan.w128,
                                         n_chunks)
@@ -457,7 +504,7 @@ def _plan_work(ivf_probe, plan, n_chunks: int, d: int, item: int) -> dict:
     tile_rows = int(per_tile.sum()) * 128
     union_rows = int(torch.unique(lists).numel()) * 128
     qp = plan.queries.shape[0]
-    nbytes = (union_rows * (d * item + 8) + qp * d * 4
+    nbytes = (union_rows * (d * item + row_extra) + qp * d * 4
               + qp * 128 * plan.n_segments * 8 + plan.cells.numel() * 4)
     ops = 2.0 * plan.query_tile * tile_rows * d
     return {"tile_rows": tile_rows, "union_rows": union_rows,
@@ -491,8 +538,81 @@ def _hold_probe(ivf_probe, name, plan, g, sq, mask) -> float:
     return err.max().item()
 
 
+def _hold_probe_int8(ivf_probe, name, plan, idx8, mask) -> float:
+    """Holds one form's int8 kernel against its plain twin on one plan:
+    candidate ids and scores must be equal bit for bit. Returns the largest
+    score difference (0.0)."""
+    args = (plan, idx8.grouped, idx8.grouped_sq, mask)
+    val_k, idx_k = ivf_probe.plan_candidates(*args,
+                                             cell_scales=idx8.cell_scales)
+    val_p, idx_p = ivf_probe.plan_candidates(*args, plain=True,
+                                             cell_scales=idx8.cell_scales)
+    torch.cuda.synchronize()
+    agree = (idx_k == idx_p).float().mean().item()
+    err = (val_k - val_p).abs().max().item()
+    filled = (idx_k >= 0).float().mean().item()
+    log(f"ivf int8 kernel check {name}: slots agree {agree:.6f}, "
+        f"max |score diff| {err:.3e}, {filled:.4f} of slots filled")
+    if not torch.equal(idx_k, idx_p) or not torch.equal(val_k, val_p):
+        raise AssertionError(f"{name}: the int8 kernel and its plain twin "
+                             "differ (they must agree bit for bit)")
+    if filled <= 0:
+        raise AssertionError(f"{name}: no candidate at all")
+    return err
+
+
+def _int8_kernel_cases(ivf_probe, corpus_np, dead, queries, cases) -> dict:
+    """The int8 half of the ivf kernel phase: an int8 IVFIndex over the
+    same corpus and dead rows, both int8 kernels vs their twins."""
+    from tpuvdb_torch.index.ivf import IVFIndex
+
+    t0 = time.perf_counter()
+    idx8 = IVFIndex.build(corpus_np, np.ones(IVF_N, bool), nlist=IVF_NLIST,
+                          nprobe=IVF_NPROBE, kmeans_iters=6,
+                          train_sample=131072, dtype=torch.int8)
+    idx8.invalidate_rows(dead)
+    torch.cuda.synchronize()
+    log(f"ivf int8 kernel index: {IVF_N} x {IVF_D} in "
+        f"{time.perf_counter() - t0:.1f} s, nlist {idx8.nlist}, cell_pad "
+        f"{idx8.cell_pad}, grouped {tuple(idx8.grouped.shape)} "
+        f"{idx8.grouped.dtype}, spill rows {idx8.stats().spill_rows}, "
+        f"{idx8.nbytes()} bytes on the device")
+    mask = torch.zeros(idx8.grouped_valid.shape,
+                       device=idx8.device).masked_fill_(
+                           ~idx8.grouped_valid, ivf_probe.NEG_INF)
+    n_chunks = idx8.grouped.shape[0] // 128
+    w128 = idx8.cell_pad // 128
+    rows, err = [], {False: 0.0, True: 0.0}
+    for nq, nprobe, force in cases:
+        if nq == IVF_COMPACT_Q:  # its own nprobe: just above 2**20 entries
+            nprobe = ivf_probe.EXPANDED_MAX // (IVF_COMPACT_Q * w128) + 1
+        plan = ivf_probe.probe_plan(queries[:nq], idx8.centroids,
+                                    idx8.cell_offsets, idx8.cell_pad, 10,
+                                    nprobe, force_compact=force)
+        form = "compact" if plan.compact else "expanded"
+        name = f"{form} int8 Q={nq} nprobe={nprobe}"
+        e = _hold_probe_int8(ivf_probe, name, plan, idx8, mask)
+        err[plan.compact] = max(err[plan.compact], e)
+        reps = 20 if nq <= 8 else 5
+        ms = cuda_ms(lambda: ivf_probe.plan_candidates(
+            plan, idx8.grouped, idx8.grouped_sq, mask,
+            cell_scales=idx8.cell_scales), reps)
+        plain_ms = cuda_ms(lambda: ivf_probe.plan_candidates(
+            plan, idx8.grouped, idx8.grouped_sq, mask, plain=True,
+            cell_scales=idx8.cell_scales), 2, 1)
+        work = _plan_work(ivf_probe, plan, n_chunks, IVF_D, 1, row_extra=12)
+        bound, by = _bound(work, torch.int8)
+        row = {"form": form, "dtype": "int8", "Q": nq, "nprobe": nprobe,
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+               "bound_by": by, **work}
+        rows.append(row)
+        log("ivf kernel timing " + json.dumps(row))
+    return {"rows": rows, "err_expanded": err[False],
+            "err_compact": err[True], "nbytes": idx8.nbytes()}
+
+
 def phase_ivf_kernel(ivf_probe) -> dict:
-    """Both IVF probe kernels vs their plain twins at full size."""
+    """All four IVF probe kernels vs their plain twins at full size."""
     from tpuvdb_torch.index.ivf import IVFIndex
 
     dev = torch.device("cuda")
@@ -505,10 +625,11 @@ def phase_ivf_kernel(ivf_probe) -> dict:
     queries = corpus[qi] + 0.05 * torch.randn(
         (IVF_COMPACT_Q, IVF_D), generator=gen, device=dev)
     t0 = time.perf_counter()
-    idx = IVFIndex.build(corpus.cpu().numpy(), np.ones(IVF_N, bool),
+    corpus_np = corpus.cpu().numpy()
+    del corpus
+    idx = IVFIndex.build(corpus_np, np.ones(IVF_N, bool),
                          nlist=IVF_NLIST, nprobe=IVF_NPROBE, kmeans_iters=6,
                          train_sample=131072)
-    del corpus
     dead = np.random.default_rng(3).choice(IVF_N, IVF_N // 100,
                                            replace=False)
     idx.invalidate_rows(dead)
@@ -552,16 +673,26 @@ def phase_ivf_kernel(ivf_probe) -> dict:
                    "bound_ms": bound, "bound_by": by, **work}
             rows.append(row)
             log("ivf kernel timing " + json.dumps(row))
-    del cells
+    f32_bytes = idx.nbytes()
+    del cells, idx, mask
+    torch.cuda.empty_cache()
+    int8 = _int8_kernel_cases(ivf_probe, corpus_np, dead, queries, cases)
+    rows += int8["rows"]
+    log(f"ivf index on the device: {int8['nbytes']} bytes with int8 cells, "
+        f"{f32_bytes} with f32 cells")
     torch.cuda.empty_cache()
 
-    def pick(form, nq):
+    def pick(form, nq, dtype="float32"):
         return next(r for r in rows if r["form"] == form
-                    and r["dtype"] == "float32" and r["Q"] == nq)
+                    and r["dtype"] == dtype and r["Q"] == nq)
 
     return {"rows": rows, "expanded": pick("expanded", 256),
             "compact": pick("compact", IVF_COMPACT_Q),
+            "expanded_int8": pick("expanded", 256, "int8"),
+            "compact_int8": pick("compact", IVF_COMPACT_Q, "int8"),
             "err_expanded": err[False], "err_compact": err[True],
+            "err_expanded_int8": int8["err_expanded"],
+            "err_compact_int8": int8["err_compact"],
             "nprobe_big": nprobe_big}
 
 
@@ -581,10 +712,21 @@ def _recall(got_keys, truth_rows, keys) -> float:
     return hit / (10 * len(truth_rows))
 
 
-def phase_ivf_engine(tt):
+def _exact_truth(data: np.ndarray, queries: np.ndarray) -> np.ndarray:
+    """Rows of the exact top-10 of each query over the f32 rows."""
     from tpuvdb_torch.kernels.distance import l2sq_topk
-    from tpuvdb_torch.utils.tracing import StageTimer
 
+    x = torch.from_numpy(data).cuda()
+    ones = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+    _, truth = l2sq_topk(torch.from_numpy(queries).cuda(), x,
+                         (x * x).sum(dim=1), ones, 10, mode="exact")
+    truth = truth.cpu().numpy()
+    del x
+    torch.cuda.empty_cache()
+    return truth
+
+
+def phase_ivf_engine(tt):
     cfg = _ivf_config(tt)
     assert cfg.shard_count == 4 and cfg.storage_dtype == "float32"
     data, queries = clustered_corpus(IVF_ENGINE_ROWS, IVF_D, seed=0)
@@ -604,34 +746,11 @@ def phase_ivf_engine(tt):
     out = {"build_s": build_s, "rows": IVF_ENGINE_ROWS,
            "stats": dataclasses.asdict(st)}
 
-    for b in IVF_BATCHES:
-        q = queries[:b]
-        eng.search_batch(q, 10)  # warm
-        eng.timers = StageTimer()
-        times = []
-        for _ in range(SEARCH_REPS):
-            t = time.perf_counter()
-            eng.search_batch(q, 10)
-            times.append(time.perf_counter() - t)
-        p50, p90 = (float(np.percentile(times, p)) * 1e3 for p in (50, 90))
-        qps = b * len(times) / sum(times)
-        stages = {name: v["p50_ms"]
-                  for name, v in eng.timers.snapshot().items()}
-        out[f"b{b}"] = {"p50_ms": p50, "p90_ms": p90, "n": len(times),
-                        "qps": qps, "stage_p50_ms": stages}
-        log(f"ivf engine search b{b} k=10: p50 {p50:.3f} ms, p90 "
-            f"{p90:.3f} ms (n={len(times)}), {qps:.1f} QPS over the window, "
-            f"stage p50s {stages}")
-    out["b256_device"] = _device_share(eng, queries[:256])
+    _timed_searches(eng, "ivf engine", queries, IVF_BATCHES, out)
+    out["b256_device"] = _device_share(eng, queries[:256], "ivf engine")
 
     # recall@10 against an exact scan of the same rows
-    x = torch.from_numpy(data).cuda()
-    ones = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
-    _, truth = l2sq_topk(torch.from_numpy(queries).cuda(), x,
-                         (x * x).sum(dim=1), ones, 10, mode="exact")
-    truth = truth.cpu().numpy()
-    del x
-    torch.cuda.empty_cache()
+    truth = _exact_truth(data, queries)
     _, got = eng.search_batch(queries[:256], 10)
     out["recall_at_10"] = _recall(got, truth[:256], keys)
     log(f"ivf engine recall@10 (b256 vs exact): {out['recall_at_10']:.4f}")
@@ -697,12 +816,12 @@ def phase_ivf_writes(eng, data, queries) -> None:
         f"delta overflow appended {appended} rows in place: ok")
 
 
-def phase_ivf_restart(tt) -> dict:
+def phase_ivf_restart(tt, label: str = "ivf", **kw) -> dict:
     """A 50,000-row data_dir restart: the warm centroids are reused (no
     k-means) and the keys come back identical."""
     import tpuvdb_torch.index.ivf as ivf_mod
 
-    cfg = _ivf_config(tt, checkpoint_every_puts=10 ** 9)
+    cfg = _ivf_config(tt, checkpoint_every_puts=10 ** 9, **kw)
     data, queries = clustered_corpus(IVF_RESTART_ROWS, IVF_D, seed=9)
     keys = [f"w{i}" for i in range(IVF_RESTART_ROWS)]
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT)
@@ -726,7 +845,7 @@ def phase_ivf_restart(tt) -> dict:
         assert np.array_equal(eng._ivf.centroids_np(), cents)
         assert got[1] == want[1], "keys differ after the warm restart"
         assert np.array_equal(got[0], want[0])
-        log(f"ivf restart: {IVF_RESTART_ROWS} rows, warm centroids reused "
+        log(f"{label} restart: {IVF_RESTART_ROWS} rows, warm centroids reused "
             f"(no k-means), reopen + first search {restart_s:.3f} s, "
             f"identical results")
         eng.close()
@@ -734,6 +853,169 @@ def phase_ivf_restart(tt) -> dict:
     finally:
         ivf_mod.kmeans = real
         shutil.rmtree(work, ignore_errors=True)
+
+
+# ----------------------------------------------------- int8 storage tier
+
+
+def _int8_engine(tt, cfg, keys, data, label: str):
+    """A fresh engine over the rows: (engine, put_rows + flush seconds)."""
+    eng = tt.VectorDBEngine(cfg)
+    t0 = time.perf_counter()
+    res = eng.put_rows(keys, data)
+    assert res.success, res.message
+    eng.flush()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    info = eng.info()
+    assert info["quantized"] and info["storage_dtype"] == "int8", info
+    log(f"{label} build: {len(keys)} rows in {build_s:.3f} s (put_rows + "
+        f"flush), rescore_mode {cfg.rescore_mode!r}, device index "
+        f"{info['device_bytes']} bytes")
+    return eng, build_s
+
+
+def _rescore_share(stage_p50s: dict) -> float:
+    """The host rescore's share of the engine's timed stages (p50s). The
+    rescore runs inside search.assemble, so it is not added to the sum."""
+    total = sum(v for name, v in stage_p50s.items()
+                if name != "search.rescore")
+    return stage_p50s.get("search.rescore", 0.0) / total if total else 0.0
+
+
+def phase_flat_int8(tt) -> dict:
+    """The flat int8 engine at 1M x 512 in the three rescore modes. Torch
+    ops only (`_int_mm`, top-k, the re-rank): no hand-written kernel."""
+    rng = np.random.default_rng(0)       # the engine phase's rows again
+    cfg = tt.DBConfig(vector_dim=512, storage_dtype="int8")
+    assert (cfg.index_type == "flat" and cfg.rescore_mode == "exact"
+            and cfg.rescore_overfetch == 16 and cfg.shard_count == 4)
+    data = _unit_rows(rng, ENGINE_ROWS, cfg.vector_dim)
+    keys = [f"doc{i}" for i in range(ENGINE_ROWS)]
+    queries = _unit_rows(rng, max(ENGINE_BATCHES), cfg.vector_dim)
+    truth = _exact_truth(data, queries)
+
+    eng, build_s = _int8_engine(tt, cfg, keys, data, "flat int8 engine")
+    idx = eng._index
+    f32_bytes = idx.layout.total_rows * (cfg.vector_dim * 4 + 4 + 1)
+    out = {"build_s": build_s, "rows": ENGINE_ROWS,
+           "device_bytes": idx.nbytes(), "device_bytes_f32": f32_bytes}
+    log(f"flat int8 device corpus {tuple(idx.vectors.shape)} "
+        f"{idx.vectors.dtype}: {idx.nbytes()} bytes, against {f32_bytes} "
+        f"for the same rows in f32")
+    _timed_searches(eng, "flat int8 engine", queries, ENGINE_BATCHES, out)
+    for b in ENGINE_BATCHES:
+        out[f"b{b}"]["rescore_share"] = _rescore_share(
+            out[f"b{b}"]["stage_p50_ms"])
+    log("flat int8 engine host rescore share of the stage p50s: "
+        + ", ".join(f"b{b} {out[f'b{b}']['rescore_share']:.3f}"
+                    for b in ENGINE_BATCHES))
+    out["b256_device"] = _device_share(eng, queries, "flat int8 engine")
+    _, got = eng.search_batch(queries, 10)
+    out["recall_at_10"] = _recall(got, truth, keys)
+    log(f"flat int8 engine recall@10 (exact rescore vs exact f32 scan, "
+        f"{len(queries)} queries): {out['recall_at_10']:.4f}")
+    if out["recall_at_10"] < RECALL_MIN:
+        raise AssertionError(f"flat int8 recall@10 {out['recall_at_10']} < "
+                             f"{RECALL_MIN}")
+    # a write is visible before and after the flush that quantizes it
+    from tpuvdb_torch.core.types import VectorData
+
+    probe = _unit_rows(rng, 1, cfg.vector_dim)
+    assert eng.put(VectorData(key="doc5", vector=probe[0].tolist())).success
+    assert eng.delete(got[1][0]).success
+    for when in ("before flush", "after flush"):
+        _, kp = eng.search_batch(probe, 10)
+        assert kp[0][0] == "doc5", (when, kp[0][:3])
+        _, kv = eng.search_batch(queries[1:2], 10)
+        assert got[1][0] not in kv[0], when
+        eng.flush()
+    eng.close()
+    del eng, idx
+    torch.cuda.empty_cache()
+
+    for mode in ("device", "none"):
+        cfg_m = tt.DBConfig(vector_dim=512, storage_dtype="int8",
+                            rescore_mode=mode)
+        eng, b_s = _int8_engine(tt, cfg_m, keys, data,
+                                f"flat int8 engine ({mode})")
+        side = {"build_s": b_s}
+        _timed_searches(eng, f"flat int8 engine ({mode})", queries, (256,),
+                        side, reps=SIDE_REPS)
+        _, got = eng.search_batch(queries, 10)
+        side["recall_at_10"] = _recall(got, truth, keys)
+        log(f"flat int8 engine ({mode}) recall@10: "
+            f"{side['recall_at_10']:.4f}")
+        out[mode] = side
+        eng.close()
+        del eng
+        torch.cuda.empty_cache()
+    log("flat int8 engine: torch ops only (_int_mm, top-k, re-rank); it "
+        "launches no hand-written kernel")
+    return out
+
+
+def phase_ivf_int8(tt, ivf_probe, data, queries, truth, keys):
+    """The IVF int8 engine over the ivf engine phase's rows. Returns
+    (out, expanded int8 launches of the engine's searches, compact int8
+    launches of the b1,024 index search)."""
+    cfg = _ivf_config(tt, storage_dtype="int8")
+    assert cfg.rescore_mode == "exact" and cfg.rescore_overfetch == 16
+    eng, build_s = _int8_engine(tt, cfg, keys, data, "ivf int8 engine")
+    st = eng._ivf.stats()
+    log(f"ivf int8 engine index: nlist {st.nlist}, cell_pad {st.cell_pad}, "
+        f"grouped rows {st.grouped_rows}, spill rows {st.spill_rows}, fill "
+        f"{st.fill:.4f}, cells {eng._ivf.grouped.dtype}")
+    out = {"build_s": build_s, "rows": len(keys),
+           "device_bytes": eng._ivf.nbytes(),
+           "stats": dataclasses.asdict(st)}
+    ivf_probe.LAUNCHES_EXPANDED_INT8 = ivf_probe.LAUNCHES_COMPACT_INT8 = 0
+    _timed_searches(eng, "ivf int8 engine", queries, IVF_BATCHES, out)
+    for b in IVF_BATCHES:
+        out[f"b{b}"]["rescore_share"] = _rescore_share(
+            out[f"b{b}"]["stage_p50_ms"])
+    out["b256_device"] = _device_share(eng, queries[:256], "ivf int8 engine")
+    _, got = eng.search_batch(queries[:256], 10)
+    launches_expanded = ivf_probe.LAUNCHES_EXPANDED_INT8
+    out["recall_at_10"] = _recall(got, truth[:256], keys)
+    log(f"ivf int8 engine recall@10 (exact rescore, b256 vs exact f32 "
+        f"scan): {out['recall_at_10']:.4f}")
+    if out["recall_at_10"] < RECALL_MIN:
+        raise AssertionError(f"ivf int8 recall@10 {out['recall_at_10']} < "
+                             f"{RECALL_MIN}")
+    if launches_expanded <= 0:
+        raise AssertionError("the IVF int8 engine's search never launched "
+                             "the expanded int8 probe kernel")
+    ivf_probe.LAUNCHES_COMPACT_INT8 = 0
+    out["index_compact"] = phase_ivf_index_compact(eng, queries, truth, keys,
+                                                   ivf_probe)
+    launches_compact = ivf_probe.LAUNCHES_COMPACT_INT8
+    if launches_compact <= 0:
+        raise AssertionError("the b1,024 int8 index search never launched "
+                             "the compact int8 probe kernel")
+    phase_ivf_writes(eng, data, queries)
+    eng.close()
+    del eng
+    torch.cuda.empty_cache()
+
+    eng, b_s = _int8_engine(tt, _ivf_config(tt, storage_dtype="int8",
+                                            rescore_mode="none"),
+                            keys, data, "ivf int8 engine (none)")
+    side = {"build_s": b_s}
+    _timed_searches(eng, "ivf int8 engine (none)", queries, (256,), side,
+                    reps=SIDE_REPS)
+    _, got = eng.search_batch(queries[:256], 10)
+    side["recall_at_10"] = _recall(got, truth[:256], keys)
+    log(f"ivf int8 engine (none) recall@10: {side['recall_at_10']:.4f}")
+    out["none"] = side
+    eng.close()
+    del eng
+    torch.cuda.empty_cache()
+    # the restart with int8 mirrors too: the cells take the mirrors' codes
+    out["restart"] = phase_ivf_restart(tt, "ivf int8 (int8 mirrors)",
+                                       storage_dtype="int8",
+                                       mirror_dtype="int8")
+    return out, launches_expanded, launches_compact
 
 
 # ------------------------------------------------------------------ main
@@ -786,18 +1068,29 @@ def main() -> int:
                              "compact probe kernel")
     phase_ivf_writes(ivf_eng, data, queries)
     ivf_eng.close()
-    del ivf_eng, data
+    del ivf_eng
     torch.cuda.empty_cache()
     ivf_out["restart"] = phase_ivf_restart(tt)
     log("ivf engine " + json.dumps(ivf_out))
+
+    flat8 = phase_flat_int8(tt)
+    log("flat int8 engine " + json.dumps(flat8))
+    ivf8, launches_expanded_i8, launches_compact_i8 = phase_ivf_int8(
+        tt, ivf_probe, data, queries, truth, keys)
+    log("ivf int8 engine " + json.dumps(ivf8))
+    del data
     log(f"launches: scan {launches} (flat engine phase), ivf expanded "
         f"{launches_expanded} (ivf engine phase), ivf compact "
-        f"{launches_compact} (b1,024 index search)")
+        f"{launches_compact} (b1,024 index search), ivf expanded int8 "
+        f"{launches_expanded_i8} (ivf int8 engine's searches), ivf compact "
+        f"int8 {launches_compact_i8} (b1,024 int8 index search); the flat "
+        f"int8 engine launches no hand-written kernel")
     log(f"total wall {time.perf_counter() - wall0:.1f} s")
 
     m = kern["main"]
     no_library = None  # no single PyTorch call computes the IVF probe
     e, c = ivf_kern["expanded"], ivf_kern["compact"]
+    e8, c8 = ivf_kern["expanded_int8"], ivf_kern["compact_int8"]
     log(json.dumps({"kernels": [{
         "name": "scan_candidates",
         "route": "cuda",
@@ -827,6 +1120,26 @@ def main() -> int:
         "max_abs_err": ivf_kern["err_compact"],
         "ms": c["ms"], "plain_ms": c["plain_ms"],
         "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+        "library_ms": no_library,
+    }, {
+        "name": "ivf_candidates_int8",
+        "route": "cuda",
+        "source": "tpuvdb_torch/csrc/ivf_probe.cu",
+        "replaces": "tpuvdb/kernels/pallas_ivf.py:230",
+        "launches": launches_expanded_i8,
+        "max_abs_err": ivf_kern["err_expanded_int8"],
+        "ms": e8["ms"], "plain_ms": e8["plain_ms"],
+        "bound_ms": e8["bound_ms"], "bound_by": e8["bound_by"],
+        "library_ms": no_library,
+    }, {
+        "name": "ivf_candidates_packed_int8",
+        "route": "cuda",
+        "source": "tpuvdb_torch/csrc/ivf_probe.cu",
+        "replaces": "tpuvdb/kernels/pallas_ivf.py:129",
+        "launches": launches_compact_i8,
+        "max_abs_err": ivf_kern["err_compact_int8"],
+        "ms": c8["ms"], "plain_ms": c8["plain_ms"],
+        "bound_ms": c8["bound_ms"], "bound_by": c8["bound_by"],
         "library_ms": no_library,
     }]}))
     smi = subprocess.run(

@@ -245,7 +245,7 @@ def test_default_mode_keeps_recall_at_large_k(rng, k):
 
 @pytest.mark.parametrize("kw", [
     {"index_type": "ivf", "ivf_pq_subq": 8},
-    {"storage_dtype": "int8"},
+    {"index_type": "ivf", "ivf_pq_subq": 8, "ivf_pq_bits": 4},
     {"search_coalesce": True},
     {"docstore_backend": "native"},
     {"mirror_backend": "mmap"},

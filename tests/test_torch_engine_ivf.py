@@ -390,7 +390,7 @@ def test_ivf_delta_row_on_device_comes_back_once(rng):
 
 
 @pytest.mark.parametrize("kw", [{"ivf_pq_subq": 8},
-                                {"storage_dtype": "int8"}])
+                                {"ivf_pq_subq": 4, "ivf_opq": True}])
 def test_ivf_waiting_configurations_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         engine(**kw)

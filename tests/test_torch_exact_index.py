@@ -123,8 +123,16 @@ def test_pallas_mode_search_matches_pallas_interpret(rng, shards):
 
 
 def test_int8_storage_waits_for_its_slice():
-    with pytest.raises(NotImplementedError):
-        DeviceExactIndex(StackedLayout(1, 128, 8), dtype=torch.int8,
+    """It waited for the int8 slice and no longer does: the index holds
+    int8 rows with unit scales until rows arrive (parity with the reference
+    is in test_torch_quant.py). A dtype outside the storage types raises."""
+    idx = DeviceExactIndex(StackedLayout(1, 128, 8), dtype=torch.int8,
+                           device="cpu")
+    assert idx.quantized and idx.vectors.dtype == torch.int8
+    assert (idx.row_scales == 1.0).all() and not idx.valid.any()
+    assert idx.nbytes() == 128 * (8 + 4 + 4 + 1)
+    with pytest.raises(ValueError, match="storage dtype"):
+        DeviceExactIndex(StackedLayout(1, 128, 8), dtype=torch.float16,
                          device="cpu")
 
 

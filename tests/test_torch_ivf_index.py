@@ -228,6 +228,14 @@ def test_device_none_means_cuda_and_int8_waits(rng):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             IVFIndex.build(data, np.ones(len(data), bool), nlist=2)
-    with pytest.raises(NotImplementedError, match="int8"):
+    # int8 cells waited for the int8 slice and no longer do (parity with
+    # the reference is in test_torch_ivf_probe_int8.py); other dtypes raise
+    idx = IVFIndex.build(data, np.ones(len(data), bool), nlist=2,
+                         dtype=torch.int8, device="cpu")
+    assert idx.quantized and idx.grouped.dtype == torch.int8
+    assert idx.cell_scales.shape == idx.grouped_sq.shape
+    _, rows = idx.search(data[:3], 1)
+    assert rows[:, 0].tolist() == [0, 1, 2]
+    with pytest.raises(ValueError, match="IVF cells"):
         IVFIndex.build(data, np.ones(len(data), bool), nlist=2,
-                       dtype=torch.int8, device="cpu")
+                       dtype=torch.float16, device="cpu")

@@ -5,9 +5,9 @@ and `to_json`/`from_json` write the same JSON, so checkpoints written by
 either package restore in the other. The one change: `jnp_dtype` is
 replaced by `torch_dtype`.
 
-Fields for configurations the port does not run yet (IVF, IVF-PQ, int8
-storage, mesh, search coalescing, native doc store, mmap mirrors) are kept
-so configs interchange; the engine raises NotImplementedError for them.
+Fields for configurations the port does not run yet (IVF-PQ, mesh, search
+coalescing, native doc store, mmap mirrors) are kept so configs
+interchange; the engine raises NotImplementedError for them.
 
 Env-var overrides use the prefix TPUVDB_, e.g. TPUVDB_VECTOR_DIM=128.
 """
@@ -59,8 +59,12 @@ class DBConfig:
     query_block: int = 128
     storage_dtype: str = "float32" # "float32" | "bfloat16" | "int8"
     # int8 storage: overfetch rescore_overfetch*k candidates and re-rank
-    # them exactly (not ported yet)
+    # them (0 = serve the int8 scores as they are)
     rescore_overfetch: int = 16
+    # "exact": re-rank on the host from the mirrors' rows. "device": re-rank
+    # 2*rescore_overfetch dequantized candidates inside the flat index's
+    # scan (only corpus quantization error remains; IVF falls back to
+    # "exact"). "none": no re-rank
     rescore_mode: str = "exact"    # "exact" | "device" | "none"
     flush_batch: int = 1024        # staged writes served by the host delta
                                    # scan before a search forces a flush
@@ -76,7 +80,7 @@ class DBConfig:
     recall_target: float = 0.95
 
     # -- index selection --
-    index_type: str = "flat"       # "flat" | "ivf" (IVF not ported yet)
+    index_type: str = "flat"       # "flat" | "ivf"
     docstore_backend: str = "auto" # "python" | "native" | "auto"; the port
                                    # resolves "auto" to "python"
 
@@ -85,7 +89,8 @@ class DBConfig:
     mirror_backend: str = "ram"    # "ram" | "mmap" | "auto" (mmap when
                                    # data_dir is set; not ported yet)
 
-    # -- IVF / IVF-PQ (not ported yet; kept so configs interchange) --
+    # -- IVF; the ivf_pq_* / ivf_opq / ivf_checkpoint_packed fields belong
+    # to IVF-PQ (not ported yet; kept so configs interchange) --
     ivf_nlist: int = 1024
     ivf_nprobe: int = 32
     ivf_kmeans_iters: int = 12

@@ -1,11 +1,15 @@
-// IVF probe over packed f32/bf16 cells, with a per-(query, slot) running
-// max, for Hopper (sm_90a).
+// IVF probe over packed f32/bf16/int8 cells, with a per-(query, slot)
+// running max, for Hopper (sm_90a).
 //
-// Replaces the two TPU kernels of tpuvdb/kernels/pallas_ivf.py that probe
-// f32/bf16 cells:
-//   _probe_kernel         (expanded form, launched by pallas_ivf_candidates)
-//   _probe_kernel_packed  (compact form, launched by
-//                          pallas_ivf_candidates_packed)
+// Replaces the four TPU probe kernels of tpuvdb/kernels/pallas_ivf.py:
+//   _probe_kernel              (expanded form, f32/bf16 cells, launched by
+//                               pallas_ivf_candidates)
+//   _probe_kernel_packed       (compact form, f32/bf16 cells, launched by
+//                               pallas_ivf_candidates_packed)
+//   _probe_kernel_int8         (expanded form, int8 cells, launched by
+//                               pallas_ivf_candidates_int8)
+//   _probe_kernel_packed_int8  (compact form, int8 cells, launched by
+//                               pallas_ivf_candidates_packed_int8)
 //
 // Both fold 128-row chunks of the packed cell array into a (QT, 128 * S)
 // candidate buffer per tile of QT <= 8 queries. A chunk c lands in segment
@@ -54,6 +58,24 @@
 // 1 MFLOP per chunk and tile, so a probe of few tiles is bound by bytes
 // (3.35 TB/s) and a probe of many tiles sharing chunks by operations
 // (67 TFLOP/s f32 FMA outside the tensor cores).
+//
+// int8 cells (probe_fold_i8_kernel). Queries arrive quantized with one
+// batch-global scale qs (a device scalar); a row carries its dequant scale
+// rs. The score is
+//
+//     ((2 * qs) * rs) * f32(q_i8 . x_i8) - ||x||^2 + mask
+//
+// with the dot exact in int32 (__dp4a on 4 packed int8; |dot| <= 127^2 * d).
+// The four f32 operations are written with __fmul_rn / __fsub_rn /
+// __fadd_rn in that order, so nvcc contracts none of them into an FMA and
+// each rounds once, as separate tensor ops do: kernel and plain twin agree
+// bit for bit. Queries are staged in shared memory as packed int8x4 words;
+// a thread reads its row 16 bytes at a time when d % 16 == 0 and the cell
+// array is 16-byte aligned, and byte by byte otherwise. The grid, the
+// entry walk, the keys and the decode are those of the f32/bf16 kernel.
+// Bound: a distinct chunk moves 128 * (d + 12) bytes (codes, scale, norm,
+// mask) and costs 2 * QT * 128 * d int8 operations (1,979 TOP/s on the
+// tensor cores; this kernel runs them on the CUDA cores).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC; bound with ctypes (tpuvdb_torch/kernels/ivf_probe.py).
@@ -126,6 +148,42 @@ __device__ __forceinline__ float unorder_bits(unsigned int u) {
   return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
 }
 
+// Entry e of a tile's list -> (chunk, segment); false where the entry
+// repeats the one before it (a chunk or a cell shared by the tile's
+// queries: it would fold the same keys again) or names no chunk, segment or
+// cell of the arrays.
+template <bool kCompact>
+__device__ __forceinline__ bool entry_chunk(int e, const int* tcells,
+                                            const int* tsegs,
+                                            const int* off128, int w128,
+                                            int n_chunks, int nlist, int n_seg,
+                                            int* chunk, int* seg) {
+  if (kCompact) {
+    const int u = e / w128;
+    const int cell = tcells[u];
+    if (u > 0 && cell == tcells[u - 1]) return false;  // shared cell
+    if (cell < 0 || cell >= nlist) return false;       // no such cell
+    *chunk = min(off128[cell] + e % w128, n_chunks - 1);
+    *seg = *chunk % n_seg;
+  } else {
+    *chunk = tcells[e];
+    if (e > 0 && *chunk == tcells[e - 1]) return false;  // shared chunk
+    *seg = tsegs[e];
+    if (*seg < 0 || *seg >= n_seg) return false;         // no such segment
+  }
+  return *chunk >= 0 && *chunk < n_chunks;
+}
+
+// Fold one score into its slot: the largest key is the largest score and,
+// on a tie, the lowest row. A dead row (score <= -FLT_MAX) never enters.
+__device__ __forceinline__ void fold_key(unsigned long long* slot, float score,
+                                         unsigned long long low) {
+  if (!(score > kNegInf)) return;
+  const unsigned long long key =
+      (static_cast<unsigned long long>(order_bits(score)) << 32) | low;
+  if (key > __ldcg(slot)) atomicMax(slot, key);
+}
+
 template <typename T, bool kCompact>
 __global__ void __launch_bounds__(kRows)
 probe_fold_kernel(const float* __restrict__ q, const T* __restrict__ x,
@@ -161,20 +219,9 @@ probe_fold_kernel(const float* __restrict__ q, const T* __restrict__ x,
 
   for (int e = e_begin; e < e_end; ++e) {
     int chunk, seg;
-    if (kCompact) {
-      const int u = e / w128;
-      const int cell = tcells[u];
-      if (u > 0 && cell == tcells[u - 1]) continue;  // shared cell
-      if (cell < 0 || cell >= nlist) continue;       // no such cell
-      chunk = min(off128[cell] + e % w128, n_chunks - 1);
-      seg = chunk % n_seg;
-    } else {
-      chunk = tcells[e];
-      if (e > 0 && chunk == tcells[e - 1]) continue;  // shared chunk
-      seg = tsegs[e];
-      if (seg < 0 || seg >= n_seg) continue;          // no such segment
-    }
-    if (chunk < 0 || chunk >= n_chunks) continue;
+    if (!entry_chunk<kCompact>(e, tcells, tsegs, off128, w128, n_chunks,
+                               nlist, n_seg, &chunk, &seg))
+      continue;
     const long long row = static_cast<long long>(chunk) * kRows + tid;
 
     float acc[kMaxQT];
@@ -206,12 +253,119 @@ probe_fold_kernel(const float* __restrict__ q, const T* __restrict__ x,
     for (int i = 0; i < kMaxQT; ++i) {
       if (i >= qt) break;
       const float score = 2.f * acc[i] - sq_r + mask_r;
-      if (!(score > kNegInf)) continue;  // dead row: never enters a slot
-      const unsigned long long key =
-          (static_cast<unsigned long long>(order_bits(score)) << 32) | low;
-      unsigned long long* slot =
-          tkeys + static_cast<long long>(i) * n_slots + seg * kRows + tid;
-      if (key > __ldcg(slot)) atomicMax(slot, key);
+      fold_key(tkeys + static_cast<long long>(i) * n_slots + seg * kRows + tid,
+               score, low);
+    }
+  }
+}
+
+// int8 cells: see the header. q is the quantized batch (Q_pad, d) int8,
+// qscale its one f32 scale on the device, rs the per-row dequant scales.
+template <bool kCompact>
+__global__ void __launch_bounds__(kRows)
+probe_fold_i8_kernel(const signed char* __restrict__ q,
+                     const float* __restrict__ qscale,
+                     const signed char* __restrict__ x,
+                     const float* __restrict__ rs, const float* __restrict__ sq,
+                     const float* __restrict__ mask,
+                     const int* __restrict__ cells,
+                     const int* __restrict__ segs,
+                     const int* __restrict__ off128,
+                     unsigned long long* __restrict__ keys, int qt, int d,
+                     int width, int w128, int n_chunks, int nlist, int n_seg,
+                     int entries_per_block, bool vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int* qs = reinterpret_cast<int*>(smem_raw);  // [kMaxQT][words] int8x4
+  const int words = (d + kKT - 1) / kKT * (kKT / 4);
+  const int tile = blockIdx.x;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < kMaxQT * words; i += kRows) {
+    const int qi = i / words;
+    const int k = (i % words) * 4;
+    unsigned int packed = 0;
+    if (qi < qt) {
+      const signed char* qr = q + static_cast<long long>(tile * qt + qi) * d;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (k + j < d)
+          packed |= static_cast<unsigned int>(
+                        static_cast<unsigned char>(qr[k + j]))
+                    << (8 * j);
+    }
+    qs[i] = static_cast<int>(packed);
+  }
+  __syncthreads();
+
+  const int n_entries = kCompact ? width * w128 : width;
+  const int e_begin = blockIdx.y * entries_per_block;
+  const int e_end = min(e_begin + entries_per_block, n_entries);
+  const int* tcells = cells + static_cast<long long>(tile) * width;
+  const int* tsegs = kCompact ? nullptr
+                              : segs + static_cast<long long>(tile) * width;
+  const int n_slots = kRows * n_seg;
+  unsigned long long* tkeys =
+      keys + static_cast<long long>(tile) * qt * n_slots;
+  const float two_qs = __fmul_rn(2.f, __ldg(qscale));
+
+  for (int e = e_begin; e < e_end; ++e) {
+    int chunk, seg;
+    if (!entry_chunk<kCompact>(e, tcells, tsegs, off128, w128, n_chunks,
+                               nlist, n_seg, &chunk, &seg))
+      continue;
+    const long long row = static_cast<long long>(chunk) * kRows + tid;
+    const signed char* xr = x + row * static_cast<long long>(d);
+
+    int acc[kMaxQT];
+#pragma unroll
+    for (int i = 0; i < kMaxQT; ++i) acc[i] = 0;
+    for (int k0 = 0; k0 < d; k0 += kKT) {
+      int v[kKT / 4];
+      if (vec) {  // d % 16 == 0: every slice is whole and 16-byte aligned
+        const int4 t = __ldg(reinterpret_cast<const int4*>(xr + k0));
+        v[0] = t.x;
+        v[1] = t.y;
+        v[2] = t.z;
+        v[3] = t.w;
+      } else {
+#pragma unroll
+        for (int w = 0; w < kKT / 4; ++w) {
+          unsigned int packed = 0;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int k = k0 + 4 * w + j;
+            if (k < d)
+              packed |= static_cast<unsigned int>(
+                            static_cast<unsigned char>(__ldg(xr + k)))
+                        << (8 * j);
+          }
+          v[w] = static_cast<int>(packed);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kMaxQT; ++i) {
+        const int4 qv =
+            *reinterpret_cast<const int4*>(qs + i * words + k0 / 4);
+        int a = acc[i];
+        a = __dp4a(v[0], qv.x, a);
+        a = __dp4a(v[1], qv.y, a);
+        a = __dp4a(v[2], qv.z, a);
+        a = __dp4a(v[3], qv.w, a);
+        acc[i] = a;
+      }
+    }
+
+    // ((2 qs) rs) dot - sq + mask, each operation rounded once
+    const float scale = __fmul_rn(two_qs, __ldg(rs + row));
+    const float sq_r = __ldg(sq + row);
+    const float mask_r = __ldg(mask + row);
+    const unsigned long long low = ~static_cast<unsigned int>(row);
+#pragma unroll
+    for (int i = 0; i < kMaxQT; ++i) {
+      if (i >= qt) break;
+      const float score = __fadd_rn(
+          __fsub_rn(__fmul_rn(scale, __int2float_rn(acc[i])), sq_r), mask_r);
+      fold_key(tkeys + static_cast<long long>(i) * n_slots + seg * kRows + tid,
+               score, low);
     }
   }
 }
@@ -254,6 +408,36 @@ int launch(const float* q, const T* x, const float* sq, const float* mask,
   probe_fold_kernel<T, kCompact><<<grid, kRows, smem, stream>>>(
       q, x, sq, mask, cells, segs, off128, keys, qt, d, width, w128, n_chunks,
       nlist, n_seg, entries_per_block, vec != 0);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int blocks = static_cast<int>((count + 255) / 256);
+  decode_kernel<<<blocks, 256, 0, stream>>>(keys, val, idx, count);
+  return cudaGetLastError();
+}
+
+template <bool kCompact>
+int launch_i8(const signed char* q, const float* qscale, const signed char* x,
+              const float* rs, const float* sq, const float* mask,
+              const int* cells, const int* segs, const int* off128,
+              unsigned long long* keys, float* val, int* idx, int tiles,
+              int qt, int d, int width, int w128, int n_chunks, int nlist,
+              int n_seg, int splits, int entries_per_block, int vec,
+              int device, cudaStream_t stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  const long long count = static_cast<long long>(tiles) * qt * kRows * n_seg;
+  e = cudaMemsetAsync(keys, 0, count * sizeof(unsigned long long), stream);
+  if (e != cudaSuccess) return e;
+  const size_t smem =
+      static_cast<size_t>(kMaxQT) * ((d + kKT - 1) / kKT * kKT);
+  e = cudaFuncSetAttribute(probe_fold_i8_kernel<kCompact>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const dim3 grid(tiles, splits);
+  probe_fold_i8_kernel<kCompact><<<grid, kRows, smem, stream>>>(
+      q, qscale, x, rs, sq, mask, cells, segs, off128, keys, qt, d, width,
+      w128, n_chunks, nlist, n_seg, entries_per_block, vec != 0);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int blocks = static_cast<int>((count + 255) / 256);
@@ -322,6 +506,38 @@ int tpuvdb_ivf_compact_bf16(const float* q, const void* x, const float* sq,
       q, static_cast<const __nv_bfloat16*>(x), sq, mask, cells, nullptr,
       off128, keys, val, idx, tiles, qt, d, width, w128, n_chunks, nlist,
       n_seg, splits, entries_per_block, vec, device, stream);
+}
+
+// int8 cells: q the quantized queries, qscale their scale (one f32 on the
+// device), rs the per-row dequant scales; the rest as the forms above.
+int tpuvdb_ivf_expanded_i8(const void* q, const float* qscale, const void* x,
+                           const float* rs, const float* sq,
+                           const float* mask, const int* cells,
+                           const int* segs, unsigned long long* keys,
+                           float* val, int* idx, int tiles, int qt, int d,
+                           int width, int n_chunks, int n_seg, int splits,
+                           int entries_per_block, int vec, int device,
+                           cudaStream_t stream) {
+  return launch_i8<false>(static_cast<const signed char*>(q), qscale,
+                          static_cast<const signed char*>(x), rs, sq, mask,
+                          cells, segs, nullptr, keys, val, idx, tiles, qt, d,
+                          width, 1, n_chunks, 0, n_seg, splits,
+                          entries_per_block, vec, device, stream);
+}
+
+int tpuvdb_ivf_compact_i8(const void* q, const float* qscale, const void* x,
+                          const float* rs, const float* sq, const float* mask,
+                          const int* cells, const int* off128,
+                          unsigned long long* keys, float* val, int* idx,
+                          int tiles, int qt, int d, int width, int w128,
+                          int n_chunks, int nlist, int n_seg, int splits,
+                          int entries_per_block, int vec, int device,
+                          cudaStream_t stream) {
+  return launch_i8<true>(static_cast<const signed char*>(q), qscale,
+                         static_cast<const signed char*>(x), rs, sq, mask,
+                         cells, nullptr, off128, keys, val, idx, tiles, qt, d,
+                         width, w128, n_chunks, nlist, n_seg, splits,
+                         entries_per_block, vec, device, stream);
 }
 
 const char* tpuvdb_ivf_error(int code) {

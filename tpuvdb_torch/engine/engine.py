@@ -3,7 +3,7 @@
 put / get / delete / search orchestration over host state (WAL, doc store,
 shard mirrors) and one device index, torch tensors on `device` (None =
 "cuda"): `DeviceExactIndex` (index_type="flat") or `IVFIndex`
-(index_type="ivf", f32/bf16 cells):
+(index_type="ivf"), with f32, bf16 or int8 rows (storage_dtype):
 
   * keys route to shards by MD5 (utils/sharding_utils.py);
   * an overwrite writes a fresh slot and soft-deletes the old one;
@@ -24,9 +24,15 @@ into the clustered index (`IVFIndex.append_rows`, or a rebuild when the
 cells and spill are full). A restart rebuilds by assignment against the
 checkpointed centroids (`ivf_warm.npz`) unless the corpus drifted.
 
+int8 storage is lossy, so its searches overfetch `rescore_overfetch * k`
+candidates and re-rank them (`rescore_mode`): "exact" on the host from the
+mirrors' rows, outside the engine lock; "device" inside the flat index's
+scan (dequantized rows; IVF has no such scan and takes the host re-rank);
+"none" serves the int8 scores as they are.
+
 Configurations the port does not run yet raise NotImplementedError naming
-the ROADMAP.md item that brings them: int8 storage, IVF-PQ, a mesh, search
-coalescing, the native doc store and mmap mirrors.
+the ROADMAP.md item that brings them: IVF-PQ, a mesh, search coalescing,
+the native doc store and mmap mirrors.
 
 Snapshot rule. The reference's scatters donate the buffers a concurrent
 search holds, and that search retries on the "donated" error. The port's
@@ -75,6 +81,19 @@ from tpuvdb_torch.utils.tracing import StageTimer
 logger = get_logger("tpuvdb_torch.engine")
 
 
+def _sorted_top(d: np.ndarray, rows: np.ndarray, top: Optional[int]):
+    """Ascending (d, rows), truncated to `top` columns when that is
+    narrower than the input: callers consume only the caller-visible top,
+    so partition first and sort just that slice."""
+    if top is not None and top < d.shape[1]:
+        part = np.argpartition(d, top - 1, axis=1)[:, :top]
+        d = np.take_along_axis(d, part, 1)
+        rows = np.take_along_axis(rows, part, 1)
+    order = np.argsort(d, axis=1, kind="stable")
+    return (np.take_along_axis(d, order, 1),
+            np.take_along_axis(rows, order, 1))
+
+
 def _check_supported(cfg: DBConfig, data_dir: Optional[str], mesh) -> None:
     """Raise NotImplementedError for the configurations that later slices
     of the port bring (ROADMAP.md queue 1)."""
@@ -82,9 +101,6 @@ def _check_supported(cfg: DBConfig, data_dir: Optional[str], mesh) -> None:
     if cfg.index_type == "ivf" and cfg.ivf_pq_subq > 0:
         waiting.append("index_type='ivf' with ivf_pq_subq > 0 (item 8, "
                        "IVF-PQ)")
-    if cfg.storage_dtype == "int8":
-        waiting.append("storage_dtype='int8' (item 6, int8 storage tier, "
-                       "with the IVF int8 probes for index_type='ivf')")
     if mesh is not None:
         waiting.append("mesh (item 9, multi-GPU, the sharded IVF index "
                        "included)")
@@ -149,9 +165,14 @@ class VectorDBEngine:
         self._bg_flush_thread: Optional[threading.Thread] = None
 
         self.timers = StageTimer()
-        # slot identity epoch: bumped by compaction, which reuses slots; a
-        # search that overlapped a bump retries
+        # two epochs, as in the reference:
+        #  _generation      device-result epoch: bumped by compaction and by
+        #                   an IVF append (a search that snapshotted the
+        #                   delta before it could score a row twice)
+        #  _slot_generation slot identity: bumped by compaction only, which
+        #                   reuses slots; all a rescored search re-checks
         self._generation = 0
+        self._slot_generation = 0
         self._puts_since_ckpt = 0
         self._puts_since_compact = 0
         # accepted mutations (puts + deletes), saved with the IVF warm
@@ -484,12 +505,19 @@ class VectorDBEngine:
                 self.stats["flushes"] += 1
 
     def _rebuild_device_index(self):
+        # "device" rescore lives inside the index's search (a fused
+        # dequantized re-rank); "exact" is applied by the search path on
+        # the host instead
+        device_rescore = (self.config.rescore_mode == "device"
+                          and self.config.rescore_overfetch > 0)
         self._index = DeviceExactIndex.build(
             self.mirrors,
             dtype=self.config.torch_dtype(),
             block_size=self.config.block_size,
             search_mode=self.config.search_mode,
             recall_target=self.config.recall_target,
+            rescore_fetch=(self.config.rescore_overfetch * 2
+                           if device_rescore else 0),
             device=self.device,
         )
         self._staged_updates.clear()
@@ -732,8 +760,10 @@ class VectorDBEngine:
         mask = torch.zeros(layout.total_rows, dtype=torch.bool,
                            device=index.device)
         mask[rows] = True
+        # a quantized index runs its int8 scan without the fused re-rank
+        # here, as the reference does
         dists, idx = index.search(query.reshape(1, -1), k,
-                                  valid=index.valid & mask)
+                                  valid=index.valid & mask, rescore=False)
         hits: List[SearchHit] = []
         for score, r in zip(dists[0], idx[0]):
             if r < 0 or (threshold > 0 and score > threshold):
@@ -866,10 +896,24 @@ class VectorDBEngine:
                 return "retry", None  # flush raced with a compaction
             layout = self._ivf_layout if ivf_mode else index.layout
             fetch_k = max(2 * k, k + 16) if overfetch else k
+            # the host rescore runs for int8 unless disabled ("none") or
+            # the fused device re-rank is wired into this index (flat
+            # only): "device" on IVF falls back to the exact host path
+            # rather than serving raw int8 scores
+            fused_device = not ivf_mode and index.rescore_fetch > 0
+            rescore = (self.config.storage_dtype == "int8"
+                       and self.config.rescore_overfetch > 0
+                       and self.config.rescore_mode != "none"
+                       and not fused_device)
+            # caller-visible width: key resolution and the final sort are
+            # bounded by out_k, not by the rescore window
             out_k = min(fetch_k, layout.total_rows)
-            fetch_k = out_k
+            if rescore:
+                fetch_k = max(fetch_k, self.config.rescore_overfetch * k)
+            fetch_k = min(fetch_k, layout.total_rows)
             self.stats["searches"] += 1
             gen = self._generation
+            slot_gen = self._slot_generation
             version = index.version
             # host-delta snapshot: staged AND mid-scatter (inflight) slots,
             # so freshly-put vectors stay visible across the flush
@@ -901,13 +945,42 @@ class VectorDBEngine:
         if index.version != version:
             return "retry", None  # an in-place write overlapped the probe
         with self.timers.stage("search.assemble"):
-            return self._assemble_results(dists, rows, gen, fetch_k,
-                                          layout, out_k)
+            return self._assemble_results(queries, dists, rows, gen,
+                                          slot_gen, rescore, layout, out_k,
+                                          n_del)
 
-    def _assemble_results(self, dists, rows, gen, fetch_k, layout, out_k):
-        """Resolve device rows to keys and compact live hits per row."""
+    def _assemble_results(self, queries, dists, rows, gen, slot_gen, rescore,
+                          layout, out_k, n_del):
+        """Resolve device rows to keys and compact live hits per row. Takes
+        the engine lock only for the generation checks and key resolution;
+        the exact re-rank runs outside it."""
+        if rescore:
+            # row payloads are immutable once written (slots are
+            # append-only; an overwrite takes a fresh slot), so reading
+            # them from a snapshot of the mirror list is race-free. Only
+            # compaction invalidates slot identity: the re-check below
+            # catches that and retries.
+            with self._lock:
+                if self._generation != gen:
+                    return "retry", None  # compacted or appended mid-search
+                mirrors = list(self.mirrors)
+            # the rescore consumes the full device window (recall lives
+            # there) but returns only the caller-visible top plus slack:
+            # headroom for staged-deleted candidates, so the slow path
+            # below can still refill out_k live hits
+            top_w = min(rows.shape[1], out_k + 32 + n_del)
+            with self.timers.stage("search.rescore"):
+                dists, rows = self._rescore_exact(
+                    np.asarray(queries, np.float32), rows, layout, mirrors,
+                    top=top_w)
         with self._lock:
-            if self._generation != gen:
+            # a rescored search validates slot identity only: the device
+            # epoch was certified before the rescore, and an IVF append
+            # during the re-rank cannot invalidate rows already fetched
+            # or the payloads read; only compaction (slot reuse) can
+            stale = (self._slot_generation != slot_gen if rescore
+                     else self._generation != gen)
+            if stale:
                 return "retry", None  # compacted mid-search: slots moved
             # the scan returns the full width (fetch_k padded by the
             # staged-delete count): staged-deleted slots resolve to no key
@@ -951,6 +1024,36 @@ class VectorDBEngine:
         out_d = np.where(live_sorted, d_sorted, np.inf).astype(np.float32)
         keys = [keys_flat[i * res_k:(i + 1) * res_k] for i in range(qn)]
         return "ok", (out_d, keys)
+
+    @staticmethod
+    def _rescore_exact(queries: np.ndarray, rows: np.ndarray, layout,
+                       mirrors: list, top: Optional[int] = None):
+        """Re-rank device candidates by exact f32 distance to the mirrors'
+        rows (dequantized for int8 mirrors): int8 scanning trades score
+        precision for device memory, and this epilogue restores the exact
+        ordering over the overfetched candidates. Lock-free against the
+        given snapshot of the mirror list. GEMM form, |q|^2 - 2 q.v + |v|^2
+        batched per query, so no (Q, F, d) difference array exists."""
+        q = np.ascontiguousarray(np.atleast_2d(queries), np.float32)
+        qn, f = rows.shape
+        flat = rows.ravel()
+        ok = flat >= 0
+        qsq = np.einsum("qd,qd->q", q, q).astype(np.float32)
+        vecs = np.zeros((flat.size, q.shape[1]), np.float32)
+        if ok.any():
+            shards = flat[ok] // layout.phys_cap
+            slots = flat[ok] % layout.phys_cap
+            pos = np.flatnonzero(ok)
+            for s in range(len(mirrors)):
+                m = shards == s
+                if m.any():
+                    vecs[pos[m]] = mirrors[s].rows_f32(slots[m])
+        vmat = vecs.reshape(qn, f, -1)
+        v_sq = np.einsum("qfd,qfd->qf", vmat, vmat)
+        qv = np.matmul(vmat, q[:, :, None])[:, :, 0]  # batched matvec
+        d = qsq[:, None] - 2.0 * qv + v_sq
+        d = np.where(rows >= 0, d, np.inf).astype(np.float32)
+        return _sorted_top(d, rows, top)
 
     def _flat_search_rows(self, queries: np.ndarray, k: int, index, delta,
                           n_del):
@@ -1113,7 +1216,8 @@ class VectorDBEngine:
     def _swap_compacted(self, new_mirrors, new_docstore):
         self.mirrors = new_mirrors
         self.docstore = new_docstore
-        self._generation += 1  # compaction reuses slots
+        self._generation += 1
+        self._slot_generation += 1  # compaction reuses slots
         self._index = None
         self._ivf = None
         self._ivf_layout = None
@@ -1173,6 +1277,8 @@ class VectorDBEngine:
                     for m in self.mirrors
                 ],
                 "index_type": self.config.index_type,
+                "storage_dtype": self.config.storage_dtype,
+                "quantized": bool(index.quantized) if index else False,
                 "device": str(self.device),
                 "device_rows": (self._index.layout.total_rows
                                 if self._index else 0),

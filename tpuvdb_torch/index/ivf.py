@@ -1,4 +1,5 @@
-"""IVF-Flat index: the port of tpuvdb/index/ivf.py (f32 and bf16 cells).
+"""IVF-Flat index: the port of tpuvdb/index/ivf.py (f32, bf16 and int8
+cells).
 
 K-means coarse quantizer + cluster-pruned scan. Cells are laid out
 contiguously at 128-row alignment in one grouped array on the device
@@ -16,7 +17,16 @@ port's CPU results are the reference's probe results.
 The host helpers (`ArrayRowSource`, `MirrorRowSource`,
 `split_oversized_cells`, `_bisect_2means`, `pack_cells`,
 `_pack_cells_from_source`, `_fill_rows_from_source`, `build_inverse_maps`,
-`lookup_inverse`) are copies of the reference's f32 branches.
+`lookup_inverse`) are copies of the reference's f32 and int8 branches.
+
+dtype=torch.int8 packs the cells and the spill as int8 codes with per-row
+dequant scales (`cell_scales`, `spill_scales`; kernels/quant.py); the
+squared norms stay those of the f32 rows. int8 mirrors hand their codes,
+scales and norms over bit-exactly (`gather_raw`), other rows are quantized
+with `quantize_rows_np` while packing, and appends quantize the same way.
+A padding row of a cell has scale 1.0, code 0 and valid false, and scores
+nothing. The reference's CPU-only route `_ivf_search_int8` is not ported,
+as `_ivf_search` was not.
 
 In-place writes. The reference's scatters are functional (donated
 buffers); the port's `append_rows` and `invalidate_rows` write the device
@@ -24,8 +34,8 @@ tensors in place with torch index ops and bump `version`, so a search that
 overlapped one can tell and retry. The reference's fixed 4096/1024-row
 scatter buckets and `warm_append` (XLA compile workarounds) are not needed.
 
-Not ported yet: int8 cells (the int8 slice), PQ cells with
-`packed_capture`/`from_packed` (IVF-PQ), the mesh-sharded index.
+Not ported yet: PQ cells with `packed_capture`/`from_packed` (IVF-PQ), the
+mesh-sharded index.
 """
 
 from __future__ import annotations
@@ -39,16 +49,15 @@ import torch
 from tpuvdb_torch.device import resolve_device
 from tpuvdb_torch.kernels.ivf_probe import ivf_probe_search
 from tpuvdb_torch.kernels.kmeans import assign_blockwise, kmeans
+from tpuvdb_torch.kernels.quant import quantize_rows_np
 
-_DTYPES = (torch.float32, torch.bfloat16)
+_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
 _ASSIGN_CHUNK = 16384
 
 
 def _check_dtype(dtype) -> None:
     if dtype not in _DTYPES:
-        raise NotImplementedError(
-            f"IVF cells of {dtype}: int8 cells wait for the int8 slice "
-            "(ROADMAP.md queue 1, item 6)")
+        raise ValueError(f"IVF cells of {dtype}: not one of {_DTYPES}")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -65,9 +74,13 @@ class ArrayRowSource:
     def __init__(self, vectors: np.ndarray):
         self.v = np.asarray(vectors)
         self.n, self.dim = self.v.shape
+        self.all_int8 = False
 
     def gather_f32(self, phys_rows: np.ndarray) -> np.ndarray:
         return np.asarray(self.v[phys_rows], np.float32)
+
+    def gather_raw(self, phys_rows):
+        raise RuntimeError("ArrayRowSource has no raw int8 rows")
 
     def iter_blocks_f32(self, block_rows: int):
         for lo in range(0, self.n, block_rows):
@@ -77,13 +90,16 @@ class ArrayRowSource:
 class MirrorRowSource:
     """Row access over the shard mirrors without materializing the
     stacked corpus: samples, cell members and packed rows are gathered on
-    demand, and the assignment pass streams each shard's written prefix."""
+    demand, and the assignment pass streams each shard's written prefix.
+    int8 mirrors hand their codes over bit-exactly (gather_raw), so packed
+    int8 cells carry the mirrors' own quantization."""
 
     def __init__(self, mirrors, layout):
         self.mirrors = mirrors
         self.layout = layout
         self.n = layout.total_rows
         self.dim = layout.dim
+        self.all_int8 = all(m.quantized for m in mirrors)
 
     def valid_array(self) -> np.ndarray:
         v = np.zeros(self.n, bool)
@@ -94,15 +110,31 @@ class MirrorRowSource:
                 v[r0:r0 + n] = m.valid[:n]
         return v
 
-    def gather_f32(self, phys_rows: np.ndarray) -> np.ndarray:
+    def _split(self, phys_rows: np.ndarray):
         phys = np.asarray(phys_rows, np.int64)
-        shards = phys // self.layout.phys_cap
-        slots = phys % self.layout.phys_cap
+        return phys // self.layout.phys_cap, phys % self.layout.phys_cap
+
+    def gather_f32(self, phys_rows: np.ndarray) -> np.ndarray:
+        shards, slots = self._split(phys_rows)
         out = np.empty((len(shards), self.dim), np.float32)
         for sh in np.unique(shards):
             sel = shards == sh
             out[sel] = self.mirrors[sh].rows_f32(slots[sel])
         return out
+
+    def gather_raw(self, phys_rows: np.ndarray):
+        """(codes int8, scales, sq): only valid when all_int8."""
+        shards, slots = self._split(phys_rows)
+        codes = np.empty((len(shards), self.dim), np.int8)
+        scales = np.empty(len(shards), np.float32)
+        sq = np.empty(len(shards), np.float32)
+        for sh in np.unique(shards):
+            sel = shards == sh
+            c, sc, q = self.mirrors[sh].rows_raw(slots[sel])
+            codes[sel] = c
+            scales[sel] = sc
+            sq[sel] = q
+        return codes, scales, sq
 
     def iter_blocks_f32(self, block_rows: int):
         for s, m in enumerate(self.mirrors):
@@ -224,32 +256,51 @@ def pack_cells(
     return gvec, gval, grow, offsets.astype(np.int32), kept, spill_rows
 
 
-def _fill_rows_from_source(source, phys_rows, vec_out, sq_out, positions,
-                           chunk: int = 1_000_000):
-    """Copy `phys_rows` from the source into vec/sq at `positions`,
-    chunked so the f32 transient stays bounded; sq is the f32 row's."""
+def _fill_rows_from_source(source, phys_rows, vec_out, scale_out, sq_out,
+                           positions, int8_out: bool, chunk: int = 1_000_000):
+    """Copy `phys_rows` from the source into vec/scale/sq at `positions`,
+    chunked so the f32 transient stays bounded. int8 output takes the
+    bit-exact raw path when the source stores int8; otherwise it gathers
+    f32 and quantizes per chunk. sq is the f32 row's (the stored norm on
+    the raw path)."""
+    raw_ok = int8_out and source.all_int8
     for lo in range(0, len(phys_rows), chunk):
         r = phys_rows[lo:lo + chunk]
         p = positions[lo:lo + chunk]
+        if raw_ok:
+            codes, scales, sq = source.gather_raw(r)
+            vec_out[p] = codes
+            scale_out[p] = scales
+            sq_out[p] = sq
+            continue
         f = source.gather_f32(r)
         sq_out[p] = np.einsum("nd,nd->n", f, f)
-        vec_out[p] = f
+        if int8_out:
+            vec_out[p], scale_out[p] = quantize_rows_np(f)
+        else:
+            vec_out[p] = f
 
 
-def _pack_cells_from_source(source, rows, assign_live, nlist, window):
-    """pack_cells over a row source. Returns (gvec, gsq, gval, grow,
-    offsets, sizes, spill_rows)."""
+def _pack_cells_from_source(source, rows, assign_live, nlist, window,
+                            int8_out: bool):
+    """pack_cells over a row source, rows copied straight into the target
+    dtype. Returns (gvec, gscales|None, gsq, gval, grow, offsets, sizes,
+    spill_rows); padding rows of an int8 cell keep scale 1.0."""
     rows_sorted, gpos, main, offsets, kept, grouped_rows = _cell_layout(
         rows, assign_live, nlist, window)
+    gscales = np.ones(grouped_rows, np.float32) if int8_out else None
     gval = np.zeros(grouped_rows, bool)
     grow = np.full(grouped_rows, -1, np.int64)
     gval[gpos] = True
     grow[gpos] = rows_sorted[main]
-    gvec = np.zeros((grouped_rows, source.dim), np.float32)
+    gvec = np.zeros((grouped_rows, source.dim),
+                    np.int8 if int8_out else np.float32)
     gsq = np.zeros(grouped_rows, np.float32)
-    _fill_rows_from_source(source, rows_sorted[main], gvec, gsq, gpos)
+    _fill_rows_from_source(source, rows_sorted[main], gvec, gscales, gsq,
+                           gpos, int8_out)
     spill_rows = np.asarray(rows_sorted[~main], dtype=np.int64)
-    return gvec, gsq, gval, grow, offsets.astype(np.int32), kept, spill_rows
+    return (gvec, gscales, gsq, gval, grow, offsets.astype(np.int32), kept,
+            spill_rows)
 
 
 def build_inverse_maps(row_ids: np.ndarray, spill_row_ids: np.ndarray):
@@ -304,9 +355,18 @@ class IVFIndex:
         cell_offsets: np.ndarray, # (nlist,) packed start row per cell
         cell_lens: np.ndarray,    # (nlist,) live rows per cell
         nprobe: int = 32,
+        cell_scales: Optional[torch.Tensor] = None,   # (N_g,) int8 dequant
+        spill_scales: Optional[torch.Tensor] = None,  # (S,)
     ):
         self.device = grouped.device
         _check_dtype(grouped.dtype)
+        self.quantized = grouped.dtype == torch.int8
+        if self.quantized != (cell_scales is not None
+                              and spill_scales is not None):
+            raise ValueError("int8 cells take cell_scales and spill_scales, "
+                             "other cells take neither")
+        self.cell_scales = cell_scales
+        self.spill_scales = spill_scales
         self._centroids_np = np.array(centroids, np.float32)  # own copy
         self.centroids = torch.from_numpy(self._centroids_np).to(self.device)
         self.cell_offsets_np = np.array(cell_offsets, np.int32)
@@ -348,28 +408,46 @@ class IVFIndex:
         nprobe: int,
         dtype=torch.float32,
         device=None,
+        cell_scales: Optional[np.ndarray] = None,   # int8 cells only
+        spill_scales: Optional[np.ndarray] = None,
     ) -> "IVFIndex":
         """An index holding given arrays, e.g. a JAX IVFIndex's
-        (np.asarray of each field): the same cells, the same probes."""
+        (np.asarray of each field): the same cells, the same probes. int8
+        cells come as int8 codes with both scale arrays."""
         dev = resolve_device(device)
 
         def put(a, dt):
             return torch.from_numpy(np.array(a)).to(dev).to(dt)
 
+        quant = dtype == torch.int8
+        if quant and (np.asarray(grouped).dtype != np.int8
+                      or np.asarray(spill).dtype != np.int8
+                      or cell_scales is None or spill_scales is None):
+            raise ValueError("int8 cells take int8 codes and both scale "
+                             "arrays")
+
+        def rows(a):
+            return put(a if quant else np.asarray(a, np.float32), dtype)
+
+        def f32(a):
+            return put(np.asarray(a, np.float32), torch.float32)
+
         return cls(
             centroids=np.asarray(centroids, np.float32),
-            grouped=put(np.asarray(grouped, np.float32), dtype),
-            grouped_sq=put(np.asarray(grouped_sq, np.float32), torch.float32),
+            grouped=rows(grouped),
+            grouped_sq=f32(grouped_sq),
             grouped_valid=put(np.asarray(grouped_valid, bool), torch.bool),
             row_ids=row_ids,
-            spill=put(np.asarray(spill, np.float32), dtype),
-            spill_sq=put(np.asarray(spill_sq, np.float32), torch.float32),
+            spill=rows(spill),
+            spill_sq=f32(spill_sq),
             spill_valid=put(np.asarray(spill_valid, bool), torch.bool),
             spill_row_ids=spill_row_ids,
             cell_pad=cell_pad,
             cell_offsets=cell_offsets,
             cell_lens=cell_lens,
             nprobe=nprobe,
+            cell_scales=f32(cell_scales) if quant else None,
+            spill_scales=f32(spill_scales) if quant else None,
         )
 
     def live_phys_rows(self) -> np.ndarray:
@@ -459,23 +537,25 @@ class IVFIndex:
             cell_pad = max(_round_up(max(cap, 1), 128), 128)
 
         live2 = np.flatnonzero(valid & (assign >= 0))
-        (gvec, gsq, gval, grow, cell_offsets, cell_lens,
+        int8_out = dtype == torch.int8
+        (gvec, gscales, gsq, gval, grow, cell_offsets, cell_lens,
          spill_rows) = _pack_cells_from_source(
-            source, live2, assign[live2], nlist, cell_pad)
+            source, live2, assign[live2], nlist, cell_pad, int8_out)
 
         # spill reserve: free capacity so append_rows can overflow full
         # cells here instead of forcing a rebuild
         reserve = min(8192, max(128, n // 8))
         s = max(len(spill_rows), 1)
         s_pad = _round_up(s + reserve, 128)
-        svec = np.zeros((s_pad, d), np.float32)
+        svec = np.zeros((s_pad, d), np.int8 if int8_out else np.float32)
+        sscales = np.ones(s_pad, np.float32) if int8_out else None
         ssq = np.zeros(s_pad, np.float32)
         sval = np.zeros(s_pad, bool)
         srow = np.full(s_pad, -1, np.int64)
         ns = len(spill_rows)
         if ns:
-            _fill_rows_from_source(source, spill_rows, svec, ssq,
-                                   np.arange(ns))
+            _fill_rows_from_source(source, spill_rows, svec, sscales, ssq,
+                                   np.arange(ns), int8_out)
             sval[:ns] = True
             srow[:ns] = spill_rows
 
@@ -497,6 +577,8 @@ class IVFIndex:
             cell_offsets=cell_offsets,
             cell_lens=cell_lens,
             nprobe=nprobe,
+            cell_scales=put(gscales) if int8_out else None,
+            spill_scales=put(sscales) if int8_out else None,
         )
 
     # ----------------------------------------------------------------- search
@@ -531,7 +613,8 @@ class IVFIndex:
             q, self.centroids, self.grouped, self.grouped_sq, gval,
             self.cell_offsets, cell_pad=self.cell_pad, k=k, nprobe=nprobe,
             spill=self.spill, spill_sq=self.spill_sq, spill_valid=sval,
-            force_compact=force_compact)
+            force_compact=force_compact, cell_scales=self.cell_scales,
+            spill_scales=self.spill_scales)
         gid = gid.cpu().numpy()
         dist = dist.cpu().numpy()
         # map grouped/spill ids back to physical rows
@@ -622,10 +705,13 @@ class IVFIndex:
         self.cell_lens = lens.astype(np.int32)
         self._inv_g = self._inv_s = None  # inverse maps grew: rebuild lazily
         sq = np.einsum("nd,nd->n", vecs, vecs).astype(np.float32)
-        for take, pos, ids, region in (
-                (g_take, g_pos, self.row_ids, "grouped"),
+        payload = vecs
+        if self.quantized:
+            payload, qscales = quantize_rows_np(vecs)
+        for take, pos, ids, region, scale_arr in (
+                (g_take, g_pos, self.row_ids, "grouped", self.cell_scales),
                 (s_take, spill_len + np.arange(len(s_take)),
-                 self.spill_row_ids, "spill")):
+                 self.spill_row_ids, "spill", self.spill_scales)):
             if not len(take):
                 continue
             t = np.asarray(take, np.int64)
@@ -633,8 +719,11 @@ class IVFIndex:
             ids[p] = phys[t]
             pt = torch.from_numpy(p).to(self.device)
             vec_arr = getattr(self, region)
-            vec_arr.index_copy_(0, pt, torch.from_numpy(vecs[t]).to(
+            vec_arr.index_copy_(0, pt, torch.from_numpy(payload[t]).to(
                 self.device).to(vec_arr.dtype))
+            if self.quantized:
+                scale_arr.index_copy_(
+                    0, pt, torch.from_numpy(qscales[t]).to(self.device))
             getattr(self, f"{region}_sq").index_copy_(
                 0, pt, torch.from_numpy(sq[t]).to(self.device))
             getattr(self, f"{region}_valid").index_fill_(0, pt, True)
@@ -652,4 +741,5 @@ class IVFIndex:
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in (
             self.grouped, self.grouped_sq, self.grouped_valid, self.spill,
-            self.spill_sq, self.spill_valid, self.centroids))
+            self.spill_sq, self.spill_valid, self.centroids,
+            self.cell_scales, self.spill_scales) if t is not None)

@@ -174,6 +174,14 @@ class ShardMirror:
             vec = vec.astype(np.float32) * self._scale[:n, None]
         return vec, self._sq[:n], self.valid[:n]
 
+    def prefix_raw(self):
+        """(rows, scales|None, sq, valid) views of the written prefix in the
+        STORED dtype: int8 mirrors hand their codes and scales to an int8
+        device index bit-exactly (the reference's raw_range)."""
+        n = self.next_slot
+        return (self._vec[:n], self._scale[:n] if self.quantized else None,
+                self._sq[:n], self.valid[:n])
+
     def is_valid(self, slot: int) -> bool:
         return bool(self.valid[slot]) if slot < self._phys else False
 

@@ -5,10 +5,21 @@ from tpuvdb_torch.kernels.distance import (
 )
 from tpuvdb_torch.kernels.ivf_probe import (
     ivf_candidates,
+    ivf_candidates_int8,
+    ivf_candidates_int8_plain,
     ivf_candidates_packed,
+    ivf_candidates_packed_int8,
+    ivf_candidates_packed_int8_plain,
     ivf_candidates_packed_plain,
     ivf_candidates_plain,
     ivf_probe_search,
+)
+from tpuvdb_torch.kernels.quant import (
+    exact_rescore,
+    l2sq_topk_int8,
+    l2sq_topk_int8_rescored,
+    quantize_batch,
+    quantize_rows_np,
 )
 from tpuvdb_torch.kernels.scan import (
     scan_candidates,
@@ -18,12 +29,21 @@ from tpuvdb_torch.kernels.scan import (
 from tpuvdb_torch.kernels.topk import mask_scores, merge_topk
 
 __all__ = [
+    "exact_rescore",
     "ivf_candidates",
+    "ivf_candidates_int8",
+    "ivf_candidates_int8_plain",
     "ivf_candidates_packed",
+    "ivf_candidates_packed_int8",
+    "ivf_candidates_packed_int8_plain",
     "ivf_candidates_packed_plain",
     "ivf_candidates_plain",
     "ivf_probe_search",
     "l2sq_topk",
+    "l2sq_topk_int8",
+    "l2sq_topk_int8_rescored",
+    "quantize_batch",
+    "quantize_rows_np",
     "l2sq_topk_blockwise",
     "l2sq_full",
     "merge_topk",

@@ -47,8 +47,8 @@ def queries_like(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
         q = q.to(torch.bfloat16).to(torch.float32)
     elif corpus.dtype != torch.float32:
         raise NotImplementedError(
-            f"corpus dtype {corpus.dtype}: only float32 and bfloat16 are "
-            "ported (int8 storage waits for the int8 tier, ROADMAP queue 1)")
+            f"corpus dtype {corpus.dtype}: these scans take float32 and "
+            "bfloat16 rows (int8 rows take the functions of kernels/quant.py)")
     return q
 
 

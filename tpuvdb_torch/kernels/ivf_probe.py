@@ -1,9 +1,11 @@
-"""IVF probe: the port of tpuvdb/kernels/pallas_ivf.py for f32/bf16 cells.
+"""IVF probe: the port of tpuvdb/kernels/pallas_ivf.py (f32, bf16 and int8
+cells).
 
-Two candidate functions, one per form of the reference's packed-layout
-probe, each a hand-written CUDA kernel in `tpuvdb_torch/csrc/ivf_probe.cu`
-on CUDA tensors (built with nvcc for sm_90a into `tpuvdb_torch/build/` on
-first use, bound with ctypes) and a plain PyTorch twin on CPU tensors:
+Four candidate functions, one per form of the reference's packed-layout
+probe and cell type, each a hand-written CUDA kernel in
+`tpuvdb_torch/csrc/ivf_probe.cu` on CUDA tensors (built with nvcc for
+sm_90a into `tpuvdb_torch/build/` on first use, bound with ctypes) and a
+plain PyTorch twin on CPU tensors:
 
   ivf_candidates          replaces pallas_ivf._probe_kernel (the
                           `pl.pallas_call` of pallas_ivf_candidates,
@@ -13,25 +15,39 @@ first use, bound with ctypes) and a plain PyTorch twin on CPU tensors:
                           of pallas_ivf_candidates_packed, :473): the tile's
                           sorted probed cells plus the per-cell chunk start
                           `off128`; segment = chunk mod n_segments.
+  ivf_candidates_int8     replaces pallas_ivf._probe_kernel_int8 (the call
+                          of pallas_ivf_candidates_int8, :330): the first
+                          form on int8 cells with per-row scales.
+  ivf_candidates_packed_int8
+                          replaces pallas_ivf._probe_kernel_packed_int8 (the
+                          call of pallas_ivf_candidates_packed_int8, :549):
+                          the second form on int8 cells.
 
-For each tile of `query_tile` queries both return, per query and slot
+For each tile of `query_tile` queries all return, per query and slot
 (segment * 128 + column), the best score `2 q.x - ||x||^2 + mask` among the
 rows chunk * 128 + column of the chunks in that segment, and its row (the
-lowest on a tie; -1 and f32-min for an empty slot). That is what the
+lowest on a tie; -1 and f32-min for an empty slot). On int8 cells the
+wrappers quantize the query batch with one scale (`quantize_batch`; the
+scale covers the whole padded batch, so a batch and a slice of it score
+differently) and the score is `((2 s_q) s_r) (q_i8 . x_i8) - ||x||^2 +
+mask` with the dot exact in int32 and each f32 operation rounded once, in
+the kernel as in the twin: the two agree bit for bit. That is what the
 reference's sequential strict-`>` fold computes, because a chunk always
 lands in the same slots and distinct chunks first appear in ascending order
 (csrc/ivf_probe.cu explains why); the plain twins compute it directly, with
 a max and a min-id per slot, so neither depends on the order of the list.
 An entry whose chunk, segment or cell id is out of range scores nothing;
 lists of the wrong shape raise, on either device. On a CUDA tensor a
-wrapper launches its kernel or raises; `LAUNCHES_EXPANDED` and
-`LAUNCHES_COMPACT` count launches.
+wrapper launches its kernel or raises; `LAUNCHES_EXPANDED`,
+`LAUNCHES_COMPACT`, `LAUNCHES_EXPANDED_INT8` and `LAUNCHES_COMPACT_INT8`
+count launches.
 
 `ivf_probe_search` is the port of `pallas_ivf_search` on the packed layout
 (cell_offsets given; the fixed-stride layout is not used by IVFIndex): the
 coarse pick is a full-f32 matmul and `torch.topk(nprobe)` per query, each
 tile of 8 queries (fewer when Q < 8) probes the sorted union of its queries'
-cells, the spill rows are scanned exactly, and an exact top-k finishes, all
+cells, the spill rows are scanned exactly (int8 spill rows dequantized and
+scored against the unquantized queries), and an exact top-k finishes, all
 as in the reference. The dispatch between the forms is kept as a result
 contract: the two choose different candidate sets, so the expanded form
 runs while Q_pad * nprobe * w128 <= 2**20 (`EXPANDED_MAX`, the reference's
@@ -51,6 +67,7 @@ import torch.nn.functional as F
 
 from tpuvdb_torch.kernels.cuda_build import CudaLibrary
 from tpuvdb_torch.kernels.distance import queries_like
+from tpuvdb_torch.kernels.quant import int8_dots, quantize_batch
 
 NEG_INF = float(torch.finfo(torch.float32).min)
 CHUNK = 128          # rows per chunk, the reference's lane width
@@ -60,6 +77,8 @@ PLAIN_BLOCK_CHUNKS = 512  # chunks gathered at once by the plain twins
 
 LAUNCHES_EXPANDED = 0  # ivf_candidates kernel launches (CUDA tensors)
 LAUNCHES_COMPACT = 0   # ivf_candidates_packed kernel launches
+LAUNCHES_EXPANDED_INT8 = 0  # ivf_candidates_int8 kernel launches
+LAUNCHES_COMPACT_INT8 = 0   # ivf_candidates_packed_int8 kernel launches
 
 _INT_MAX = torch.iinfo(torch.int32).max
 _sm_counts = {}
@@ -73,6 +92,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     for fn in (lib.tpuvdb_ivf_compact_f32, lib.tpuvdb_ivf_compact_bf16):
         fn.restype = i
         fn.argtypes = [p] * 9 + [i] * 12 + [p]
+    lib.tpuvdb_ivf_expanded_i8.restype = i
+    lib.tpuvdb_ivf_expanded_i8.argtypes = [p] * 11 + [i] * 10 + [p]
+    lib.tpuvdb_ivf_compact_i8.restype = i
+    lib.tpuvdb_ivf_compact_i8.argtypes = [p] * 11 + [i] * 12 + [p]
     lib.tpuvdb_ivf_error.restype = ctypes.c_char_p
     lib.tpuvdb_ivf_error.argtypes = [i]
 
@@ -102,11 +125,12 @@ def _fold_block(run_val, run_idx, scores, ids, slots):
             torch.where(better, bidx, run_idx))
 
 
-def _plain_fold(q, grouped, sq, mask, tile_chunks, tile_segs, n_segments,
+def _plain_fold(score, qp, grouped, tile_chunks, tile_segs, n_segments,
                 query_tile):
     """Shared body of the plain twins: per tile, the distinct chunks and
-    their segments, folded in blocks of PLAIN_BLOCK_CHUNKS."""
-    qp = q.shape[0]
+    their segments, folded in blocks of PLAIN_BLOCK_CHUNKS.
+    score(lo, hi, rows) gives the (hi - lo, len(rows)) f32 scores of queries
+    [lo, hi) against the grouped rows `rows`."""
     n_chunks = grouped.shape[0] // CHUNK
     dev = grouped.device
     n_slots = CHUNK * n_segments
@@ -121,21 +145,49 @@ def _plain_fold(q, grouped, sq, mask, tile_chunks, tile_segs, n_segments,
         # scores nothing
         ok = (useg >= 0) & (useg < n_segments)
         uniq, useg = uniq[ok], useg[ok]
-        qt = q[t * query_tile:(t + 1) * query_tile]
-        rv, ri = val[t * query_tile:(t + 1) * query_tile], \
-            idx[t * query_tile:(t + 1) * query_tile]
+        lo_q, hi_q = t * query_tile, (t + 1) * query_tile
+        rv, ri = val[lo_q:hi_q], idx[lo_q:hi_q]
         for lo in range(0, uniq.shape[0], PLAIN_BLOCK_CHUNKS):
             c = uniq[lo:lo + PLAIN_BLOCK_CHUNKS]
             rows = (c[:, None] * CHUNK + col).reshape(-1)
-            x = grouped[rows].to(torch.float32)
-            scores = 2.0 * (qt @ x.T) - sq[rows] + mask[rows]
             slots = (useg[lo:lo + PLAIN_BLOCK_CHUNKS, None] * CHUNK
                      + col).reshape(1, -1)
-            rv, ri = _fold_block(rv, ri, scores, rows.to(torch.int32)[None],
-                                 slots)
-        val[t * query_tile:(t + 1) * query_tile] = rv
-        idx[t * query_tile:(t + 1) * query_tile] = ri
+            rv, ri = _fold_block(rv, ri, score(lo_q, hi_q, rows),
+                                 rows.to(torch.int32)[None], slots)
+        val[lo_q:hi_q] = rv
+        idx[lo_q:hi_q] = ri
     return val, idx
+
+
+def _score_float(queries, grouped, grouped_sq, neg_mask):
+    """score() of _plain_fold for f32/bf16 cells: 2 q.x - ||x||^2 + mask."""
+    q = queries_like(queries, grouped)
+    sq, mask = grouped_sq.reshape(-1), neg_mask.reshape(-1)
+
+    def score(lo, hi, rows):
+        x = grouped[rows].to(torch.float32)
+        return 2.0 * (q[lo:hi] @ x.T) - sq[rows] + mask[rows]
+
+    return score
+
+
+def _score_int8(queries, grouped_i8, cell_scales, grouped_sq, neg_mask):
+    """score() of _plain_fold for int8 cells, in the reference's order:
+    ((2 s_q) s_r) f32(q_i8 . x_i8) - ||x||^2 + mask, each tensor op rounded
+    once."""
+    if grouped_i8.dtype != torch.int8:
+        raise ValueError(f"int8 probe takes int8 cells, not "
+                         f"{grouped_i8.dtype}")
+    qi, qscale = quantize_batch(queries)
+    scales = cell_scales.reshape(-1).to(torch.float32)
+    sq, mask = grouped_sq.reshape(-1), neg_mask.reshape(-1)
+
+    def score(lo, hi, rows):
+        dots = int8_dots(qi[lo:hi], grouped_i8[rows]).to(torch.float32)
+        return (2.0 * qscale * scales[rows][None, :] * dots - sq[rows]
+                + mask[rows])
+
+    return score
 
 
 def _first_occurrence(x: torch.Tensor):
@@ -151,10 +203,19 @@ def _first_occurrence(x: torch.Tensor):
 def ivf_candidates_plain(queries, cells, segs, grouped, grouped_sq, neg_mask,
                          n_segments: int, query_tile: int):
     """Plain twin of the expanded-form kernel (see ivf_candidates)."""
-    q = queries_like(queries, grouped)
-    return _plain_fold(q, grouped, grouped_sq.reshape(-1),
-                       neg_mask.reshape(-1), cells, segs, n_segments,
+    return _plain_fold(_score_float(queries, grouped, grouped_sq, neg_mask),
+                       queries.shape[0], grouped, cells, segs, n_segments,
                        query_tile)
+
+
+def ivf_candidates_int8_plain(queries, cells, segs, grouped_i8, cell_scales,
+                              grouped_sq, neg_mask, n_segments: int,
+                              query_tile: int):
+    """Plain twin of the expanded-form int8 kernel (see
+    ivf_candidates_int8)."""
+    return _plain_fold(
+        _score_int8(queries, grouped_i8, cell_scales, grouped_sq, neg_mask),
+        queries.shape[0], grouped_i8, cells, segs, n_segments, query_tile)
 
 
 def packed_chunks(cells, off128, w128: int, n_chunks: int):
@@ -174,30 +235,48 @@ def ivf_candidates_packed_plain(queries, cells, off128, grouped, grouped_sq,
                                 neg_mask, w128: int, n_segments: int,
                                 query_tile: int):
     """Plain twin of the compact-form kernel (see ivf_candidates_packed)."""
-    q = queries_like(queries, grouped)
     chunks = packed_chunks(cells, off128, w128, grouped.shape[0] // CHUNK)
-    return _plain_fold(q, grouped, grouped_sq.reshape(-1),
-                       neg_mask.reshape(-1), chunks, chunks % n_segments,
-                       n_segments, query_tile)
+    return _plain_fold(_score_float(queries, grouped, grouped_sq, neg_mask),
+                       queries.shape[0], grouped, chunks,
+                       chunks % n_segments, n_segments, query_tile)
+
+
+def ivf_candidates_packed_int8_plain(queries, cells, off128, grouped_i8,
+                                     cell_scales, grouped_sq, neg_mask,
+                                     w128: int, n_segments: int,
+                                     query_tile: int):
+    """Plain twin of the compact-form int8 kernel (see
+    ivf_candidates_packed_int8)."""
+    chunks = packed_chunks(cells, off128, w128, grouped_i8.shape[0] // CHUNK)
+    return _plain_fold(
+        _score_int8(queries, grouped_i8, cell_scales, grouped_sq, neg_mask),
+        queries.shape[0], grouped_i8, chunks, chunks % n_segments,
+        n_segments, query_tile)
 
 
 # --------------------------------------------------------------- wrappers
 
 
-def _check(name, queries, grouped, sq, mask, *int_arrays):
+def _check(name, queries, grouped, f32_arrays, int_arrays,
+           dtypes=(torch.float32, torch.bfloat16)):
     """Raise unless the kernel takes these devices, dtypes and layouts."""
     dev = grouped.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
-    for t in (queries, sq, mask) + int_arrays:
+    for t in (queries,) + f32_arrays + int_arrays:
         if t.device != dev:
             raise ValueError(f"{name}: inputs on {t.device}, cells on {dev}")
-    if grouped.dtype not in (torch.float32, torch.bfloat16):
+    if grouped.dtype not in dtypes:
         raise NotImplementedError(
-            f"{name} takes float32 or bfloat16 cells, not {grouped.dtype} "
-            "(int8 cells wait for the int8 slice)")
-    if sq.dtype != torch.float32 or mask.dtype != torch.float32:
-        raise ValueError(f"{name}: grouped_sq and neg_mask must be float32")
+            f"{name} takes cells of {dtypes}, not {grouped.dtype} (int8 "
+            "cells go through ivf_candidates_int8 / "
+            "ivf_candidates_packed_int8)")
+    for t in f32_arrays:
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name}: per-row arrays must be float32")
+        if t.numel() != grouped.shape[0]:
+            raise ValueError(f"{name}: per-row arrays must have "
+                             f"{grouped.shape[0]} rows")
     for t in int_arrays:
         if t.dtype != torch.int32:
             raise ValueError(f"{name}: index arrays must be int32")
@@ -209,8 +288,6 @@ def _check(name, queries, grouped, sq, mask, *int_arrays):
                          f"{CHUNK} below 2**31")
     if queries.dim() != 2 or queries.shape[1] != d:
         raise ValueError(f"{name}: queries {tuple(queries.shape)} vs dim {d}")
-    if sq.numel() != n or mask.numel() != n:
-        raise ValueError(f"{name}: grouped_sq/neg_mask must have {n} rows")
 
 
 def _check_lists(name, queries, query_tile, n_segments, cells, segs=None,
@@ -280,7 +357,7 @@ def ivf_candidates(
     # could be freed, and its memory reused, before the kernel runs
     sq = grouped_sq.reshape(-1).contiguous()
     mask = neg_mask.reshape(-1).contiguous()
-    _check("ivf_candidates", queries, grouped, sq, mask, cells, segs)
+    _check("ivf_candidates", queries, grouped, (sq, mask), (cells, segs))
     lib = LIBRARY.load()
     q = queries_like(queries, grouped).contiguous()
     cells, segs = cells.contiguous(), segs.contiguous()
@@ -331,7 +408,8 @@ def ivf_candidates_packed(
     # could be freed, and its memory reused, before the kernel runs
     sq = grouped_sq.reshape(-1).contiguous()
     mask = neg_mask.reshape(-1).contiguous()
-    _check("ivf_candidates_packed", queries, grouped, sq, mask, cells, off128)
+    _check("ivf_candidates_packed", queries, grouped, (sq, mask),
+           (cells, off128))
     lib = LIBRARY.load()
     q = queries_like(queries, grouped).contiguous()
     cells, off128 = cells.contiguous(), off128.contiguous()
@@ -355,6 +433,106 @@ def ivf_candidates_packed(
         raise RuntimeError("ivf probe kernel launch failed: "
                            f"{lib.tpuvdb_ivf_error(rc).decode()}")
     LAUNCHES_COMPACT += 1
+    return val, idx
+
+
+def _launch_int8(name, queries, lists, grouped_i8, cell_scales, grouped_sq,
+                 neg_mask, n_segments, query_tile, w128=None):
+    """Shared body of the int8 wrappers on CUDA tensors. `lists` is
+    (cells, segs) for the expanded form and (cells, off128), with w128,
+    for the compact one."""
+    # held in names until the launch: a temporary passed as a pointer
+    # could be freed, and its memory reused, before the kernel runs
+    scales = cell_scales.reshape(-1).contiguous()
+    sq = grouped_sq.reshape(-1).contiguous()
+    mask = neg_mask.reshape(-1).contiguous()
+    _check(name, queries, grouped_i8, (scales, sq, mask), lists,
+           dtypes=(torch.int8,))
+    lib = LIBRARY.load()
+    qi, qscale = quantize_batch(queries)
+    qi = qi.contiguous()
+    cells, second = (t.contiguous() for t in lists)
+    dev = grouped_i8.device
+    tiles, width = cells.shape
+    keys, val, idx = _outputs(qi.shape[0], n_segments, dev)
+    if tiles == 0 or width == 0:
+        return False, val.fill_(NEG_INF), idx.fill_(-1)
+    compact = w128 is not None
+    splits, epb = _launch_shape(tiles, width * (w128 if compact else 1), dev)
+    n, d = grouped_i8.shape
+    vec = d % 16 == 0 and grouped_i8.data_ptr() % 16 == 0
+    head = (qi.data_ptr(), qscale.data_ptr(), grouped_i8.data_ptr(),
+            scales.data_ptr(), sq.data_ptr(), mask.data_ptr(),
+            cells.data_ptr(), second.data_ptr(), keys.data_ptr(),
+            val.data_ptr(), idx.data_ptr(), tiles, query_tile, d, width)
+    tail = (n_segments, splits, epb, int(vec), dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if compact:
+        rc = lib.tpuvdb_ivf_compact_i8(*head, w128, n // CHUNK,
+                                       second.numel(), *tail)
+    else:
+        rc = lib.tpuvdb_ivf_expanded_i8(*head, n // CHUNK, *tail)
+    if rc != 0:
+        raise RuntimeError("ivf int8 probe kernel launch failed: "
+                           f"{lib.tpuvdb_ivf_error(rc).decode()}")
+    return True, val, idx
+
+
+def ivf_candidates_int8(
+    queries: torch.Tensor,      # (Q_pad, d) f32, unquantized
+    cells: torch.Tensor,        # (tiles, W) int32 chunk ids, sorted per tile
+    segs: torch.Tensor,         # (tiles, W) int32 segment of each entry
+    grouped_i8: torch.Tensor,   # (n_chunks * 128, d) int8
+    cell_scales: torch.Tensor,  # (n_chunks * 128,) f32 dequant scales
+    grouped_sq: torch.Tensor,   # (n_chunks * 128,) f32
+    neg_mask: torch.Tensor,     # (n_chunks * 128,) f32: 0 live / NEG_INF dead
+    n_segments: int,
+    query_tile: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expanded-form probe of int8 cells: (cand_val f32, cand_idx int32),
+    each (Q_pad, 128 * n_segments). The whole batch shares one query
+    scale."""
+    global LAUNCHES_EXPANDED_INT8
+    _check_lists("ivf_candidates_int8", queries, query_tile, n_segments,
+                 cells, segs=segs)
+    if grouped_i8.device.type == "cpu":
+        return ivf_candidates_int8_plain(queries, cells, segs, grouped_i8,
+                                         cell_scales, grouped_sq, neg_mask,
+                                         n_segments, query_tile)
+    launched, val, idx = _launch_int8(
+        "ivf_candidates_int8", queries, (cells, segs), grouped_i8,
+        cell_scales, grouped_sq, neg_mask, n_segments, query_tile)
+    if launched:
+        LAUNCHES_EXPANDED_INT8 += 1
+    return val, idx
+
+
+def ivf_candidates_packed_int8(
+    queries: torch.Tensor,      # (Q_pad, d) f32, unquantized
+    cells: torch.Tensor,        # (tiles, U) int32 probed cells, sorted
+    off128: torch.Tensor,       # (nlist,) int32 per-cell start / 128
+    grouped_i8: torch.Tensor,   # (n_chunks * 128, d) int8
+    cell_scales: torch.Tensor,  # (n_chunks * 128,) f32
+    grouped_sq: torch.Tensor,   # (n_chunks * 128,) f32
+    neg_mask: torch.Tensor,     # (n_chunks * 128,) f32
+    w128: int,                  # scan window in chunks
+    n_segments: int,
+    query_tile: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Compact-form probe of int8 cells: (cand_val f32, cand_idx int32),
+    each (Q_pad, 128 * n_segments)."""
+    global LAUNCHES_COMPACT_INT8
+    _check_lists("ivf_candidates_packed_int8", queries, query_tile,
+                 n_segments, cells, off128=off128)
+    if grouped_i8.device.type == "cpu":
+        return ivf_candidates_packed_int8_plain(
+            queries, cells, off128, grouped_i8, cell_scales, grouped_sq,
+            neg_mask, w128, n_segments, query_tile)
+    launched, val, idx = _launch_int8(
+        "ivf_candidates_packed_int8", queries, (cells, off128), grouped_i8,
+        cell_scales, grouped_sq, neg_mask, n_segments, query_tile, w128=w128)
+    if launched:
+        LAUNCHES_COMPACT_INT8 += 1
     return val, idx
 
 
@@ -411,9 +589,22 @@ def probe_plan(queries, centroids, cell_offsets, cell_pad: int, k: int,
 
 
 def plan_candidates(plan: ProbePlan, grouped, grouped_sq, neg_mask,
-                    plain: bool = False):
+                    plain: bool = False, cell_scales=None):
     """Run a plan through its form's wrapper (or, with plain=True, through
-    the plain twin on the same device)."""
+    the plain twin on the same device); int8 cells take their
+    `cell_scales` and the int8 functions."""
+    if grouped.dtype == torch.int8:
+        if cell_scales is None:
+            raise ValueError("int8 cells require cell_scales")
+        if plan.compact:
+            fn = (ivf_candidates_packed_int8_plain if plain
+                  else ivf_candidates_packed_int8)
+            return fn(plan.queries, plan.cells, plan.off128, grouped,
+                      cell_scales, grouped_sq, neg_mask, plan.w128,
+                      plan.n_segments, plan.query_tile)
+        fn = ivf_candidates_int8_plain if plain else ivf_candidates_int8
+        return fn(plan.queries, plan.cells, plan.segs, grouped, cell_scales,
+                  grouped_sq, neg_mask, plan.n_segments, plan.query_tile)
     if plan.compact:
         fn = ivf_candidates_packed_plain if plain else ivf_candidates_packed
         return fn(plan.queries, plan.cells, plan.off128, grouped, grouped_sq,
@@ -438,6 +629,8 @@ def ivf_probe_search(
     spill_sq: Optional[torch.Tensor] = None,     # (S,)
     spill_valid: Optional[torch.Tensor] = None,  # (S,) bool
     force_compact: bool = False,
+    cell_scales: Optional[torch.Tensor] = None,   # (N_g,) f32, int8 cells
+    spill_scales: Optional[torch.Tensor] = None,  # (S,) f32, int8 spill
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dist, grouped_row), each (Q, k): exact ascending squared L2 of the
     candidates; spill row j has id N_g + j; empty slots +inf / -1."""
@@ -447,11 +640,17 @@ def ivf_probe_search(
     neg_mask = torch.zeros(grouped_valid.shape, dtype=torch.float32,
                            device=grouped.device).masked_fill_(
                                ~grouped_valid, NEG_INF)
-    cand_val, cand_idx = plan_candidates(plan, grouped, grouped_sq, neg_mask)
+    cand_val, cand_idx = plan_candidates(plan, grouped, grouped_sq, neg_mask,
+                                         cell_scales=cell_scales)
     cand_val, cand_idx = cand_val[:qn], cand_idx[:qn]
     if spill is not None and spill.shape[0] > 0:
-        qc = queries_like(queries, spill)
-        sneg = 2.0 * (qc @ spill.to(torch.float32).T) - spill_sq[None, :]
+        if spill.dtype == torch.int8:
+            # dequantized rows against the unquantized queries
+            spill_f = spill.to(torch.float32) * spill_scales[:, None]
+            sdots = queries.to(torch.float32) @ spill_f.T
+        else:
+            sdots = queries_like(queries, spill) @ spill.to(torch.float32).T
+        sneg = 2.0 * sdots - spill_sq[None, :]
         sneg = torch.where(spill_valid[None, :], sneg,
                            torch.full_like(sneg, NEG_INF))
         sids = grouped.shape[0] + torch.arange(
