@@ -4,8 +4,9 @@
 
 It runs every phase, in this order; any failure exits non-zero, and nothing
 is caught and carried on. The kernels (csrc/scan.cu; csrc/ivf_probe.cu with
-the f32/bf16 and the int8 probes) are built first with nvcc for sm_90a, one
-nvcc per source, side by side.
+the f32/bf16 and the int8 probes; csrc/pq_probe.cu with the IVF-PQ ADC
+probe) are built first with nvcc for sm_90a, one nvcc per source, side by
+side: three libraries.
 
   kernel      Holds the scan
               kernel against its plain PyTorch version on 1,048,576 x 512
@@ -98,6 +99,49 @@ nvcc per source, side by side.
               zeroed before the engine's searches and before the index
               search, and must be > 0 after each.
 
+  pq kernel   The IVF-PQ probe kernel against its plain twin at the capacity
+              shape of the reference's own run (scripts/bench_capacity_pq.py:
+              68-75): d = 768, 96 code bytes a row, 256 codes a subspace,
+              nlist 4,096 cells of 2,048 rows (a code table of 8,388,608 rows,
+              805 MB; seeded random codes, codebooks and centroids, ~1% dead
+              rows, so no build is needed), nprobe 64, fetch k = 640 (10
+              segments), at Q = 1, 8, 32 and 256; the 4-bit tier (96 bytes,
+              192 subspaces of 16 codes) at Q = 32; and a ragged case (50
+              bytes a row from a base off 16 bytes, the kernel's byte loads)
+              at Q = 8. Candidate ids and scores must be equal bit for bit
+              (the same bf16 entries added in the same order, each f32
+              addition rounded once in both). The bound is the larger of
+              bytes (distinct chunks x 128 x (Mb + 4), the LUTs, the coarse
+              product, the lists, the outputs) over the HBM rate and the
+              lookups (per tile QT x rows x M2) over the card's rate for
+              them. With 256 codes a subspace that is the shared-memory
+              rate for a bf16 entry: SMs x 128 bytes a clock / 2 bytes x the
+              card's maximum SM clock (nvidia-smi clocks.max.sm); a layout
+              that serves a tile's queries from one wide load reaches it.
+              With 16 codes a subspace's table is 32 bytes and fits in
+              registers, so shared memory is no floor: there the operations
+              are the f32 additions, one a lookup, at SMs x 128 lanes a
+              clock.
+  ivf pq      The IVF serving configuration with ivf_pq_subq=64 (8-bit codes,
+              64 bytes a row; ivf_pq_rescore_overfetch=64, adaptive rescore
+              and packed checkpoint at their defaults) over the ivf engine
+              phase's rows: build time, device index bytes beside the f32 and
+              int8 figures, b1 / b8 / b32 / b256 at k=10 (40 closed-loop
+              searches each) with the stage timers, rescored and skipped
+              rows, b256 under torch.profiler, recall@10 >= 0.95 against the
+              exact f32 scan under the exact rescore (were the default window
+              to miss it, the first wider window that reaches it is reported
+              and named; the limit stays), the PQ kernel against its twin on
+              the engine's own index at b256, the write checks with a
+              delta-overflow append, an append that fills a cell and spills,
+              and a 50,000-row restart that takes the packed file
+              (ivf_packed_restores == 1, no build, identical results). Then
+              one b256 run (10 searches) each of a 4-bit engine
+              (ivf_pq_bits=4) and an OPQ engine (ivf_opq=True), recall
+              reported and held to the limit.
+              The PQ launches are zeroed before the engine's searches and
+              must be > 0 after them.
+
 The last two lines of standard output are the card's name and power limit
 (as nvidia-smi reports them) and the JSON result line.
 """
@@ -155,6 +199,22 @@ IVF_ENGINE_ROWS = 1_000_000
 IVF_BATCHES = (1, 8, 32, 256)
 IVF_RESTART_ROWS = 50_000
 SIDE_REPS = 30           # b256 searches of the "device" / "none" engines
+
+# the reference's capacity run (scripts/bench_capacity_pq.py:68-75)
+PQ_D = 768
+PQ_BYTES = 96
+PQ_NLIST = 4096
+PQ_CELL = 2048
+PQ_NPROBE = 64
+PQ_FETCH = 640           # k = 10 at ivf_pq_rescore_overfetch = 64
+PQ_QS = (1, 8, 32, 256)
+PQ_ENGINE_BYTES = 64     # ivf_pq_subq of the engine phase (d = 512)
+PQ_REPS = 40             # closed-loop searches per batch size
+PQ_SIDE_REPS = 10        # b256 searches of the 4-bit and OPQ engines
+PQ_WINDOWS = (64, 128, 256, 512)  # rescore windows tried, in order
+SMEM_BYTES_PER_CLOCK = 128  # an SM's shared memory: 32 banks x 4 bytes
+LUT_ENTRY_BYTES = 2         # the table holds bf16
+F32_LANES_PER_CLOCK = 128   # an SM's f32 additions a clock
 
 
 def log(msg: str) -> None:
@@ -744,7 +804,7 @@ def phase_ivf_engine(tt):
         f"upload); nlist {st.nlist}, cell_pad {st.cell_pad}, grouped rows "
         f"{st.grouped_rows}, spill rows {st.spill_rows}, fill {st.fill:.4f}")
     out = {"build_s": build_s, "rows": IVF_ENGINE_ROWS,
-           "stats": dataclasses.asdict(st)}
+           "device_bytes": ivf.nbytes(), "stats": dataclasses.asdict(st)}
 
     _timed_searches(eng, "ivf engine", queries, IVF_BATCHES, out)
     out["b256_device"] = _device_share(eng, queries[:256], "ivf engine")
@@ -816,16 +876,21 @@ def phase_ivf_writes(eng, data, queries) -> None:
         f"delta overflow appended {appended} rows in place: ok")
 
 
-def phase_ivf_restart(tt, label: str = "ivf", **kw) -> dict:
+def phase_ivf_restart(tt, label: str = "ivf", packed: bool = False,
+                      **kw) -> dict:
     """A 50,000-row data_dir restart: the warm centroids are reused (no
-    k-means) and the keys come back identical."""
+    k-means) and the keys come back identical. With `packed` (an IVF-PQ
+    engine) the restart must take the checkpoint's packed file: no codebook
+    training, no build at all, ivf_packed_restores == 1."""
     import tpuvdb_torch.index.ivf as ivf_mod
+    import tpuvdb_torch.kernels.pq as pq_mod
 
     cfg = _ivf_config(tt, checkpoint_every_puts=10 ** 9, **kw)
     data, queries = clustered_corpus(IVF_RESTART_ROWS, IVF_D, seed=9)
     keys = [f"w{i}" for i in range(IVF_RESTART_ROWS)]
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT)
-    real = ivf_mod.kmeans
+    real = (ivf_mod.kmeans, pq_mod.train_pq, pq_mod.train_opq,
+            ivf_mod.IVFIndex.build_streaming)
     try:
         eng = tt.VectorDBEngine(cfg, data_dir=work)
         assert eng.put_rows(keys, data).success
@@ -833,11 +898,19 @@ def phase_ivf_restart(tt, label: str = "ivf", **kw) -> dict:
         cents = eng._ivf.centroids_np().copy()
         want = eng.search_batch(queries[:32], 10)
         eng.close()
+        has_file = os.path.exists(os.path.join(eng.ckpts.latest(),
+                                               "ivf_packed.npz"))
+        assert has_file == packed, "ivf_packed.npz: only IVF-PQ writes it"
 
         def no_training(*a, **k):
-            raise AssertionError("k-means ran on a warm restart")
+            raise AssertionError("training ran on a warm restart")
 
-        ivf_mod.kmeans = no_training
+        def no_build(*a, **k):
+            raise AssertionError("a full build ran on a packed restart")
+
+        ivf_mod.kmeans = pq_mod.train_pq = pq_mod.train_opq = no_training
+        if packed:
+            ivf_mod.IVFIndex.build_streaming = classmethod(no_build)
         t0 = time.perf_counter()
         eng = tt.VectorDBEngine(cfg, data_dir=work)
         got = eng.search_batch(queries[:32], 10)
@@ -845,13 +918,19 @@ def phase_ivf_restart(tt, label: str = "ivf", **kw) -> dict:
         assert np.array_equal(eng._ivf.centroids_np(), cents)
         assert got[1] == want[1], "keys differ after the warm restart"
         assert np.array_equal(got[0], want[0])
-        log(f"{label} restart: {IVF_RESTART_ROWS} rows, warm centroids reused "
-            f"(no k-means), reopen + first search {restart_s:.3f} s, "
-            f"identical results")
+        restores = eng.stats.get("ivf_packed_restores", 0)
+        assert restores == int(packed), restores
+        how = ("packed file uploaded (no training, no build, "
+               "ivf_packed_restores 1)" if packed
+               else "warm centroids reused (no k-means)")
+        log(f"{label} restart: {IVF_RESTART_ROWS} rows, {how}, reopen + "
+            f"first search {restart_s:.3f} s, identical results")
         eng.close()
-        return {"rows": IVF_RESTART_ROWS, "restart_s": restart_s}
+        return {"rows": IVF_RESTART_ROWS, "restart_s": restart_s,
+                "ivf_packed_restores": restores}
     finally:
-        ivf_mod.kmeans = real
+        (ivf_mod.kmeans, pq_mod.train_pq, pq_mod.train_opq,
+         ivf_mod.IVFIndex.build_streaming) = real
         shutil.rmtree(work, ignore_errors=True)
 
 
@@ -1018,6 +1097,278 @@ def phase_ivf_int8(tt, ivf_probe, data, queries, truth, keys):
     return out, launches_expanded, launches_compact
 
 
+# ------------------------------------------------------------- IVF-PQ
+
+
+def _sm_clock_hz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
+def _pq_work(plan, lut, mb: int, m2: int, nlist: int) -> dict:
+    """Bytes and shared-memory lookups this probe needs: over all tiles the
+    union of chunks, each read once at Mb code bytes and a 4-byte bias a
+    row, with the LUTs, the coarse product, the three lists and the
+    outputs; per tile QT x rows x M2 lookups."""
+    lists = plan.cells.long()
+    per_tile = ((lists[:, 1:] != lists[:, :-1]).sum(dim=1) + 1)
+    tile_rows = int(per_tile.sum()) * 128
+    union_rows = int(torch.unique(lists).numel()) * 128
+    qp = plan.queries.shape[0]
+    nbytes = (union_rows * (mb + 4) + lut.numel() * 2 + qp * nlist * 4
+              + 3 * plan.cells.numel() * 4 + qp * 128 * plan.n_segments * 8)
+    return {"tile_rows": tile_rows, "union_rows": union_rows,
+            "bytes": nbytes, "lookups": float(plan.query_tile) * tile_rows
+            * m2, "n_codes": 256 if m2 == mb else 16}
+
+
+def _pq_bound(work: dict, sm_clocks: float) -> tuple:
+    """(ms, "bytes" | "operations"). `sm_clocks` is SMs x clock. 256-code
+    tables live in shared memory, which hands out 128 bytes a clock and SM,
+    64 bf16 entries; a 16-code table fits in registers, so there only the
+    f32 addition each lookup feeds is counted."""
+    t_bytes = work["bytes"] / PEAK_BYTES_PER_S * 1e3
+    per_clock = (SMEM_BYTES_PER_CLOCK / LUT_ENTRY_BYTES
+                 if work["n_codes"] == 256 else F32_LANES_PER_CLOCK)
+    t_ops = work["lookups"] / (sm_clocks * per_clock) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _hold_pq(pq_probe, name, args, reps: int, work: dict,
+             sm_clocks: float) -> dict:
+    """Holds the PQ kernel against its plain twin on one input, bit for
+    bit, and times both; raises on any difference."""
+    val_k, idx_k = pq_probe.pq_candidates(*args)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    val_p, idx_p = pq_probe.pq_candidates_plain(*args)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    agree = (idx_k == idx_p).float().mean().item()
+    err = (val_k - val_p).abs().max().item()
+    filled = (idx_k >= 0).float().mean().item()
+    log(f"pq kernel check {name}: slots agree {agree:.6f}, max |score diff| "
+        f"{err:.3e}, {filled:.4f} of slots filled")
+    if not torch.equal(idx_k, idx_p) or not torch.equal(val_k, val_p):
+        raise AssertionError(f"{name}: the PQ kernel and its plain twin "
+                             "differ (they must agree bit for bit)")
+    if filled <= 0:
+        raise AssertionError(f"{name}: no candidate at all")
+    ms = cuda_ms(lambda: pq_probe.pq_candidates(*args), reps)
+    bound, by = _pq_bound(work, sm_clocks)
+    row = {"name": name, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+           "bound_by": by, "max_abs_err": err, **work}
+    log("pq kernel timing " + json.dumps(row))
+    return row
+
+
+def _pq_case(pq_probe, name, nq, codes, n_codes, dsub, nlist, cell_pad, gen,
+             sm_clocks) -> dict:
+    """One synthetic case: seeded codebooks, centroids, norms and queries
+    over the given code table of equal cells."""
+    dev = codes.device
+    n_g, mb = codes.shape
+    m2 = mb if n_codes == 256 else 2 * mb
+    d = m2 * dsub
+    cb = torch.randn((m2, n_codes, dsub), generator=gen, device=dev) * 0.2
+    cents = torch.randn((nlist, d), generator=gen, device=dev)
+    sq = torch.rand(n_g, generator=gen, device=dev) * 100.0 + 700.0
+    valid = torch.rand(n_g, generator=gen, device=dev) >= 0.01
+    offs = torch.arange(nlist, dtype=torch.int32, device=dev) * cell_pad
+    q = torch.randn((nq, d), generator=gen, device=dev)
+    plan, lut, cellof, bias = pq_probe.pq_probe_inputs(
+        q, cents, cb, valid, sq, offs, cell_pad, PQ_FETCH, PQ_NPROBE, n_g)
+    assert plan.n_segments == 10 and not plan.compact
+    args = (lut, plan.qc2, plan.cells, plan.segs, cellof, codes, bias,
+            plan.n_segments, plan.query_tile)
+    work = _pq_work(plan, lut, mb, m2, nlist)
+    row = _hold_pq(pq_probe, name, args, 20 if nq <= 32 else 5, work,
+                   sm_clocks)
+    row.update(Q=nq, code_bytes=mb, n_codes=n_codes, d=d)
+    return row
+
+
+def phase_pq_kernel(pq_probe, sm_clocks: float) -> dict:
+    """The PQ probe kernel vs its plain twin at the capacity shape."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    n_g = PQ_NLIST * PQ_CELL
+    codes = torch.randint(0, 256, (n_g, PQ_BYTES), generator=gen, device=dev,
+                          dtype=torch.uint8)
+    log(f"pq kernel table: {n_g} rows x {PQ_BYTES} bytes "
+        f"({codes.numel()} bytes of codes), nlist {PQ_NLIST}, cell_pad "
+        f"{PQ_CELL}, nprobe {PQ_NPROBE}, fetch {PQ_FETCH}")
+    rows = []
+    for nq in PQ_QS:
+        rows.append(_pq_case(
+            pq_probe, f"8-bit Q={nq} Mb={PQ_BYTES} d={PQ_D}", nq, codes, 256,
+            PQ_D // PQ_BYTES, PQ_NLIST, PQ_CELL, gen, sm_clocks))
+    rows.append(_pq_case(
+        pq_probe, f"4-bit Q=32 Mb={PQ_BYTES} d={PQ_D}", 32, codes, 16,
+        PQ_D // (2 * PQ_BYTES), PQ_NLIST, PQ_CELL, gen, sm_clocks))
+    # 50 bytes a row from a base off 16 bytes: the kernel's byte loads
+    n_r = 512 * PQ_CELL
+    ragged = codes.view(-1)[1:1 + n_r * 50].view(n_r, 50)
+    assert ragged.data_ptr() % 16 != 0
+    rows.append(_pq_case(pq_probe, "8-bit ragged Q=8 Mb=50 d=400 (pointer "
+                         "off 16 bytes)", 8, ragged, 256, 8, 512, PQ_CELL,
+                         gen, sm_clocks))
+    del codes, ragged
+    torch.cuda.empty_cache()
+    main = next(r for r in rows if r["Q"] == 256)
+    return {"rows": rows, "main": main,
+            "max_abs_err": max(r["max_abs_err"] for r in rows)}
+
+
+def _pq_engine_kernel_check(pq_probe, eng, queries, sm_clocks) -> dict:
+    """The PQ kernel vs its twin on the engine's own index, at the shapes
+    its b256 search gives it."""
+    ivf = eng._ivf
+    q = torch.from_numpy(queries[:256]).cuda()
+    plan, lut, cellof, bias = pq_probe.pq_probe_inputs(
+        q, ivf.centroids, ivf.pq_codebooks, ivf.grouped_valid,
+        ivf.grouped_sq, ivf.cell_offsets, ivf.cell_pad, PQ_FETCH,
+        min(ivf.nprobe, ivf.nlist), ivf.grouped.shape[0], ivf.pq_rotation)
+    args = (lut, plan.qc2, plan.cells, plan.segs, cellof, ivf.grouped, bias,
+            plan.n_segments, plan.query_tile)
+    mb = ivf.grouped.shape[1]
+    work = _pq_work(plan, lut, mb, ivf.pq_codebooks.shape[0], ivf.nlist)
+    return _hold_pq(pq_probe, f"engine index Q=256 Mb={mb} d={IVF_D}", args,
+                    5, work, sm_clocks)
+
+
+def _pq_recall(eng, queries, truth, keys, label: str) -> dict:
+    """recall@10 of b256 under the exact rescore, at the configured window
+    and, if that misses RECALL_MIN, at the first wider one that reaches it
+    (named in the log); fails if none does."""
+    default = eng.config.ivf_pq_rescore_overfetch
+    out = {}
+    for window in [w for w in PQ_WINDOWS if w >= default]:
+        eng.config.ivf_pq_rescore_overfetch = window
+        _, got = eng.search_batch(queries[:256], 10)
+        recall = _recall(got, truth[:256], keys)
+        out[f"recall_at_10_window_{window}"] = recall
+        log(f"{label} recall@10 (exact rescore of {window} x k candidates, "
+            f"b256 vs exact f32 scan): {recall:.4f}")
+        if recall >= RECALL_MIN:
+            out.update(recall_at_10=recall, window=window)
+            break
+    eng.config.ivf_pq_rescore_overfetch = default
+    if "window" not in out:
+        raise AssertionError(f"{label}: recall@10 < {RECALL_MIN} at every "
+                             f"window of {PQ_WINDOWS}")
+    if out["window"] != default:
+        log(f"{label}: the default window {default} x k misses "
+            f"{RECALL_MIN} on this corpus; {out['window']} x k reaches it")
+    return out
+
+
+def _pq_full_cell_append(eng, data) -> dict:
+    """A delta overflow whose rows crowd one cell: the cell's free slots
+    fill and the rest spill, in place, and every row stays searchable."""
+    rng = np.random.default_rng(6)
+    ivf = eng._ivf
+    n_new = eng.config.ivf_delta_max + 16
+    crowd = min(3000, n_new // 5)
+    fresh = data[20_000:20_000 + n_new] + 0.2 * rng.standard_normal(
+        (n_new, IVF_D)).astype(np.float32)
+    fresh[:crowd] = data[7] + 0.2 * rng.standard_normal(
+        (crowd, IVF_D)).astype(np.float32)
+    spill0 = ivf.stats().spill_rows
+    assert eng.put_rows([f"c{i}" for i in range(n_new)], fresh).success
+    eng.flush()
+    assert eng._ivf is ivf, "the crowded append rebuilt the index"
+    spilled = ivf.stats().spill_rows - spill0
+    assert spilled > 0 and eng.info()["ivf_delta"] == 0, spilled
+    _, kk = eng.search_batch(fresh[[5, crowd - 1, crowd + 5]], 10)
+    assert [r[0] for r in kk] == ["c5", f"c{crowd - 1}", f"c{crowd + 5}"], kk
+    log(f"ivf pq engine append past a full cell: {n_new} rows, {crowd} of "
+        f"them around one point, {spilled} spilled, all in place: ok")
+    return {"rows": n_new, "spilled": spilled}
+
+
+def _pq_engine(tt, keys, data, label: str, **kw):
+    cfg = _ivf_config(tt, ivf_pq_subq=PQ_ENGINE_BYTES, **kw)
+    assert (cfg.ivf_pq_rescore_overfetch == 64 and cfg.ivf_checkpoint_packed
+            and cfg.ivf_pq_adaptive_rescore and cfg.rescore_mode == "exact")
+    eng = tt.VectorDBEngine(cfg)
+    t0 = time.perf_counter()
+    assert eng.put_rows(keys, data).success
+    eng.flush()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ivf = eng._ivf
+    st = ivf.stats()
+    assert ivf.pq and ivf.grouped.dtype == torch.uint8
+    log(f"{label} build: {len(keys)} rows in {build_s:.3f} s (put_rows + "
+        f"flush: k-means, codebooks, assignment + encode, bisection, "
+        f"packing); nlist {st.nlist}, cell_pad {st.cell_pad}, grouped rows "
+        f"{st.grouped_rows}, spill rows {st.spill_rows}, fill {st.fill:.4f},"
+        f" codebooks {tuple(ivf.pq_codebooks.shape)}, pq_err "
+        f"{ivf.pq_err:.4f}, device index {ivf.nbytes()} bytes")
+    return eng, {"build_s": build_s, "rows": len(keys),
+                 "device_bytes": ivf.nbytes(), "pq_err": ivf.pq_err,
+                 "stats": dataclasses.asdict(st)}
+
+
+def phase_ivf_pq(tt, pq_probe, data, queries, truth, keys, sm_clocks,
+                 other_bytes: dict):
+    """The IVF-PQ engine over the ivf engine phase's rows. Returns (out,
+    PQ launches of the engine's searches)."""
+    eng, out = _pq_engine(tt, keys, data, "ivf pq engine")
+    out["device_bytes_f32"] = other_bytes["float32"]
+    out["device_bytes_int8"] = other_bytes["int8"]
+    log(f"ivf index on the device: {out['device_bytes']} bytes with "
+        f"{PQ_ENGINE_BYTES}-byte PQ cells, {other_bytes['int8']} with int8 "
+        f"cells, {other_bytes['float32']} with f32 cells")
+    pq_probe.LAUNCHES_PQ = 0
+    _timed_searches(eng, "ivf pq engine", queries, IVF_BATCHES, out,
+                    reps=PQ_REPS)
+    for b in IVF_BATCHES:
+        out[f"b{b}"]["rescore_share"] = _rescore_share(
+            out[f"b{b}"]["stage_p50_ms"])
+    out["rescored_rows"] = eng.stats["rescored_rows"]
+    out["rescore_skipped_rows"] = eng.stats["rescore_skipped_rows"]
+    log(f"ivf pq engine adaptive rescore over the timed searches: "
+        f"{out['rescored_rows']} rows re-ranked, "
+        f"{out['rescore_skipped_rows']} skipped by the error bound")
+    out["b256_device"] = _device_share(eng, queries[:256], "ivf pq engine")
+    out.update(_pq_recall(eng, queries, truth, keys, "ivf pq engine"))
+    launches = pq_probe.LAUNCHES_PQ
+    if launches <= 0:
+        raise AssertionError("the IVF-PQ engine's search never launched "
+                             "the PQ probe kernel")
+    out["kernel_engine_shape"] = _pq_engine_kernel_check(
+        pq_probe, eng, queries, sm_clocks)
+    phase_ivf_writes(eng, data, queries)
+    out["full_cell_append"] = _pq_full_cell_append(eng, data)
+    eng.close()
+    del eng
+    torch.cuda.empty_cache()
+    out["restart"] = phase_ivf_restart(
+        tt, "ivf pq (packed file)", packed=True,
+        ivf_pq_subq=PQ_ENGINE_BYTES)
+
+    for name, kw in (("4-bit", {"ivf_pq_bits": 4}), ("opq", {"ivf_opq": True})):
+        label = f"ivf pq engine ({name})"
+        eng, side = _pq_engine(tt, keys, data, label, **kw)
+        _timed_searches(eng, label, queries, (256,), side,
+                        reps=PQ_SIDE_REPS)
+        side.update(_pq_recall(eng, queries, truth, keys, label))
+        out[name] = side
+        eng.close()
+        del eng
+        torch.cuda.empty_cache()
+    return out, launches
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -1027,12 +1378,12 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     import tpuvdb_torch as tt
-    from tpuvdb_torch.kernels import ivf_probe, scan
+    from tpuvdb_torch.kernels import ivf_probe, pq_probe, scan
 
     wall0 = time.perf_counter()
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
-    libs = (scan.LIBRARY, ivf_probe.LIBRARY)
+    libs = (scan.LIBRARY, ivf_probe.LIBRARY, pq_probe.LIBRARY)
     # one nvcc per source, all started together
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda lib: lib.load(), libs))
@@ -1078,13 +1429,29 @@ def main() -> int:
     ivf8, launches_expanded_i8, launches_compact_i8 = phase_ivf_int8(
         tt, ivf_probe, data, queries, truth, keys)
     log("ivf int8 engine " + json.dumps(ivf8))
+
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = _sm_clock_hz()
+    sm_clocks = sm_count * clock_hz
+    log(f"lookup rates: {sm_count} SMs x {clock_hz / 1e6:.0f} MHz (nvidia-smi "
+        f"clocks.max.sm) x {SMEM_BYTES_PER_CLOCK} shared-memory bytes a "
+        f"clock / {LUT_ENTRY_BYTES} bytes an entry = "
+        f"{sm_clocks * SMEM_BYTES_PER_CLOCK / LUT_ENTRY_BYTES:.4e} entries/s "
+        f"(256 codes); x {F32_LANES_PER_CLOCK} f32 additions a clock = "
+        f"{sm_clocks * F32_LANES_PER_CLOCK:.4e} /s (16 codes)")
+    pq_kern = phase_pq_kernel(pq_probe, sm_clocks)
+    pq_out, launches_pq = phase_ivf_pq(
+        tt, pq_probe, data, queries, truth, keys, sm_clocks,
+        {"float32": ivf_out["device_bytes"], "int8": ivf8["device_bytes"]})
+    log("ivf pq engine " + json.dumps(pq_out))
     del data
     log(f"launches: scan {launches} (flat engine phase), ivf expanded "
         f"{launches_expanded} (ivf engine phase), ivf compact "
         f"{launches_compact} (b1,024 index search), ivf expanded int8 "
         f"{launches_expanded_i8} (ivf int8 engine's searches), ivf compact "
-        f"int8 {launches_compact_i8} (b1,024 int8 index search); the flat "
-        f"int8 engine launches no hand-written kernel")
+        f"int8 {launches_compact_i8} (b1,024 int8 index search), pq "
+        f"{launches_pq} (ivf pq engine's searches); the flat int8 engine "
+        f"launches no hand-written kernel")
     log(f"total wall {time.perf_counter() - wall0:.1f} s")
 
     m = kern["main"]
@@ -1141,6 +1508,22 @@ def main() -> int:
         "ms": c8["ms"], "plain_ms": c8["plain_ms"],
         "bound_ms": c8["bound_ms"], "bound_by": c8["bound_by"],
         "library_ms": no_library,
+    }, {
+        # timed at the capacity shape (8,388,608 x 96 bytes, Q = 256); the
+        # engine's own shape (1M x 64 bytes, b256) beside it
+        "name": "pq_candidates",
+        "route": "cuda",
+        "source": "tpuvdb_torch/csrc/pq_probe.cu",
+        "replaces": "tpuvdb/kernels/pallas_pq.py:53",
+        "launches": launches_pq,
+        "max_abs_err": max(pq_kern["max_abs_err"],
+                           pq_out["kernel_engine_shape"]["max_abs_err"]),
+        "ms": pq_kern["main"]["ms"], "plain_ms": pq_kern["main"]["plain_ms"],
+        "bound_ms": pq_kern["main"]["bound_ms"],
+        "bound_by": pq_kern["main"]["bound_by"],
+        "library_ms": no_library,
+        "engine_shape": {k: pq_out["kernel_engine_shape"][k] for k in
+                         ("ms", "plain_ms", "bound_ms", "bound_by")},
     }]}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

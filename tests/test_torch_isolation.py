@@ -29,8 +29,15 @@ leaked = sorted(m for m in sys.modules
                 or m == "jax" and sys.modules[m] is not None
                 or m.startswith("jax."))
 print(len(names), leaked)
+print(" ".join(names))
 assert not leaked, leaked
 """
+
+# the modules of the newest slices: the walk must reach them
+_MUST_WALK = ("tpuvdb_torch.kernels.pq", "tpuvdb_torch.kernels.pq_probe",
+              "tpuvdb_torch.kernels.ivf_probe", "tpuvdb_torch.kernels.quant",
+              "tpuvdb_torch.index.ivf", "tpuvdb_torch.store.checkpoint",
+              "tpuvdb_torch.engine.engine")
 
 
 def _sources():
@@ -47,8 +54,11 @@ def test_port_imports_without_jax_or_tpuvdb():
     res = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    n_modules = int(res.stdout.split()[0])
+    lines = res.stdout.splitlines()
+    n_modules = int(lines[0].split()[0])
     assert n_modules >= 20  # every subpackage and module was walked
+    walked = set(lines[1].split())
+    assert not [m for m in _MUST_WALK if m not in walked]
 
 
 def test_no_source_imports_jax_or_tpuvdb():

@@ -5,7 +5,7 @@ and `to_json`/`from_json` write the same JSON, so checkpoints written by
 either package restore in the other. The one change: `jnp_dtype` is
 replaced by `torch_dtype`.
 
-Fields for configurations the port does not run yet (IVF-PQ, mesh, search
+Fields for configurations the port does not run yet (mesh, search
 coalescing, native doc store, mmap mirrors) are kept so configs
 interchange; the engine raises NotImplementedError for them.
 
@@ -89,18 +89,29 @@ class DBConfig:
     mirror_backend: str = "ram"    # "ram" | "mmap" | "auto" (mmap when
                                    # data_dir is set; not ported yet)
 
-    # -- IVF; the ivf_pq_* / ivf_opq / ivf_checkpoint_packed fields belong
-    # to IVF-PQ (not ported yet; kept so configs interchange) --
+    # -- IVF --
     ivf_nlist: int = 1024
     ivf_nprobe: int = 32
     ivf_kmeans_iters: int = 12
     ivf_train_sample: int = 262_144
     ivf_delta_max: int = 16384
+    # IVF-PQ: > 0 stores ivf_pq_subq code bytes per row in the cells
+    # (residual product quantization) instead of the rows themselves; must
+    # divide vector_dim and excludes storage_dtype="int8"
     ivf_pq_subq: int = 0
+    # learn an orthogonal rotation of the residuals with the codebooks (OPQ)
     ivf_opq: bool = False
+    # 8: one 256-entry code per byte. 4: two 16-entry codes per byte over
+    # 2 * ivf_pq_subq half-width subspaces (the same bytes, a coarser code)
     ivf_pq_bits: int = 8
+    # PQ re-ranks a deeper window than int8: max(rescore_overfetch, this)
+    # times k candidates (0 = rescore_overfetch alone)
     ivf_pq_rescore_overfetch: int = 64
+    # error-bounded re-rank: rescore only the candidates whose calibrated
+    # lower bound can still reach the top-k (engine._rescore_adaptive)
     ivf_pq_adaptive_rescore: bool = True
+    # checkpoint the packed device index of an IVF-PQ engine
+    # (ivf_packed.npz), so a restart uploads it instead of encoding anew
     ivf_checkpoint_packed: bool = True
 
     # -- mesh (not ported yet) --

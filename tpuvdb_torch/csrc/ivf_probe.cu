@@ -77,6 +77,9 @@
 // mask) and costs 2 * QT * 128 * d int8 operations (1,979 TOP/s on the
 // tensor cores; this kernel runs them on the CUDA cores).
 //
+// The list walk (entry_chunk), the keys (fold_key) and their decode are in
+// csrc/probe_common.cuh, shared with the IVF-PQ probe (csrc/pq_probe.cu).
+//
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC; bound with ctypes (tpuvdb_torch/kernels/ivf_probe.py).
 
@@ -86,12 +89,11 @@
 #include <cfloat>
 #include <cstdint>
 
+#include "probe_common.cuh"  // kRows, kMaxQT, entry_chunk, fold_key, decode
+
 namespace {
 
-constexpr int kRows = 128;   // rows per chunk = threads per block
-constexpr int kMaxQT = 8;    // queries per tile
 constexpr int kKT = 16;      // depth of one register slice of a row
-constexpr float kNegInf = -FLT_MAX;  // finfo(float32).min, as the reference
 
 // One kKT-deep slice of a row as f32; zeros past d.
 __device__ __forceinline__ void load_slice(const float* __restrict__ x,
@@ -136,52 +138,6 @@ __device__ __forceinline__ void load_slice(const __nv_bfloat16* __restrict__ x,
     for (int j = 0; j < kKT; ++j)
       v[j] = (k0 + j < d) ? __bfloat162float(p[j]) : 0.f;
   }
-}
-
-// f32 bits mapped so that unsigned order is float order
-__device__ __forceinline__ unsigned int order_bits(float f) {
-  const unsigned int b = __float_as_uint(f);
-  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
-}
-
-__device__ __forceinline__ float unorder_bits(unsigned int u) {
-  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
-}
-
-// Entry e of a tile's list -> (chunk, segment); false where the entry
-// repeats the one before it (a chunk or a cell shared by the tile's
-// queries: it would fold the same keys again) or names no chunk, segment or
-// cell of the arrays.
-template <bool kCompact>
-__device__ __forceinline__ bool entry_chunk(int e, const int* tcells,
-                                            const int* tsegs,
-                                            const int* off128, int w128,
-                                            int n_chunks, int nlist, int n_seg,
-                                            int* chunk, int* seg) {
-  if (kCompact) {
-    const int u = e / w128;
-    const int cell = tcells[u];
-    if (u > 0 && cell == tcells[u - 1]) return false;  // shared cell
-    if (cell < 0 || cell >= nlist) return false;       // no such cell
-    *chunk = min(off128[cell] + e % w128, n_chunks - 1);
-    *seg = *chunk % n_seg;
-  } else {
-    *chunk = tcells[e];
-    if (e > 0 && *chunk == tcells[e - 1]) return false;  // shared chunk
-    *seg = tsegs[e];
-    if (*seg < 0 || *seg >= n_seg) return false;         // no such segment
-  }
-  return *chunk >= 0 && *chunk < n_chunks;
-}
-
-// Fold one score into its slot: the largest key is the largest score and,
-// on a tie, the lowest row. A dead row (score <= -FLT_MAX) never enters.
-__device__ __forceinline__ void fold_key(unsigned long long* slot, float score,
-                                         unsigned long long low) {
-  if (!(score > kNegInf)) return;
-  const unsigned long long key =
-      (static_cast<unsigned long long>(order_bits(score)) << 32) | low;
-  if (key > __ldcg(slot)) atomicMax(slot, key);
 }
 
 template <typename T, bool kCompact>
@@ -367,22 +323,6 @@ probe_fold_i8_kernel(const signed char* __restrict__ q,
       fold_key(tkeys + static_cast<long long>(i) * n_slots + seg * kRows + tid,
                score, low);
     }
-  }
-}
-
-__global__ void decode_kernel(const unsigned long long* __restrict__ keys,
-                              float* __restrict__ val, int* __restrict__ idx,
-                              long long count) {
-  const long long i =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= count) return;
-  const unsigned long long key = keys[i];
-  if (key == 0ull) {
-    val[i] = kNegInf;
-    idx[i] = -1;
-  } else {
-    val[i] = unorder_bits(static_cast<unsigned int>(key >> 32));
-    idx[i] = static_cast<int>(~static_cast<unsigned int>(key));
   }
 }
 

@@ -3,7 +3,8 @@
 put / get / delete / search orchestration over host state (WAL, doc store,
 shard mirrors) and one device index, torch tensors on `device` (None =
 "cuda"): `DeviceExactIndex` (index_type="flat") or `IVFIndex`
-(index_type="ivf"), with f32, bf16 or int8 rows (storage_dtype):
+(index_type="ivf"), with f32, bf16 or int8 rows (storage_dtype) or, for
+IVF, PQ code cells (ivf_pq_subq > 0, IVF-PQ):
 
   * keys route to shards by MD5 (utils/sharding_utils.py);
   * an overwrite writes a fresh slot and soft-deletes the old one;
@@ -30,9 +31,21 @@ mirrors' rows, outside the engine lock; "device" inside the flat index's
 scan (dequantized rows; IVF has no such scan and takes the host re-rank);
 "none" serves the int8 scores as they are.
 
+IVF-PQ ranks reconstructions, so it joins the rescore path with a deeper
+window (`ivf_pq_rescore_overfetch * k`). With `ivf_pq_adaptive_rescore`
+and a calibrated index (`IVFIndex.pq_err > 0`) the re-rank is error
+bounded (`_rescore_adaptive`): it rescores the head of the ADC-ordered
+candidates and then only those whose lower bound undercuts the running kth
+exact distance. Its warm state adds the trained codebooks, the OPQ rotation
+and the calibration; with `ivf_checkpoint_packed` a checkpoint also holds
+the packed device index (`ivf_packed.npz`), and a restart uploads it and
+appends only the WAL tail (`_restore_ivf_packed`) instead of encoding every
+row again. The rescores are the reference's numpy forms; its native fused
+branches come with the native runtime.
+
 Configurations the port does not run yet raise NotImplementedError naming
-the ROADMAP.md item that brings them: IVF-PQ, a mesh, search coalescing,
-the native doc store and mmap mirrors.
+the ROADMAP.md item that brings them: a mesh, search coalescing, the native
+doc store and mmap mirrors.
 
 Snapshot rule. The reference's scatters donate the buffers a concurrent
 search holds, and that search retries on the "donated" error. The port's
@@ -51,6 +64,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import shutil
 import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -98,9 +112,6 @@ def _check_supported(cfg: DBConfig, data_dir: Optional[str], mesh) -> None:
     """Raise NotImplementedError for the configurations that later slices
     of the port bring (ROADMAP.md queue 1)."""
     waiting = []
-    if cfg.index_type == "ivf" and cfg.ivf_pq_subq > 0:
-        waiting.append("index_type='ivf' with ivf_pq_subq > 0 (item 8, "
-                       "IVF-PQ)")
     if mesh is not None:
         waiting.append("mesh (item 9, multi-GPU, the sharded IVF index "
                        "included)")
@@ -149,6 +160,22 @@ class VectorDBEngine:
         # to save, and the loaded one a restart consumes once
         self._ivf_train_state = None
         self._ivf_warm = None
+        # IVF-PQ warm state: trained codebooks, OPQ rotation and rescore
+        # calibration, to save (*_state) and to consume once (*_warm)
+        self._ivf_pq_state = self._ivf_pq_warm = None
+        self._ivf_opq_state = self._ivf_opq_warm = None
+        self._ivf_pq_err = self._ivf_pq_err_warm = 0.0
+        # packed-checkpoint bookkeeping: the epoch is bumped by every
+        # mutation of the device index; saved_epoch is the epoch the
+        # ivf_packed.npz at _ivf_packed_path was captured at. While they are
+        # equal that file is current, and a checkpoint hard-links it instead
+        # of fetching the code table again. An epoch, not a flag: a flush
+        # racing the off-lock fetch can never be marked clean, because the
+        # saved epoch it is compared with predates the bump.
+        self._ivf_packed = None  # loaded packed state, consumed once
+        self._ivf_packed_epoch = 0
+        self._ivf_packed_saved_epoch = -1
+        self._ivf_packed_path: Optional[str] = None
 
         # staged (shard, slot) writes/deletes not yet scattered to device
         self._staged_updates: List[Tuple[int, int]] = []
@@ -186,6 +213,8 @@ class VectorDBEngine:
             "puts": 0, "gets": 0, "deletes": 0, "searches": 0,
             "flushes": 0, "compactions": 0, "checkpoints": 0,
             "wal_replayed": 0, "search_retries": 0,
+            # adaptive exact rescore: candidates re-ranked / skipped
+            "rescored_rows": 0, "rescore_skipped_rows": 0,
         }
 
         if data_dir is not None:
@@ -230,12 +259,27 @@ class VectorDBEngine:
         if self.config.index_type == "ivf":
             self._ivf_warm = self.ckpts.load_ivf_warm()
             if self._ivf_warm is not None:
-                cents0, live0, mut0, mut_ckpt = self._ivf_warm
+                cents0, live0, mut0, mut_ckpt, cb, rot, err = self._ivf_warm
+                # trained PQ codebooks ride along (an IVF-PQ restart skips
+                # codebook training as it skips k-means), with the OPQ
+                # rotation and the rescore calibration that pair with them
+                self._ivf_pq_warm = self._ivf_pq_state = cb
+                self._ivf_opq_warm = self._ivf_opq_state = rot
+                self._ivf_pq_err_warm = self._ivf_pq_err = err
                 # WAL tail replay re-increments on top of the checkpoint
                 self._mut_count = mut_ckpt
                 # carried forward now: a checkpoint taken before the first
                 # rebuild must not drop the warm state
                 self._ivf_train_state = (cents0, live0, mut0)
+                # packed device state: the first rebuild uploads it and
+                # appends the WAL tail instead of encoding every row
+                if self.config.ivf_checkpoint_packed:
+                    self._ivf_packed = self.ckpts.load_ivf_packed()
+                    if self._ivf_packed is not None:
+                        # a restore with nothing to reconcile marks this
+                        # file current, so the next checkpoint links it
+                        self._ivf_packed_path = os.path.join(
+                            self.ckpts.latest(), "ivf_packed.npz")
         if self.wal is None and self._wal_floor > wal_pos:
             logger.warning(
                 "WAL disabled but %d unapplied record(s) exist beyond the "
@@ -544,6 +588,60 @@ class VectorDBEngine:
             return cents0, live0, mut0
         return None, live, self._mut_count
 
+    def _restore_ivf_packed(self, packed, source, valid, layout):
+        """IVFIndex from the checkpoint's packed device state, reconciled
+        with the WAL tail replayed after that checkpoint: rows now live in
+        the mirrors but absent from the packed index are appended
+        (assignment and encode over that delta only), rows in the index but
+        no longer live are invalidated. Returns None, and the caller builds
+        in full, on any mismatch: a changed configuration, grown mirrors
+        (physical rows renumber under a larger phys_cap) or no room left
+        for the appends."""
+        cfg = self.config
+        try:
+            if (int(packed["dim"]) != cfg.vector_dim
+                    or int(packed["phys_cap"]) != layout.phys_cap
+                    or int(packed["pq_subq"]) != cfg.ivf_pq_subq
+                    or int(packed["pq_bits"]) != cfg.ivf_pq_bits
+                    # the OPQ toggle changes the code geometry (the codes
+                    # were trained in the rotated space): restoring them
+                    # without, or with, the rotation would serve wrong
+                    # distances
+                    or ("pq_rotation" in packed) != bool(cfg.ivf_opq)):
+                return None
+            idx = IVFIndex.from_packed(packed, device=self.device)
+            # serving knobs follow the current config, not the values the
+            # checkpoint baked in
+            idx.nprobe = min(cfg.ivf_nprobe, idx.nlist)
+            rows = idx.live_phys_rows()
+            rows = rows[rows < layout.total_rows]
+            in_idx = np.zeros(layout.total_rows, bool)
+            in_idx[rows] = True
+            to_del = rows[~valid[rows]]
+            to_add = np.flatnonzero(valid & ~in_idx)
+            if len(to_del):
+                idx.invalidate_rows(to_del.astype(np.int64))
+            # waves bound the host f32 transient; a False return (cells
+            # and spill full) rebuilds in full
+            for lo in range(0, len(to_add), 65536):
+                add = to_add[lo:lo + 65536]
+                if not idx.append_rows(add.astype(np.int64),
+                                       source.gather_f32(add)):
+                    return None
+            # nothing to reconcile: the restored image is the checkpoint's,
+            # and the next checkpoint can link the existing file
+            if not (len(to_add) or len(to_del)):
+                self._ivf_packed_saved_epoch = self._ivf_packed_epoch
+            self.stats["ivf_packed_restores"] = (
+                self.stats.get("ivf_packed_restores", 0) + 1)
+            logger.info("IVF restored from packed checkpoint state (+%d "
+                        "appended, -%d invalidated, %d cells)",
+                        len(to_add), len(to_del), idx.nlist)
+            return idx
+        except Exception:
+            logger.exception("packed IVF restore failed; full rebuild")
+            return None
+
     def _flush_ivf(self):
         """Called under the engine lock. Staged inserts join the standing
         host delta; past ivf_delta_max they drain into the clustered index
@@ -584,6 +682,8 @@ class VectorDBEngine:
                 self._ivf_delta.clear()
                 if del_rows:
                     self._ivf.invalidate_rows(np.asarray(del_rows, np.int64))
+                if pairs or del_rows:
+                    self._ivf_packed_epoch += 1
                 self.stats["ivf_appends"] = (
                     self.stats.get("ivf_appends", 0) + len(pairs))
                 # an off-lock search that snapshotted the delta before this
@@ -597,6 +697,13 @@ class VectorDBEngine:
             source = MirrorRowSource(self.mirrors, layout)
             valid = source.valid_array()
             live = int(valid.sum())
+            # any rebuild makes the last saved packed image stale; the
+            # packed restore below marks it current again when the restored
+            # state is the checkpoint's own (nothing to reconcile)
+            self._ivf_packed_epoch += 1
+            # the checkpoint's packed state is consumed once, whatever the
+            # rebuild does with it: it is the corpus's codes
+            packed, self._ivf_packed = self._ivf_packed, None
             if live == 0:
                 self._ivf = None
             else:
@@ -606,7 +713,19 @@ class VectorDBEngine:
                 # the drift/churn bounds of _consume_ivf_warm
                 warm_cents, trained_live, mut_train = \
                     self._consume_ivf_warm(live)
-                self._ivf = IVFIndex.build_streaming(
+                # the PQ warm start rides along with the centroids
+                # (consumed once; stale shapes retrain inside build)
+                warm_cb, self._ivf_pq_warm = self._ivf_pq_warm, None
+                warm_rot, self._ivf_opq_warm = self._ivf_opq_warm, None
+                warm_err, self._ivf_pq_err_warm = self._ivf_pq_err_warm, 0.0
+                # packed restore: the drift/churn guard just accepted the
+                # checkpoint's clustering (warm_cents is its centroids), and
+                # the packed file is that clustering's whole device image
+                restored = None
+                if packed is not None and warm_cents is not None:
+                    restored = self._restore_ivf_packed(packed, source,
+                                                        valid, layout)
+                self._ivf = restored or IVFIndex.build_streaming(
                     source, valid, nlist=nlist,
                     # nprobe follows the actual cell count: warm centroids
                     # override nlist inside build
@@ -618,9 +737,18 @@ class VectorDBEngine:
                     dtype=cfg.torch_dtype(),
                     centroids=warm_cents,
                     device=self.device,
+                    pq_subq=cfg.ivf_pq_subq,
+                    pq_codebooks=warm_cb,
+                    opq=cfg.ivf_opq,
+                    pq_rotation=warm_rot,
+                    pq_bits=cfg.ivf_pq_bits,
+                    pq_err=warm_err,
                 )
                 self._ivf_train_state = (self._ivf.centroids_np(),
                                          trained_live, mut_train)
+                self._ivf_pq_state = self._ivf.pq_codebooks_np()
+                self._ivf_opq_state = self._ivf.pq_rotation_np()
+                self._ivf_pq_err = self._ivf.pq_err
             self._ivf_layout = layout
             self._ivf_delta.clear()
             self._staged_updates.clear()
@@ -637,6 +765,7 @@ class VectorDBEngine:
                     self._ivf_delta.pop((s, sl), None)
                     rows.append(self._ivf_layout.row_of(s, sl))
                 self._ivf.invalidate_rows(np.asarray(rows, np.int64))
+                self._ivf_packed_epoch += 1
                 self._staged_deletes.clear()
         self.stats["flushes"] += 1
 
@@ -901,7 +1030,12 @@ class VectorDBEngine:
             # only): "device" on IVF falls back to the exact host path
             # rather than serving raw int8 scores
             fused_device = not ivf_mode and index.rescore_fetch > 0
-            rescore = (self.config.storage_dtype == "int8"
+            # PQ cells rank reconstructions: without the exact re-rank the
+            # served order is the ADC order, so IVF-PQ always joins the
+            # rescore path beside int8
+            pq_mode = ivf_mode and self.config.ivf_pq_subq > 0
+            lossy = self.config.storage_dtype == "int8" or pq_mode
+            rescore = (lossy
                        and self.config.rescore_overfetch > 0
                        and self.config.rescore_mode != "none"
                        and not fused_device)
@@ -909,8 +1043,20 @@ class VectorDBEngine:
             # bounded by out_k, not by the rescore window
             out_k = min(fetch_k, layout.total_rows)
             if rescore:
-                fetch_k = max(fetch_k, self.config.rescore_overfetch * k)
+                ovf = self.config.rescore_overfetch
+                if pq_mode:
+                    # the ADC error is far above int8's: PQ re-ranks a
+                    # deeper window
+                    ovf = max(ovf, self.config.ivf_pq_rescore_overfetch)
+                fetch_k = max(fetch_k, ovf * k)
             fetch_k = min(fetch_k, layout.total_rows)
+            # the adaptive rescore bound only means something where the
+            # candidates are ADC-scored and the build left a calibration
+            # (pq_err > 0; 0 = the full fixed window)
+            rescore_err = 0.0
+            if (rescore and pq_mode
+                    and self.config.ivf_pq_adaptive_rescore):
+                rescore_err = float(index.pq_err or 0.0)
             self.stats["searches"] += 1
             gen = self._generation
             slot_gen = self._slot_generation
@@ -947,10 +1093,11 @@ class VectorDBEngine:
         with self.timers.stage("search.assemble"):
             return self._assemble_results(queries, dists, rows, gen,
                                           slot_gen, rescore, layout, out_k,
-                                          n_del)
+                                          n_del, rescore_err=rescore_err,
+                                          k=k)
 
     def _assemble_results(self, queries, dists, rows, gen, slot_gen, rescore,
-                          layout, out_k, n_del):
+                          layout, out_k, n_del, rescore_err=0.0, k=0):
         """Resolve device rows to keys and compact live hits per row. Takes
         the engine lock only for the generation checks and key resolution;
         the exact re-rank runs outside it."""
@@ -969,10 +1116,15 @@ class VectorDBEngine:
             # headroom for staged-deleted candidates, so the slow path
             # below can still refill out_k live hits
             top_w = min(rows.shape[1], out_k + 32 + n_del)
+            q32 = np.asarray(queries, np.float32)
             with self.timers.stage("search.rescore"):
-                dists, rows = self._rescore_exact(
-                    np.asarray(queries, np.float32), rows, layout, mirrors,
-                    top=top_w)
+                if rescore_err > 0.0 and k > 0:
+                    dists, rows = self._rescore_adaptive(
+                        q32, rows, np.asarray(dists, np.float32),
+                        rescore_err, k, layout, mirrors, top=top_w)
+                else:
+                    dists, rows = self._rescore_exact(q32, rows, layout,
+                                                      mirrors, top=top_w)
         with self._lock:
             # a rescored search validates slot identity only: the device
             # epoch was certified before the rescore, and an IVF append
@@ -1054,6 +1206,81 @@ class VectorDBEngine:
         d = qsq[:, None] - 2.0 * qv + v_sq
         d = np.where(rows >= 0, d, np.inf).astype(np.float32)
         return _sorted_top(d, rows, top)
+
+    def _rescore_adaptive(self, q: np.ndarray, rows: np.ndarray,
+                          adc_d: np.ndarray, err: float, k: int, layout,
+                          mirrors, top: Optional[int] = None):
+        """Error-bounded exact re-rank (config.ivf_pq_adaptive_rescore).
+
+        The PQ probe's candidates arrive ADC-ascending, and the ADC distance
+        is exact to the reconstruction x_hat, so with the calibrated
+        error-norm quantile E = index.pq_err the true distance is bounded:
+        d_exact >= (sqrt(d_adc) - E)^2. Phase 1 rescores the first
+        max(4k, 32) candidates exactly and takes the running kth exact
+        distance D_k; phase 2 rescores only the remaining candidates whose
+        bound undercuts D_k. The rest cannot, up to the calibration's tail,
+        enter the top-k: they keep their ADC estimate, clamped to D_k so
+        that a tail violation never displaces an exact top-k hit."""
+        qn, f = rows.shape
+        w0 = min(f, max(4 * k, 32))
+        mask = np.zeros((qn, f), bool)
+        mask[:, :w0] = True
+        d = self._exact_masked(q, rows, mask, layout, mirrors)
+        kk = min(k - 1, w0 - 1)
+        dk = np.partition(d[:, :w0], kk, axis=1)[:, kk]     # (Q,) kth exact
+        # d_exact = d_adc - ||e||^2 - 2 (q - x) . e with e the candidate's
+        # reconstruction error. The worst case charges the full cross term
+        # 2 sqrt(d) E; but q - x is independent of the error's direction,
+        # so (q - x) . e concentrates at ||q - x|| ||e|| / sqrt(dim), and a
+        # z = 4 normal tail buys a sqrt(dim) / 4 tighter cross term. E is
+        # the calibrated 0.999 error-norm quantile (pq.calibrate_pq_err).
+        z_over_sqrtd = 4.0 / np.sqrt(q.shape[1])
+        # an empty slot carries +inf: inf - inf would be nan in the bound,
+        # so clamp to a finite sentinel first (rows >= 0 excludes it anyway)
+        adc_f = np.nan_to_num(adc_d, posinf=np.finfo(np.float32).max / 4)
+        lb = (adc_f - err * err
+              - 2.0 * np.sqrt(np.maximum(adc_f, 0.0)) * (err * z_over_sqrtd))
+        mask2 = (~mask) & (rows >= 0) & (lb < dk[:, None])
+        if mask2.any():
+            d2 = self._exact_masked(q, rows, mask2, layout, mirrors)
+            d = np.where(mask2, d2, d)
+        done = (mask | mask2) & (rows >= 0)
+        # unrescored candidates keep their ADC estimate, floored at D_k
+        d = np.where(done, d,
+                     np.where(rows >= 0,
+                              np.maximum(adc_d, dk[:, None]), np.inf))
+        n_done = int(done.sum())
+        with self._lock:
+            self.stats["rescored_rows"] += n_done
+            self.stats["rescore_skipped_rows"] += (
+                int((rows >= 0).sum()) - n_done)
+        return _sorted_top(d.astype(np.float32), rows, top)
+
+    @staticmethod
+    def _exact_masked(q: np.ndarray, rows: np.ndarray, mask: np.ndarray,
+                      layout, mirrors) -> np.ndarray:
+        """Exact f32 distances at the masked candidate positions only
+        (np.inf elsewhere), from the mirrors' rows."""
+        qn, f = rows.shape
+        flat = rows.ravel()
+        sel = mask.ravel() & (flat >= 0)
+        out = np.full(qn * f, np.inf, np.float32)
+        if not sel.any():
+            return out.reshape(qn, f)
+        qsq = np.einsum("qd,qd->q", q, q).astype(np.float32)
+        shards = flat[sel] // layout.phys_cap
+        slots = flat[sel] % layout.phys_cap
+        pos = np.flatnonzero(sel)
+        vecs = np.zeros((len(pos), q.shape[1]), np.float32)
+        for s in range(len(mirrors)):
+            m = shards == s
+            if m.any():
+                vecs[np.flatnonzero(m)] = mirrors[s].rows_f32(slots[m])
+        qrows = q[pos // f]
+        out[pos] = (qsq[pos // f]
+                    - 2.0 * np.einsum("nd,nd->n", qrows, vecs)
+                    + np.einsum("nd,nd->n", vecs, vecs))
+        return out.reshape(qn, f)
 
     def _flat_search_rows(self, queries: np.ndarray, k: int, index, delta,
                           n_del):
@@ -1248,18 +1475,87 @@ class VectorDBEngine:
                 # so the off-lock writer below reads them safely
                 shard_snaps = [m.checkpoint_snapshot() for m in self.mirrors]
                 ts_ = self._ivf_train_state
-                ivf_warm = ((*ts_, self._mut_count) if ts_ is not None
-                            else None)
+                ivf_warm = ((*ts_, self._mut_count, self._ivf_pq_state,
+                             self._ivf_opq_state, self._ivf_pq_err)
+                            if ts_ is not None else None)
+                # packed IVF-PQ device state: captured by reference under
+                # the lock (cheap), fetched and written off it below
+                packed_cap = packed_clean_src = None
+                cap_epoch = self._ivf_packed_epoch
+                if (self.config.ivf_checkpoint_packed
+                        and self._ivf is not None and self._ivf.pq
+                        and self._ivf_layout is not None):
+                    if (cap_epoch == self._ivf_packed_saved_epoch
+                            and self._ivf_packed_path is not None
+                            and os.path.exists(self._ivf_packed_path)):
+                        # the index has not changed since the last packed
+                        # save: link that file instead of fetching the
+                        # code table again
+                        packed_clean_src = self._ivf_packed_path
+                    else:
+                        packed_cap = (self._ivf.packed_capture(),
+                                      self._ivf_layout.phys_cap)
                 self._puts_since_ckpt = 0
+            packed_written = self._write_ivf_packed(
+                tmp, packed_clean_src, packed_cap, cap_epoch)
             path = self.ckpts.finish(tmp, self.config, doc_rows, shard_snaps,
                                      wal_pos, dim=self.config.vector_dim,
                                      ivf_warm=ivf_warm)
+            if packed_written:
+                # later clean checkpoints link from the newest copy (older
+                # checkpoint directories are pruned by retention)
+                self._ivf_packed_path = os.path.join(path, "ivf_packed.npz")
             if self.wal is not None:
                 self.wal.truncate_through(wal_pos)
             with self._lock:
                 self.stats["checkpoints"] += 1
             logger.info("checkpoint saved: %s", path)
             return path
+
+    def _write_ivf_packed(self, tmp: str, clean_src: Optional[str],
+                          packed_cap, cap_epoch: int) -> bool:
+        """Put ivf_packed.npz into the checkpoint's staging directory, off
+        the engine lock: a hard link (or a copy) of the current file, or a
+        fresh fetch of the captured device state. Returns whether the file
+        is there. A fetch that an in-place append or delete overlapped
+        raises inside and the file is skipped for this checkpoint: the warm
+        state still saves, and a restart then encodes the rows again."""
+        dst = os.path.join(tmp, "ivf_packed.npz")
+        if clean_src is not None:
+            try:
+                os.link(clean_src, dst)
+                return True
+            except OSError:
+                try:
+                    shutil.copyfile(clean_src, dst)
+                    return True
+                except OSError as e:
+                    logger.warning("packed IVF reuse failed (%s); skipped "
+                                   "this checkpoint", e)
+            return False
+        if packed_cap is None:
+            return False
+        try:
+            cap, phys_cap = packed_cap
+            arrs = IVFIndex.packed_fetch(cap)
+            arrs["phys_cap"] = np.int64(phys_cap)
+            arrs["dim"] = np.int64(self.config.vector_dim)
+            arrs["pq_subq"] = np.int64(self.config.ivf_pq_subq)
+            arrs["pq_bits"] = np.int64(self.config.ivf_pq_bits)
+            # the reference's from_packed requires the key; the port's
+            # search does not read it
+            arrs["recall_target"] = np.float64(self.config.recall_target)
+            np.savez(dst, **arrs)
+            # saved at the captured epoch: a flush that wrote the index
+            # after the fetch bumped the live epoch past it, so the next
+            # checkpoint fetches again
+            self._ivf_packed_saved_epoch = cap_epoch
+            return True
+        except (RuntimeError, OSError) as e:
+            logger.warning("packed IVF state skipped this checkpoint: %s", e)
+            if os.path.exists(dst):
+                os.unlink(dst)
+            return False
 
     # ------------------------------------------------------------------ admin
 

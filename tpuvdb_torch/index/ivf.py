@@ -1,4 +1,4 @@
-"""IVF-Flat index: the port of tpuvdb/index/ivf.py (f32, bf16 and int8
+"""IVF index: the port of tpuvdb/index/ivf.py (f32, bf16, int8 and PQ
 cells).
 
 K-means coarse quantizer + cluster-pruned scan. Cells are laid out
@@ -34,8 +34,32 @@ tensors in place with torch index ops and bump `version`, so a search that
 overlapped one can tell and retry. The reference's fixed 4096/1024-row
 scatter buckets and `warm_append` (XLA compile workarounds) are not needed.
 
-Not ported yet: PQ cells with `packed_capture`/`from_packed` (IVF-PQ), the
-mesh-sharded index.
+PQ cells (IVF-PQ, `pq_subq > 0`). A cell row is `pq_subq` code bytes of the
+residual x - c_cell (kernels/pq.py: 8-bit codes, or two 4-bit codes a byte
+with `pq_bits=4`; under `opq` the residual is rotated first), and
+`grouped_sq` holds the reconstruction's ||c + r_hat||^2. The codebooks
+train on the k-means sample's residuals, every row is encoded in the
+assignment pass into a code table that stays on the device (packing is a
+device gather), rows whose cell was bisected are encoded again against the
+final centroids, and the scan window is clamped to `pq_max_cell` rows.
+Search runs `kernels/pq_probe.pq_probe_search` (the hand-written ADC kernel
+on the card, its plain twin on the CPU); spill rows remember their cell
+(`spill_cells`) for the centroid term. The reference's CPU route
+`_ivf_search_pq` is not ported: it masks over-scanned rows where the kernel
+scores them against their own cell, and the port follows the kernel. The
+reference shapes its build around a slow host link (an int16 assignment
+fetch, padded fixed-shape blocks); only the device-resident code table is
+kept.
+
+Packed state (`packed_capture`, `packed_fetch`, `from_packed`): the whole
+device image for a checkpoint, so a restart uploads it instead of encoding
+every row again. The reference captures immutable device arrays by
+reference; the port writes in place, so `packed_capture` records `version`
+with references to the tensors (no clone under the engine's lock) and
+`packed_fetch`, off the lock, copies them to the host and raises if
+`version` moved meanwhile: the caller then skips the packed file.
+
+Not ported yet: the mesh-sharded index.
 """
 
 from __future__ import annotations
@@ -47,12 +71,15 @@ import numpy as np
 import torch
 
 from tpuvdb_torch.device import resolve_device
+from tpuvdb_torch.kernels import pq as pqk
 from tpuvdb_torch.kernels.ivf_probe import ivf_probe_search
 from tpuvdb_torch.kernels.kmeans import assign_blockwise, kmeans
+from tpuvdb_torch.kernels.pq_probe import pq_probe_search
 from tpuvdb_torch.kernels.quant import quantize_rows_np
 
 _DTYPES = (torch.float32, torch.bfloat16, torch.int8)
 _ASSIGN_CHUNK = 16384
+_ENCODE_ROWS = 262_144  # rows gathered at once for a re-encode
 
 
 def _check_dtype(dtype) -> None:
@@ -257,12 +284,22 @@ def pack_cells(
 
 
 def _fill_rows_from_source(source, phys_rows, vec_out, scale_out, sq_out,
-                           positions, int8_out: bool, chunk: int = 1_000_000):
+                           positions, int8_out: bool, chunk: int = 1_000_000,
+                           pq_tables=None):
     """Copy `phys_rows` from the source into vec/scale/sq at `positions`,
     chunked so the f32 transient stays bounded. int8 output takes the
     bit-exact raw path when the source stores int8; otherwise it gathers
     f32 and quantizes per chunk. sq is the f32 row's (the stored norm on
-    the raw path)."""
+    the raw path). PQ rows come from `pq_tables`, the (codes, recon_sq)
+    device tables of the assignment pass indexed by physical row: residual
+    codes are tied to their cell, so nothing is encoded here."""
+    if pq_tables is not None:
+        codes_all, rsq_all = pq_tables
+        sel = torch.from_numpy(
+            np.asarray(phys_rows, np.int64).clip(min=0)).to(codes_all.device)
+        vec_out[positions] = codes_all[sel].cpu().numpy()
+        sq_out[positions] = rsq_all[sel].cpu().numpy()
+        return
     raw_ok = int8_out and source.all_int8
     for lo in range(0, len(phys_rows), chunk):
         r = phys_rows[lo:lo + chunk]
@@ -282,10 +319,14 @@ def _fill_rows_from_source(source, phys_rows, vec_out, scale_out, sq_out,
 
 
 def _pack_cells_from_source(source, rows, assign_live, nlist, window,
-                            int8_out: bool):
+                            int8_out: bool, pq_tables=None):
     """pack_cells over a row source, rows copied straight into the target
     dtype. Returns (gvec, gscales|None, gsq, gval, grow, offsets, sizes,
-    spill_rows); padding rows of an int8 cell keep scale 1.0."""
+    spill_rows); padding rows of an int8 cell keep scale 1.0. With
+    `pq_tables` (device code table and norms by physical row) the packing
+    is one device gather driven by a host permutation, and gvec / gsq come
+    back as device tensors; a padding row then carries row 0's codes and a
+    zero norm, as in the reference, and is masked by its validity."""
     rows_sorted, gpos, main, offsets, kept, grouped_rows = _cell_layout(
         rows, assign_live, nlist, window)
     gscales = np.ones(grouped_rows, np.float32) if int8_out else None
@@ -293,11 +334,20 @@ def _pack_cells_from_source(source, rows, assign_live, nlist, window,
     grow = np.full(grouped_rows, -1, np.int64)
     gval[gpos] = True
     grow[gpos] = rows_sorted[main]
-    gvec = np.zeros((grouped_rows, source.dim),
-                    np.int8 if int8_out else np.float32)
-    gsq = np.zeros(grouped_rows, np.float32)
-    _fill_rows_from_source(source, rows_sorted[main], gvec, gscales, gsq,
-                           gpos, int8_out)
+    if pq_tables is not None:
+        codes_all, rsq_all = pq_tables
+        perm = np.zeros(grouped_rows, np.int64)
+        perm[gpos] = rows_sorted[main]
+        perm_t = torch.from_numpy(perm).to(codes_all.device)
+        gvec = codes_all[perm_t]
+        gsq = torch.where(torch.from_numpy(gval).to(codes_all.device),
+                          rsq_all[perm_t], torch.zeros_like(rsq_all[:1]))
+    else:
+        gvec = np.zeros((grouped_rows, source.dim),
+                        np.int8 if int8_out else np.float32)
+        gsq = np.zeros(grouped_rows, np.float32)
+        _fill_rows_from_source(source, rows_sorted[main], gvec, gscales, gsq,
+                               gpos, int8_out)
     spill_rows = np.asarray(rows_sorted[~main], dtype=np.int64)
     return (gvec, gscales, gsq, gval, grow, offsets.astype(np.int32), kept,
             spill_rows)
@@ -357,9 +407,41 @@ class IVFIndex:
         nprobe: int = 32,
         cell_scales: Optional[torch.Tensor] = None,   # (N_g,) int8 dequant
         spill_scales: Optional[torch.Tensor] = None,  # (S,)
+        pq_codebooks: Optional[np.ndarray] = None,    # (M2, J, d / M2) f32
+        spill_cells: Optional[np.ndarray] = None,     # (S,) residual cells
+        pq_rotation: Optional[np.ndarray] = None,     # (d, d) OPQ rotation
+        pq_err: float = 0.0,  # calibrated ||x - x_hat|| quantile (adaptive
+                              # rescore bound; 0 = uncalibrated: full window)
     ):
         self.device = grouped.device
-        _check_dtype(grouped.dtype)
+        self.pq = pq_codebooks is not None
+        if self.pq:
+            if grouped.dtype != torch.uint8 or spill.dtype != torch.uint8:
+                raise ValueError("PQ cells hold uint8 codes, not "
+                                 f"{grouped.dtype} / {spill.dtype}")
+            if cell_scales is not None or spill_scales is not None:
+                raise ValueError("PQ cells take no int8 scales")
+        else:
+            _check_dtype(grouped.dtype)
+        self._pq_codebooks_np = self._pq_rotation_np = None
+        self.pq_codebooks = self.pq_rotation = self.spill_cells = None
+        self.pq_err = float(pq_err) if self.pq else 0.0
+        if self.pq:
+            self._pq_codebooks_np = np.array(pq_codebooks, np.float32)
+            self.pq_codebooks = torch.from_numpy(self._pq_codebooks_np).to(
+                self.device)
+            if pqk.pq_code_bytes(self._pq_codebooks_np) != grouped.shape[1]:
+                raise ValueError(
+                    f"codebooks {self._pq_codebooks_np.shape} do not code "
+                    f"rows of {grouped.shape[1]} bytes")
+            if pq_rotation is not None:
+                self._pq_rotation_np = np.array(pq_rotation, np.float32)
+                self.pq_rotation = torch.from_numpy(
+                    self._pq_rotation_np).to(self.device)
+            if spill_cells is None:
+                spill_cells = np.zeros(int(spill.shape[0]), np.int32)
+            self.spill_cells = torch.from_numpy(
+                np.array(spill_cells, np.int32)).to(self.device)
         self.quantized = grouped.dtype == torch.int8
         if self.quantized != (cell_scales is not None
                               and spill_scales is not None):
@@ -390,6 +472,12 @@ class IVFIndex:
     def centroids_np(self) -> np.ndarray:
         return self._centroids_np
 
+    def pq_codebooks_np(self) -> Optional[np.ndarray]:
+        return self._pq_codebooks_np
+
+    def pq_rotation_np(self) -> Optional[np.ndarray]:
+        return self._pq_rotation_np
+
     @classmethod
     def from_numpy(
         cls,
@@ -410,15 +498,25 @@ class IVFIndex:
         device=None,
         cell_scales: Optional[np.ndarray] = None,   # int8 cells only
         spill_scales: Optional[np.ndarray] = None,
+        pq_codebooks: Optional[np.ndarray] = None,  # PQ cells only
+        spill_cells: Optional[np.ndarray] = None,
+        pq_rotation: Optional[np.ndarray] = None,
+        pq_err: float = 0.0,
     ) -> "IVFIndex":
         """An index holding given arrays, e.g. a JAX IVFIndex's
         (np.asarray of each field): the same cells, the same probes. int8
-        cells come as int8 codes with both scale arrays."""
+        cells come as int8 codes with both scale arrays; PQ cells as uint8
+        codes with their codebooks (then `dtype` is not read)."""
         dev = resolve_device(device)
 
         def put(a, dt):
             return torch.from_numpy(np.array(a)).to(dev).to(dt)
 
+        if pq_codebooks is not None:
+            if (np.asarray(grouped).dtype != np.uint8
+                    or np.asarray(spill).dtype != np.uint8):
+                raise ValueError("PQ cells take uint8 codes")
+            dtype = torch.uint8
         quant = dtype == torch.int8
         if quant and (np.asarray(grouped).dtype != np.int8
                       or np.asarray(spill).dtype != np.int8
@@ -427,7 +525,8 @@ class IVFIndex:
                              "arrays")
 
         def rows(a):
-            return put(a if quant else np.asarray(a, np.float32), dtype)
+            raw = quant or pq_codebooks is not None
+            return put(a if raw else np.asarray(a, np.float32), dtype)
 
         def f32(a):
             return put(np.asarray(a, np.float32), torch.float32)
@@ -448,6 +547,94 @@ class IVFIndex:
             nprobe=nprobe,
             cell_scales=f32(cell_scales) if quant else None,
             spill_scales=f32(spill_scales) if quant else None,
+            pq_codebooks=pq_codebooks,
+            spill_cells=spill_cells,
+            pq_rotation=pq_rotation,
+            pq_err=pq_err,
+        )
+
+    # ----------------------------------------------------------- packed state
+
+    _PACKED_DEVICE = ("grouped", "grouped_sq", "grouped_valid", "spill",
+                      "spill_sq", "spill_valid", "cell_scales",
+                      "spill_scales", "spill_cells")
+
+    def packed_capture(self) -> dict:
+        """Snapshot of the whole packed state for a checkpoint; call under
+        the owning engine's lock. The host maps are copied; the device
+        tensors are captured by reference with the `version` they had (no
+        clone: the code table is the corpus's codes), and `packed_fetch`
+        finds out whether an in-place write got between."""
+        cap = {
+            "centroids": self._centroids_np.copy(),
+            "cell_offsets": self.cell_offsets_np.copy(),
+            "cell_lens": self.cell_lens.copy(),
+            "cell_pad": np.int64(self.cell_pad),
+            "nprobe": np.int64(self.nprobe),
+            "row_ids": self.row_ids.copy(),
+            "spill_row_ids": self.spill_row_ids.copy(),
+            "_dev": {name: getattr(self, name)
+                     for name in self._PACKED_DEVICE
+                     if getattr(self, name) is not None},
+            "_index": self,
+            "_version": self.version,
+        }
+        if self.pq:
+            cap["pq_codebooks"] = self._pq_codebooks_np.copy()
+            cap["pq_err"] = np.float64(self.pq_err)
+        if self._pq_rotation_np is not None:
+            cap["pq_rotation"] = self._pq_rotation_np.copy()
+        return cap
+
+    @staticmethod
+    def packed_fetch(cap: dict) -> dict:
+        """Copy the captured device tensors to the host, off the engine's
+        lock. Raises if an append or a delete wrote the index in place
+        since the capture: the copy may then mix two states."""
+        out = {k: v for k, v in cap.items() if not k.startswith("_")}
+        for k, t in cap["_dev"].items():
+            out[k] = t.cpu().numpy()
+        if cap["_index"].version != cap["_version"]:
+            raise RuntimeError("the index was written in place while its "
+                               "packed state was fetched")
+        return out
+
+    @classmethod
+    def from_packed(cls, st, device=None) -> "IVFIndex":
+        """Rebuild from a packed-state mapping (np.load of a checkpoint's
+        ivf_packed.npz, from either package): one upload, no assignment and
+        no encode."""
+        dev = resolve_device(device)
+
+        def opt(key):
+            return np.asarray(st[key]) if key in st else None
+
+        def put(key):
+            a = opt(key)
+            return None if a is None else torch.from_numpy(
+                np.array(a)).to(dev)
+
+        cb, rot = opt("pq_codebooks"), opt("pq_rotation")
+        return cls(
+            centroids=np.asarray(st["centroids"], np.float32),
+            grouped=put("grouped"),
+            grouped_sq=put("grouped_sq"),
+            grouped_valid=put("grouped_valid"),
+            row_ids=np.asarray(st["row_ids"]),
+            spill=put("spill"),
+            spill_sq=put("spill_sq"),
+            spill_valid=put("spill_valid"),
+            spill_row_ids=np.asarray(st["spill_row_ids"]),
+            cell_pad=int(st["cell_pad"]),
+            cell_offsets=np.asarray(st["cell_offsets"]),
+            cell_lens=np.asarray(st["cell_lens"]),
+            nprobe=int(st["nprobe"]),
+            cell_scales=put("cell_scales"),
+            spill_scales=put("spill_scales"),
+            pq_codebooks=cb,
+            spill_cells=opt("spill_cells"),
+            pq_rotation=rot,
+            pq_err=float(st["pq_err"]) if "pq_err" in st else 0.0,
         )
 
     def live_phys_rows(self) -> np.ndarray:
@@ -482,43 +669,125 @@ class IVFIndex:
         split_oversized: bool = True,
         centroids: Optional[np.ndarray] = None,  # skip k-means training
         device=None,
+        pq_subq: int = 0,                          # 0 = off; else IVF-PQ
+        pq_codebooks: Optional[np.ndarray] = None,  # warm-start codebooks
+        pq_max_cell: int = 2048,                   # PQ scan-window clamp
+        opq: bool = False,                         # learned OPQ rotation
+        pq_rotation: Optional[np.ndarray] = None,  # warm-start rotation
+        pq_bits: int = 8,                          # 8 | 4 (two codes a byte)
+        pq_err: float = 0.0,                       # warm-start calibration
     ) -> "IVFIndex":
         """Train (or reuse) the centroids on a sample, assign every row in
         blocks on the device, bound the largest cell by bisection, pack the
         cells and upload them. The cell window tracks 1.25x the median cell
         with split_oversized (default); cell_cap_quantile applies to the
-        no-split path."""
-        _check_dtype(dtype)  # before any training
+        no-split path. With `pq_subq` the cells hold PQ codes (see the
+        module docstring); warm codebooks, rotation and calibration are
+        reused unless their shape or tier went stale."""
         dev = resolve_device(device)
         n, d = source.n, source.dim
         live_idx = np.flatnonzero(valid)
         if len(live_idx) == 0:
             raise ValueError("cannot build IVF over empty corpus")
+        if pq_codebooks is not None and not pq_subq:
+            pq_subq = pqk.pq_code_bytes(pq_codebooks)
+        if pq_subq:
+            if pq_bits not in (8, 4):
+                raise ValueError(f"pq_bits={pq_bits} must be 8 or 4")
+            # pq_subq stays bytes/row in both tiers; 4-bit runs 2 * subq
+            # half-width subspaces of 16 codes packed two per byte
+            pq_m = pq_subq if pq_bits == 8 else 2 * pq_subq
+            pq_j = 256 if pq_bits == 8 else 16
+            if d % pq_m != 0:
+                raise ValueError(
+                    f"pq_subq={pq_subq} at pq_bits={pq_bits} needs "
+                    f"{pq_m} subspaces to divide dim={d}")
+            if dtype == torch.int8:
+                raise ValueError("pq_subq and int8 cells are exclusive: "
+                                 "PQ already compresses below int8")
+            if (pq_codebooks is not None
+                    and pq_codebooks.shape != (pq_m, pq_j, d // pq_m)):
+                pq_codebooks = None  # stale warm shape or tier: retrain
+            if pq_rotation is not None and pq_rotation.shape != (d, d):
+                pq_rotation = None
+                pq_codebooks = None  # codebooks are tied to their rotation
+            if opq and pq_codebooks is not None and pq_rotation is None:
+                # warm codebooks trained without a rotation cannot pair
+                # with OPQ coding: retrain the pair together
+                pq_codebooks = None
+            if not opq:
+                pq_rotation = None  # a rotation only means something there
+        else:
+            _check_dtype(dtype)  # before any training
+            pq_rotation = None
         rng = np.random.default_rng(seed)
 
         # 1. coarse quantizer: k-means on a sample, or caller-provided
-        # centroids (checkpoint warm start: assignment only)
-        if centroids is not None and centroids.shape[1] == d:
-            centroids = np.asarray(centroids, np.float32)
-            nlist = len(centroids)
-        else:
+        # centroids (checkpoint warm start: assignment only). The PQ
+        # codebooks train on the same sample.
+        warm_cents = centroids is not None and centroids.shape[1] == d
+        need_cb = bool(pq_subq) and pq_codebooks is None
+        sample = None
+        if not warm_cents or need_cb:
             if len(live_idx) > train_sample:
                 tr = np.sort(rng.choice(live_idx, size=train_sample,
                                         replace=False))
             else:
                 tr = live_idx
             sample = source.gather_f32(tr)
+        if warm_cents:
+            centroids = np.array(centroids, np.float32)  # own, writable
+            nlist = len(centroids)
+        else:
             centroids, _ = kmeans(sample, np.ones(sample.shape[0], bool),
                                   nlist=nlist, iters=kmeans_iters, seed=seed,
                                   device=dev)
-            del sample
-
-        # 2. assign every row, streamed in blocks; invalid rows -> -1
         cents_t = torch.from_numpy(centroids).to(dev)
+        if need_cb:
+            # residual codebooks: train on x - c_assign, so the codes model
+            # the structure inside a cell (the coarse quantizer already
+            # owns which cell a row is in)
+            sa = assign_blockwise(torch.from_numpy(sample).to(dev), cents_t,
+                                  block_size=4096).cpu().numpy()
+            residuals = sample - centroids[sa]
+            if opq:
+                pq_codebooks, pq_rotation = pqk.train_opq(
+                    residuals, m_subq=pq_m, seed=seed, n_codes=pq_j,
+                    device=dev)
+            else:
+                pq_codebooks = pqk.train_pq(residuals, m_subq=pq_m,
+                                            seed=seed, n_codes=pq_j,
+                                            device=dev)
+            # the adaptive-rescore error bound, calibrated on the sample
+            # the codebooks trained on and checkpointed with them
+            pq_err = pqk.calibrate_pq_err(residuals, pq_codebooks,
+                                          rotation=pq_rotation, seed=seed)
+            del residuals
+        del sample
+
+        # 2. assign every row, streamed in blocks; invalid rows -> -1. PQ
+        # rows are encoded in the same pass, from the same uploaded block,
+        # into a code table that stays on the device
+        pq_tables = cb_t = rot_t = None
+        if pq_codebooks is not None:
+            cb_t = torch.from_numpy(
+                np.ascontiguousarray(pq_codebooks, np.float32)).to(dev)
+            rot_t = (torch.from_numpy(np.ascontiguousarray(
+                pq_rotation, np.float32)).to(dev)
+                if pq_rotation is not None else None)
+            pq_tables = (
+                torch.zeros((n, pq_subq), dtype=torch.uint8, device=dev),
+                torch.zeros(n, dtype=torch.float32, device=dev))
         assign = np.full(n, -1, np.int32)
         for g0, blk in source.iter_blocks_f32(262_144):
-            a = assign_blockwise(torch.from_numpy(blk).to(dev), cents_t)
+            blk_t = torch.from_numpy(blk).to(dev)
+            a = assign_blockwise(blk_t, cents_t)
             assign[g0:g0 + len(blk)] = a.cpu().numpy()
+            if pq_tables is not None:
+                codes, rsq = pqk.encode_residual(blk_t, a, cents_t, cb_t,
+                                                 rot_t)
+                pq_tables[0][g0:g0 + len(blk)] = codes
+                pq_tables[1][g0:g0 + len(blk)] = rsq
         assign = np.where(valid, assign, -1)
 
         # 3. skew control: bound the max cell, then pack
@@ -527,10 +796,36 @@ class IVFIndex:
         if split_oversized and nlist > 1 and len(live_sizes):
             # window ~ 1.25x the median cell; bisect anything bigger
             cap = int(np.quantile(live_sizes, 0.5) * 1.25)
+            if pq_tables is not None:
+                # ADC cost is per candidate (nprobe * window), not per
+                # byte: a clamped window bisects a huge corpus at a modest
+                # nlist into more cells instead of widening every probe
+                cap = min(cap, pq_max_cell)
             cell_pad = max(_round_up(max(cap, 1), 128), 128)
+            old_cents = centroids
             centroids, assign = split_oversized_cells(
                 source.gather_f32, assign, centroids, cell_pad, seed=seed)
             nlist = len(centroids)
+            if pq_tables is not None and nlist > len(old_cents):
+                # residual codes are tied to their cell's centroid: rows
+                # whose cell was bisected (parent replaced, child appended)
+                # are encoded again against the final centroids and
+                # scattered into the table
+                changed = np.ones(nlist, bool)
+                changed[:len(old_cents)] = np.any(
+                    old_cents != centroids[:len(old_cents)], axis=1)
+                rows_re = np.flatnonzero(
+                    (assign >= 0) & changed[np.maximum(assign, 0)])
+                cents_t = torch.from_numpy(centroids).to(dev)
+                for lo in range(0, len(rows_re), _ENCODE_ROWS):
+                    rr = rows_re[lo:lo + _ENCODE_ROWS]
+                    codes, rsq = pqk.encode_residual(
+                        torch.from_numpy(source.gather_f32(rr)).to(dev),
+                        torch.from_numpy(assign[rr]).to(dev), cents_t, cb_t,
+                        rot_t)
+                    rr_t = torch.from_numpy(rr).to(dev)
+                    pq_tables[0].index_copy_(0, rr_t, codes)
+                    pq_tables[1].index_copy_(0, rr_t, rsq)
         else:
             cap = (int(np.quantile(sizes, cell_cap_quantile))
                    if nlist > 1 else int(sizes.max()))
@@ -538,31 +833,42 @@ class IVFIndex:
 
         live2 = np.flatnonzero(valid & (assign >= 0))
         int8_out = dtype == torch.int8
+        pq = pq_tables is not None
         (gvec, gscales, gsq, gval, grow, cell_offsets, cell_lens,
          spill_rows) = _pack_cells_from_source(
-            source, live2, assign[live2], nlist, cell_pad, int8_out)
+            source, live2, assign[live2], nlist, cell_pad, int8_out,
+            pq_tables=pq_tables)
 
         # spill reserve: free capacity so append_rows can overflow full
         # cells here instead of forcing a rebuild
         reserve = min(8192, max(128, n // 8))
         s = max(len(spill_rows), 1)
         s_pad = _round_up(s + reserve, 128)
-        svec = np.zeros((s_pad, d), np.int8 if int8_out else np.float32)
+        s_width, s_dtype = ((pq_subq, np.uint8) if pq else
+                            (d, np.int8 if int8_out else np.float32))
+        svec = np.zeros((s_pad, s_width), s_dtype)
         sscales = np.ones(s_pad, np.float32) if int8_out else None
         ssq = np.zeros(s_pad, np.float32)
         sval = np.zeros(s_pad, bool)
         srow = np.full(s_pad, -1, np.int64)
+        scell = np.zeros(s_pad, np.int32)  # residual PQ: cell per spill row
         ns = len(spill_rows)
         if ns:
             _fill_rows_from_source(source, spill_rows, svec, sscales, ssq,
-                                   np.arange(ns), int8_out)
+                                   np.arange(ns), int8_out,
+                                   pq_tables=pq_tables)
             sval[:ns] = True
             srow[:ns] = spill_rows
+            scell[:ns] = assign[spill_rows]
 
         def put(a, dt=None):
+            if isinstance(a, torch.Tensor):  # PQ cells, packed on the device
+                return a
             t = torch.from_numpy(a).to(dev)
             return t if dt is None else t.to(dt)
 
+        if pq:
+            dtype = torch.uint8
         return cls(
             centroids=centroids,
             grouped=put(gvec, dtype),
@@ -579,6 +885,10 @@ class IVFIndex:
             nprobe=nprobe,
             cell_scales=put(gscales) if int8_out else None,
             spill_scales=put(sscales) if int8_out else None,
+            pq_codebooks=pq_codebooks,
+            spill_cells=scell if pq else None,
+            pq_rotation=pq_rotation,
+            pq_err=pq_err if pq else 0.0,
         )
 
     # ----------------------------------------------------------------- search
@@ -609,12 +919,24 @@ class IVFIndex:
             self.device)
         gval, sval = (valid_override if valid_override is not None
                       else (self.grouped_valid, self.spill_valid))
-        dist, gid = ivf_probe_search(
-            q, self.centroids, self.grouped, self.grouped_sq, gval,
-            self.cell_offsets, cell_pad=self.cell_pad, k=k, nprobe=nprobe,
-            spill=self.spill, spill_sq=self.spill_sq, spill_valid=sval,
-            force_compact=force_compact, cell_scales=self.cell_scales,
-            spill_scales=self.spill_scales)
+        if self.pq:
+            if force_compact:
+                raise ValueError("the PQ probe has one form, the expanded "
+                                 "list: force_compact does not apply")
+            dist, gid = pq_probe_search(
+                q, self.centroids, self.grouped, self.pq_codebooks,
+                self.grouped_sq, gval, self.spill, self.spill_cells,
+                self.spill_sq, sval, self.cell_offsets,
+                cell_pad=self.cell_pad, k=k, nprobe=nprobe,
+                rotation=self.pq_rotation)
+        else:
+            dist, gid = ivf_probe_search(
+                q, self.centroids, self.grouped, self.grouped_sq, gval,
+                self.cell_offsets, cell_pad=self.cell_pad, k=k,
+                nprobe=nprobe, spill=self.spill, spill_sq=self.spill_sq,
+                spill_valid=sval, force_compact=force_compact,
+                cell_scales=self.cell_scales,
+                spill_scales=self.spill_scales)
         gid = gid.cpu().numpy()
         dist = dist.cpu().numpy()
         # map grouped/spill ids back to physical rows
@@ -704,8 +1026,15 @@ class IVFIndex:
         self.version += 1
         self.cell_lens = lens.astype(np.int32)
         self._inv_g = self._inv_s = None  # inverse maps grew: rebuild lazily
-        sq = np.einsum("nd,nd->n", vecs, vecs).astype(np.float32)
-        payload = vecs
+        if self.pq:
+            # residual encode against each row's assigned cell; sq is the
+            # full reconstruction's ||c + r_hat||^2
+            payload, sq = pqk.encode_pq_residual_chunked(
+                vecs, assign, self.centroids, self.pq_codebooks,
+                chunk=_ASSIGN_CHUNK, rotation=self.pq_rotation)
+        else:
+            sq = np.einsum("nd,nd->n", vecs, vecs).astype(np.float32)
+            payload = vecs
         if self.quantized:
             payload, qscales = quantize_rows_np(vecs)
         for take, pos, ids, region, scale_arr in (
@@ -726,6 +1055,10 @@ class IVFIndex:
                     0, pt, torch.from_numpy(qscales[t]).to(self.device))
             getattr(self, f"{region}_sq").index_copy_(
                 0, pt, torch.from_numpy(sq[t]).to(self.device))
+            if self.pq and region == "spill":
+                # the cell a spill row's residual was coded against
+                self.spill_cells.index_copy_(
+                    0, pt, torch.from_numpy(assign[t]).to(self.device))
             getattr(self, f"{region}_valid").index_fill_(0, pt, True)
         return True
 
@@ -742,4 +1075,5 @@ class IVFIndex:
         return sum(t.numel() * t.element_size() for t in (
             self.grouped, self.grouped_sq, self.grouped_valid, self.spill,
             self.spill_sq, self.spill_valid, self.centroids,
-            self.cell_scales, self.spill_scales) if t is not None)
+            self.cell_scales, self.spill_scales, self.pq_codebooks,
+            self.pq_rotation, self.spill_cells) if t is not None)

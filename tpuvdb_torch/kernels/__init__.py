@@ -14,6 +14,18 @@ from tpuvdb_torch.kernels.ivf_probe import (
     ivf_candidates_plain,
     ivf_probe_search,
 )
+from tpuvdb_torch.kernels.pq import (
+    adc_scores,
+    encode_pq,
+    pq_topk,
+    train_opq,
+    train_pq,
+)
+from tpuvdb_torch.kernels.pq_probe import (
+    pq_candidates,
+    pq_candidates_plain,
+    pq_probe_search,
+)
 from tpuvdb_torch.kernels.quant import (
     exact_rescore,
     l2sq_topk_int8,
@@ -29,6 +41,8 @@ from tpuvdb_torch.kernels.scan import (
 from tpuvdb_torch.kernels.topk import mask_scores, merge_topk
 
 __all__ = [
+    "adc_scores",
+    "encode_pq",
     "exact_rescore",
     "ivf_candidates",
     "ivf_candidates_int8",
@@ -48,6 +62,12 @@ __all__ = [
     "l2sq_full",
     "merge_topk",
     "mask_scores",
+    "pq_candidates",
+    "pq_candidates_plain",
+    "pq_probe_search",
+    "pq_topk",
+    "train_opq",
+    "train_pq",
     "scan_candidates",
     "scan_candidates_plain",
     "scan_l2sq_topk",

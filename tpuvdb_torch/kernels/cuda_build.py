@@ -2,7 +2,8 @@
 
 Each source in `tpuvdb_torch/csrc/` has a plain C interface and compiles on
 its own into `tpuvdb_torch/build/lib<name>.so` for sm_90a at first use
-(`CudaLibrary.load`). A library is rebuilt when its source is newer than it.
+(`CudaLibrary.load`). A library is rebuilt when its source, or a header of
+`csrc/` that the source includes, is newer than it.
 `load` holds only its own library's lock, so loads of several libraries from
 several threads run their nvcc builds side by side. Nothing here runs when a
 module is imported: the CPU never needs nvcc.
@@ -14,7 +15,7 @@ import ctypes
 import os
 import subprocess
 import threading
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -28,11 +29,14 @@ def nvcc() -> str:
 
 class CudaLibrary:
     """One csrc/ source built into one shared library. `bind(lib)` sets
-    the ctypes argtypes/restype of every function the wrapper calls."""
+    the ctypes argtypes/restype of every function the wrapper calls;
+    `headers` names the csrc/ headers the source includes."""
 
     def __init__(self, source: str, library: str,
-                 bind: Callable[[ctypes.CDLL], None]):
+                 bind: Callable[[ctypes.CDLL], None],
+                 headers: Sequence[str] = ()):
         self.source = os.path.join(CSRC_DIR, source)
+        self.headers = [os.path.join(CSRC_DIR, h) for h in headers]
         self.library = os.path.join(BUILD_DIR, library)
         self.build_log = ""  # nvcc's output of the last build (-Xptxas -v)
         self._bind = bind
@@ -45,8 +49,10 @@ class CudaLibrary:
                 "-Xptxas", "-v", "-o", out, self.source]
 
     def up_to_date(self) -> bool:
-        return (os.path.exists(self.library) and os.path.getmtime(self.library)
-                >= os.path.getmtime(self.source))
+        if not os.path.exists(self.library):
+            return False
+        newest = max(os.path.getmtime(p) for p in [self.source] + self.headers)
+        return os.path.getmtime(self.library) >= newest
 
     def build(self) -> str:
         """Compile unless an up-to-date library is there; raises with

@@ -100,7 +100,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.tpuvdb_ivf_error.argtypes = [i]
 
 
-LIBRARY = CudaLibrary("ivf_probe.cu", "libtpuvdb_ivf_probe.so", _bind)
+LIBRARY = CudaLibrary("ivf_probe.cu", "libtpuvdb_ivf_probe.so", _bind,
+                      headers=("probe_common.cuh",))
 
 
 # ------------------------------------------------------------ plain twins
@@ -126,11 +127,14 @@ def _fold_block(run_val, run_idx, scores, ids, slots):
 
 
 def _plain_fold(score, qp, grouped, tile_chunks, tile_segs, n_segments,
-                query_tile):
+                query_tile, tile_extra=None):
     """Shared body of the plain twins: per tile, the distinct chunks and
     their segments, folded in blocks of PLAIN_BLOCK_CHUNKS.
     score(lo, hi, rows) gives the (hi - lo, len(rows)) f32 scores of queries
-    [lo, hi) against the grouped rows `rows`."""
+    [lo, hi) against the grouped rows `rows`. With `tile_extra`, a third
+    per-entry list (the PQ probe's owning cells), a chunk's value is taken
+    where its segment is, at its first occurrence, and score gets the
+    block's values as a fourth argument."""
     n_chunks = grouped.shape[0] // CHUNK
     dev = grouped.device
     n_slots = CHUNK * n_segments
@@ -145,6 +149,8 @@ def _plain_fold(score, qp, grouped, tile_chunks, tile_segs, n_segments,
         # scores nothing
         ok = (useg >= 0) & (useg < n_segments)
         uniq, useg = uniq[ok], useg[ok]
+        if tile_extra is not None:
+            uextra = tile_extra[t][keep].long()[first][ok]
         lo_q, hi_q = t * query_tile, (t + 1) * query_tile
         rv, ri = val[lo_q:hi_q], idx[lo_q:hi_q]
         for lo in range(0, uniq.shape[0], PLAIN_BLOCK_CHUNKS):
@@ -152,7 +158,9 @@ def _plain_fold(score, qp, grouped, tile_chunks, tile_segs, n_segments,
             rows = (c[:, None] * CHUNK + col).reshape(-1)
             slots = (useg[lo:lo + PLAIN_BLOCK_CHUNKS, None] * CHUNK
                      + col).reshape(1, -1)
-            rv, ri = _fold_block(rv, ri, score(lo_q, hi_q, rows),
+            extra = (() if tile_extra is None
+                     else (uextra[lo:lo + PLAIN_BLOCK_CHUNKS],))
+            rv, ri = _fold_block(rv, ri, score(lo_q, hi_q, rows, *extra),
                                  rows.to(torch.int32)[None], slots)
         val[lo_q:hi_q] = rv
         idx[lo_q:hi_q] = ri
@@ -541,7 +549,8 @@ def ivf_candidates_packed_int8(
 
 class ProbePlan(NamedTuple):
     """The kernel inputs of one probe: padded queries, the form, the
-    per-tile lists and the segment count."""
+    per-tile lists and the segment count; `qc2` is the coarse product
+    2 q . c that picked the cells (the PQ probe scores with it)."""
     queries: torch.Tensor  # (Q_pad, d) f32
     query_tile: int
     compact: bool
@@ -550,12 +559,17 @@ class ProbePlan(NamedTuple):
     off128: torch.Tensor
     w128: int
     n_segments: int
+    qc2: torch.Tensor      # (Q_pad, nlist) f32
 
 
 def probe_plan(queries, centroids, cell_offsets, cell_pad: int, k: int,
                nprobe: int, query_tile: int = MAX_QUERY_TILE,
-               force_compact: bool = False) -> ProbePlan:
-    """Coarse pick and per-tile lists, as pallas_ivf_search builds them."""
+               force_compact: bool = False,
+               expanded_chunks: Optional[int] = None) -> ProbePlan:
+    """Coarse pick and per-tile lists, as pallas_ivf_search builds them.
+    `expanded_chunks=n_chunks` asks for the expanded form at every size,
+    with chunk ids clamped to n_chunks - 1 before the sort: the one form of
+    the PQ probe (pallas_pq_search), which has no 2**20 dispatch."""
     qn, d = queries.shape
     if qn == 0:
         raise ValueError("ivf_probe_search: empty query batch")
@@ -565,7 +579,8 @@ def probe_plan(queries, centroids, cell_offsets, cell_pad: int, k: int,
     if pad_q:
         q = torch.cat([q, q.new_zeros((pad_q, d))])
     c_sq = (centroids * centroids).sum(dim=-1)
-    c_scores = 2.0 * (q @ centroids.T) - c_sq[None, :]
+    qc2 = 2.0 * (q @ centroids.T)
+    c_scores = qc2 - c_sq[None, :]
     cells_pq = torch.topk(c_scores, nprobe, dim=1).indices  # (Q_pad, nprobe)
     cells = torch.sort(cells_pq.reshape(-1, qt * nprobe).to(torch.int32),
                        dim=1).values                       # (tiles, U)
@@ -573,19 +588,24 @@ def probe_plan(queries, centroids, cell_offsets, cell_pad: int, k: int,
     off128 = (cell_offsets // CHUNK).to(torch.int32)
     n_segments = max(4, -(-2 * k // CHUNK))
     n_expanded = cells.shape[0] * cells.shape[1] * w128
-    if n_expanded <= EXPANDED_MAX and not force_compact:
+    always = expanded_chunks is not None
+    if always or (n_expanded <= EXPANDED_MAX and not force_compact):
         w = torch.arange(w128, dtype=torch.int32, device=cells.device)
         chunks = (off128[cells.long()][:, :, None] + w).reshape(
             cells.shape[0], -1)
+        if always:
+            chunks = chunks.clamp(max=expanded_chunks - 1)
         chunks = torch.sort(chunks, dim=1).values
         # segment = rank among the tile's distinct sorted chunks
         distinct = torch.ones_like(chunks, dtype=torch.bool)
         distinct[:, 1:] = chunks[:, 1:] != chunks[:, :-1]
         ranks = torch.cumsum(distinct.to(torch.int32), dim=1) - 1
         segs = (ranks % n_segments).to(torch.int32)
-        return ProbePlan(q, qt, False, chunks, segs, off128, w128, n_segments)
+        return ProbePlan(q, qt, False, chunks, segs, off128, w128, n_segments,
+                         qc2)
     # hash-derived segments balance only statistically: 2x, as the reference
-    return ProbePlan(q, qt, True, cells, None, off128, w128, 2 * n_segments)
+    return ProbePlan(q, qt, True, cells, None, off128, w128, 2 * n_segments,
+                     qc2)
 
 
 def plan_candidates(plan: ProbePlan, grouped, grouped_sq, neg_mask,

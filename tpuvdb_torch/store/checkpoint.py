@@ -8,16 +8,22 @@ A checkpoint is `checkpoint_<ts>/` containing:
     wal_pos.txt      — max WAL LSN covered by this checkpoint
     ivf_warm.npz     — IVF engines: trained centroids, the live-row count
                        and mutation count at training, the mutation count
-                       at the checkpoint (a restart reuses the centroids)
+                       at the checkpoint (a restart reuses the centroids);
+                       IVF-PQ engines add the trained codebooks, the OPQ
+                       rotation and the rescore calibration (`pq_codebooks`,
+                       `pq_rotation`, `pq_err`, the last only when non-zero)
+    ivf_packed.npz   — IVF-PQ engines with ivf_checkpoint_packed: the whole
+                       packed device index (code cells, norms, validity,
+                       slot maps, codebooks), written by the engine into the
+                       staging directory; a restart uploads it instead of
+                       encoding every row again
     MANIFEST.json    — shard count/dim/format + completeness marker
                        (written last, so a torn checkpoint never restores)
 
 The layout is the reference's, so checkpoints restore across the two
 packages. Restore also reads what only the reference writes: a native
 `docstore.kv` snapshot, hardlinked mmap mirror files (`shard_<i>.vec/.sq/
-.scale`) and format-1 shards. The IVF-PQ extras (PQ codebooks and rotation
-in `ivf_warm.npz`, `ivf_packed.npz`) wait for the IVF-PQ slice: they are
-not written, and a warm state's PQ keys are ignored.
+.scale`) and format-1 shards.
 
 Retention keeps the newest `max_checkpoints`.
 """
@@ -93,7 +99,8 @@ class CheckpointManager:
         shard_snaps: List[dict],          # ShardMirror.checkpoint_snapshot()
         wal_pos: int,
         dim: int,
-        ivf_warm=None,  # (centroids, trained_live, mut_at_train, mut_now)
+        ivf_warm=None,  # (centroids, trained_live, mut_at_train, mut_now
+                        #  [, pq_codebooks, pq_rotation, pq_err])
     ) -> str:
         """Write and commit the checkpoint from snapshot descriptors that
         the caller captured under its lock; runs with the lock released."""
@@ -114,12 +121,22 @@ class CheckpointManager:
         with open(os.path.join(tmp, "wal_pos.txt"), "w") as f:
             f.write(str(int(wal_pos)))
         if ivf_warm is not None:
-            cents, trained_live, mut_at_train, mut_now = ivf_warm
+            cents, trained_live, mut_at_train, mut_now = ivf_warm[:4]
+            extra = {}
+            # IVF-PQ: the trained codebooks ride along, with the OPQ
+            # rotation and the adaptive-rescore calibration that pair with
+            # them (0 = uncalibrated, not stored)
+            if len(ivf_warm) > 4 and ivf_warm[4] is not None:
+                extra["pq_codebooks"] = np.asarray(ivf_warm[4], np.float32)
+            if len(ivf_warm) > 5 and ivf_warm[5] is not None:
+                extra["pq_rotation"] = np.asarray(ivf_warm[5], np.float32)
+            if len(ivf_warm) > 6 and ivf_warm[6]:
+                extra["pq_err"] = np.float64(ivf_warm[6])
             np.savez(os.path.join(tmp, "ivf_warm.npz"),
                      centroids=np.asarray(cents, np.float32),
                      trained_live=np.int64(trained_live),
                      mut_at_train=np.int64(mut_at_train),
-                     mut_at_ckpt=np.int64(mut_now))
+                     mut_at_ckpt=np.int64(mut_now), **extra)
         with open(os.path.join(tmp, "MANIFEST.json"), "w") as f:
             json.dump({"num_shards": len(shard_snaps), "dim": dim,
                        "format": 2, "docstore": "msgpack",
@@ -213,11 +230,28 @@ class CheckpointManager:
         else:  # f32 checkpoint -> int8 mirror: vectorized quantize
             m.load_f32(np.asarray(vec, np.float32), valid, n, deleted)
 
+    def load_ivf_packed(self):
+        """The arrays of the newest checkpoint's ivf_packed.npz as a dict,
+        or None. Loaded eagerly: an open NpzFile would pin a handle into
+        the checkpoint directory past retention prunes."""
+        path = self.latest()
+        if path is None:
+            return None
+        p = os.path.join(path, "ivf_packed.npz")
+        if not os.path.exists(p):
+            return None
+        try:
+            with np.load(p) as z:
+                return {k: z[k] for k in z.files}
+        except (OSError, ValueError, KeyError, zipfile.BadZipFile):
+            return None  # torn/corrupt extras never block recovery
+
     def load_ivf_warm(self):
-        """(centroids, trained_live, mut_at_train, mut_at_ckpt) of the
-        newest checkpoint, or None (no checkpoint, a flat engine's, or a
-        torn file). Checkpoints without the mutation keys give 0 for them,
-        as the reference reads them."""
+        """(centroids, trained_live, mut_at_train, mut_at_ckpt,
+        pq_codebooks | None, pq_rotation | None, pq_err) of the newest
+        checkpoint, or None (no checkpoint, a flat engine's, or a torn
+        file). Checkpoints without the mutation keys give 0 for them, and
+        0.0 for a missing pq_err, as the reference reads them."""
         path = self.latest()
         if path is None:
             return None
@@ -228,7 +262,12 @@ class CheckpointManager:
             with np.load(p) as z:
                 mt = int(z["mut_at_train"]) if "mut_at_train" in z else 0
                 mc = int(z["mut_at_ckpt"]) if "mut_at_ckpt" in z else 0
+                cb = np.array(z["pq_codebooks"]) if "pq_codebooks" in z \
+                    else None
+                rot = np.array(z["pq_rotation"]) if "pq_rotation" in z \
+                    else None
+                err = float(z["pq_err"]) if "pq_err" in z else 0.0
                 return (np.array(z["centroids"]), int(z["trained_live"]),
-                        mt, mc)
+                        mt, mc, cb, rot, err)
         except (OSError, ValueError, KeyError, zipfile.BadZipFile):
             return None  # torn/corrupt extras never block recovery
