@@ -17,10 +17,15 @@ side: three libraries.
               top-10 distances within rtol 1e-5. The same checks run on
               70,001-row corpora whose width or alignment leaves the
               kernel's vector loads (d = 99 and 100, a corpus pointer off
-              16 bytes). Prints the kernel's time,
-              the plain version's, `library_ms` (torch.topk over
+              16 bytes: TMA cannot read them, the kernel's element-wise
+              copy does). Prints the kernel's time and achieved TFLOP/s,
+              the plain version's time, `library_ms` (torch.topk over
               2 q.x^T - |x|^2, a yardstick the port never calls) and the
-              bound, each in ms.
+              bound, each in ms. The bound's operations term takes the
+              faster route for the type: bf16 on the tensor cores (989
+              TFLOP/s); f32 the smaller of 2QNd at 67 TFLOP/s (FMA) and
+              3 x 2QNd at 495 TFLOP/s (3xTF32 on the tensor cores), which
+              is 3xTF32; the route is printed beside it.
   engine      The port's main path at real size: DBConfig(vector_dim=512),
               4 shards, f32, search_mode="approx". Ingests 1,000,000 seeded
               unit vectors with put_rows (device corpus 1,048,576 x 512 f32),
@@ -44,12 +49,15 @@ side: three libraries.
               probe kernels against their plain twins, f32 and bf16, at
               Q = 1, 8 and 256: the expanded form as the search picks it,
               the compact form through force_compact, and the compact form
-              at Q = 1,024 with a probe set above 2**20 entries. Candidate
+              at Q = 1,024 with a probe set above 2**20 entries (f32 and
+              bf16). Candidate
               ids must agree in >= 99.9% of slots; scores and top-10
               distances within 1e-5 of 2|q||x|max + |x|max^2 (f32 sums of
               d products taken in another order). Prints each kernel's
-              time, its plain twin's and its bound (there is no single
-              PyTorch call that computes the probe: library_ms is null).
+              time and achieved TFLOP/s, its plain twin's time and its
+              bound, with the operations' route as in the kernel phase
+              (there is no single PyTorch call that computes the probe:
+              library_ms is null).
   ivf engine  The reference's IVF serving configuration
               (tpuvdb/bench/engine_serving.py:158-165): DBConfig(vector_dim=
               512, index_type="ivf", ivf_nlist=1024, ivf_nprobe=64,
@@ -164,10 +172,14 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth,
-# f32 outside the tensor cores, dense bf16 and int8 on the tensor cores
+# f32 outside the tensor cores, dense tf32, bf16 and int8 on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12,
               torch.int8: 1979e12}
+PEAK_TF32 = 495e12
+# an f32 product computed f32-accurately on the tensor cores (3xTF32: three
+# tf32 products) costs 3 tf32 operations
+TF32_PER_F32 = 3
 
 SCAN_N = 1 << 20
 SCAN_D = 512
@@ -236,22 +248,41 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def scan_bound_ms(nq: int, n: int, d: int, dtype) -> tuple:
-    """(ms, 'bytes'|'operations'): each input read once, each output
-    written once, over the HBM rate; 2*Q*N*d operations over the peak for
-    the corpus type."""
+def scan_work(nq: int, n: int, d: int, dtype) -> dict:
+    """Each input read once, each output written once; 2*Q*N*d
+    operations."""
     item = torch.tensor([], dtype=dtype).element_size()
     nbytes = (n * d * item + 2 * n * 4 + nq * d * 4
               + nq * BUCKETS * (4 + 4))
-    return _bound({"bytes": nbytes, "ops": 2.0 * nq * n * d}, dtype)
+    return {"bytes": nbytes, "ops": 2.0 * nq * n * d}
+
+
+def ops_ms(ops: float, dtype) -> tuple:
+    """(ms, route): the least time of `ops` operations of the data type on
+    the card. f32 takes the faster of its two routes: f32 FMA outside the
+    tensor cores, or 3xTF32 on them (three tf32 operations each)."""
+    if dtype == torch.float32:
+        fma = ops / PEAK_FLOPS[dtype] * 1e3
+        tc = TF32_PER_F32 * ops / PEAK_TF32 * 1e3
+        return (tc, "3xTF32 tensor cores") if tc < fma else (fma, "f32 FMA")
+    return ops / PEAK_FLOPS[dtype] * 1e3, f"{str(dtype).split('.')[-1]} tensor cores"
 
 
 def _bound(work: dict, dtype) -> tuple:
-    """(ms, 'bytes'|'operations'): the larger of the bytes over the HBM
-    rate and the operations over the peak for the data type."""
+    """(ms, 'bytes'|'operations', route of the operations): the larger of
+    the bytes over the HBM rate and the operations over the peak of their
+    route."""
     t_bytes = work["bytes"] / PEAK_BYTES_PER_S * 1e3
-    t_ops = work["ops"] / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    t_ops, route = ops_ms(work["ops"], dtype)
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", route
+    return t_ops, "operations", route
+
+
+def tflops(ops: float, ms: float) -> float:
+    """Achieved rate of the algorithm's operations (2 per multiply-add;
+    3xTF32's three products count once), TFLOP/s."""
+    return ops / (ms * 1e-3) / 1e12
 
 
 # --------------------------------------------------------------- phase 1
@@ -288,10 +319,12 @@ def phase_kernel(scan) -> dict:
             plain_ms = cuda_ms(
                 lambda: scan.scan_candidates_plain(q, x, s, m, BUCKETS), 3, 1)
             lib_ms = cuda_ms(lambda: _library_topk(q, x, s, 10), 3, 1)
-            bound, by = scan_bound_ms(nq, n, SCAN_D, dt)
+            work = scan_work(nq, n, SCAN_D, dt)
+            bound, by, route = _bound(work, dt)
             row = {"dtype": str(dt).split(".")[-1], "Q": nq, "N": n,
-                   "d": SCAN_D, "ms": ms, "plain_ms": plain_ms,
-                   "library_ms": lib_ms, "bound_ms": bound, "bound_by": by}
+                   "d": SCAN_D, "ms": ms, "tflops": tflops(work["ops"], ms),
+                   "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "bound_ms": bound, "bound_by": by, "bound_route": route}
             rows.append(row)
             log("kernel timing " + json.dumps(row))
     del corpora, corpus32
@@ -468,7 +501,9 @@ def _device_share(eng, queries, label: str) -> dict:
     torch.profiler trace: the self times of the device-side events
     (kernels and copies) summed. The host-side op that launched a kernel
     reports the same time again and is left out. "not measured" if the
-    profiler sees no device activity."""
+    profiler sees no device activity. Beside it the host side: the self
+    time of each host op and call per search (top 10; a wait on the card
+    shows under the call that waited)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     reps = 10
@@ -477,9 +512,13 @@ def _device_share(eng, queries, label: str) -> dict:
         for _ in range(reps):
             eng.search_batch(queries, 10)
         wall_ms = (time.perf_counter() - t) * 1e3
-    by_name = {}
+    by_name, host = {}, {}
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
+            # host side: the self time of each op and call (launches,
+            # allocations, copies, waits), what the host spends per search
+            if ev.self_cpu_time_total > 0:
+                host[ev.key] = ev.self_cpu_time_total / 1e3 / reps
             continue
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0))
@@ -487,7 +526,10 @@ def _device_share(eng, queries, label: str) -> dict:
             by_name[ev.key] = us / 1e3 / reps
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    res = {"wall_ms_per_search": wall_ms / reps}
+    res = {"wall_ms_per_search": wall_ms / reps,
+           "host_op_ms_per_search": sum(host.values()),
+           "top_host_ms": dict(sorted(host.items(),
+                                      key=lambda kv: -kv[1])[:10])}
     if busy <= 0:
         res["device_busy"] = "not measured"
     else:
@@ -661,10 +703,11 @@ def _int8_kernel_cases(ivf_probe, corpus_np, dead, queries, cases) -> dict:
             plan, idx8.grouped, idx8.grouped_sq, mask, plain=True,
             cell_scales=idx8.cell_scales), 2, 1)
         work = _plan_work(ivf_probe, plan, n_chunks, IVF_D, 1, row_extra=12)
-        bound, by = _bound(work, torch.int8)
+        bound, by, route = _bound(work, torch.int8)
         row = {"form": form, "dtype": "int8", "Q": nq, "nprobe": nprobe,
-               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-               "bound_by": by, **work}
+               "ms": ms, "tops": tflops(work["ops"], ms),
+               "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+               "bound_route": route, **work}
         rows.append(row)
         log("ivf kernel timing " + json.dumps(row))
     return {"rows": rows, "err_expanded": err[False],
@@ -710,8 +753,6 @@ def phase_ivf_kernel(ivf_probe) -> dict:
     rows, err = [], {False: 0.0, True: 0.0}
     for dt, g in cells.items():
         for nq, nprobe, force in cases:
-            if nq == IVF_COMPACT_Q and dt != torch.float32:
-                continue
             plan = ivf_probe.probe_plan(queries[:nq], idx.centroids,
                                         idx.cell_offsets, idx.cell_pad, 10,
                                         nprobe, force_compact=force)
@@ -727,10 +768,12 @@ def phase_ivf_kernel(ivf_probe) -> dict:
                 plan, g, idx.grouped_sq, mask, plain=True), 2, 1)
             work = _plan_work(ivf_probe, plan, n_chunks, IVF_D,
                               g.element_size())
-            bound, by = _bound(work, dt)
+            bound, by, route = _bound(work, dt)
             row = {"form": form, "dtype": str(dt).split(".")[-1], "Q": nq,
-                   "nprobe": nprobe, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": bound, "bound_by": by, **work}
+                   "nprobe": nprobe, "ms": ms,
+                   "tflops": tflops(work["ops"], ms), "plain_ms": plain_ms,
+                   "bound_ms": bound, "bound_by": by, "bound_route": route,
+                   **work}
             rows.append(row)
             log("ivf kernel timing " + json.dumps(row))
     f32_bytes = idx.nbytes()
@@ -1467,6 +1510,7 @@ def main() -> int:
         "max_abs_err": kern["max_abs_err"],
         "ms": m["ms"], "plain_ms": m["plain_ms"],
         "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+        "bound_route": m["bound_route"],
         "library_ms": m["library_ms"],
     }, {
         "name": "ivf_candidates",
@@ -1477,6 +1521,7 @@ def main() -> int:
         "max_abs_err": ivf_kern["err_expanded"],
         "ms": e["ms"], "plain_ms": e["plain_ms"],
         "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
+        "bound_route": e["bound_route"],
         "library_ms": no_library,
     }, {
         "name": "ivf_candidates_packed",
@@ -1487,6 +1532,7 @@ def main() -> int:
         "max_abs_err": ivf_kern["err_compact"],
         "ms": c["ms"], "plain_ms": c["plain_ms"],
         "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+        "bound_route": c["bound_route"],
         "library_ms": no_library,
     }, {
         "name": "ivf_candidates_int8",
@@ -1497,6 +1543,7 @@ def main() -> int:
         "max_abs_err": ivf_kern["err_expanded_int8"],
         "ms": e8["ms"], "plain_ms": e8["plain_ms"],
         "bound_ms": e8["bound_ms"], "bound_by": e8["bound_by"],
+        "bound_route": e8["bound_route"],
         "library_ms": no_library,
     }, {
         "name": "ivf_candidates_packed_int8",
@@ -1507,6 +1554,7 @@ def main() -> int:
         "max_abs_err": ivf_kern["err_compact_int8"],
         "ms": c8["ms"], "plain_ms": c8["plain_ms"],
         "bound_ms": c8["bound_ms"], "bound_by": c8["bound_by"],
+        "bound_route": c8["bound_route"],
         "library_ms": no_library,
     }, {
         # timed at the capacity shape (8,388,608 x 96 bytes, Q = 256); the

@@ -309,19 +309,29 @@ def test_out_of_range_entries_score_nothing(case, device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("nq", [1, 7, 37, 64, 200])
 @pytest.mark.parametrize("compact", [False, True])
-@pytest.mark.parametrize("dtype,d", [
-    (torch.float32, 128), (torch.float32, 100),
-    (torch.bfloat16, 128), (torch.bfloat16, 100),
+@pytest.mark.parametrize("dtype,d,offset", [
+    (torch.float32, 128, 0), (torch.float32, 100, 0),
+    (torch.bfloat16, 128, 0), (torch.bfloat16, 100, 0),
+    # off TMA's layouts: a row stride off 16 bytes (f32 d = 99) and a base
+    # `offset` elements past a 16-byte boundary
+    (torch.float32, 99, 0), (torch.float32, 128, 1),
+    (torch.bfloat16, 96, 1),
 ])
-def test_kernel_matches_plain_on_card(compact, dtype, d):
+def test_kernel_matches_plain_on_card(nq, compact, dtype, d, offset):
+    """Q = 1 and 7 walk one tile's list (width-8 product); 37, 64 and 200
+    go in groups of 5, 8 and 16 tiles through the group table (products
+    64, 64 and 128 wide; 200 leaves a last group of 9 tiles)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the IVF probe kernels have no CPU "
                     "mode")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    nlist, cell_pad, nq = 64, 256, 37
+    nlist, cell_pad = 64, 256
     n_g = nlist * cell_pad + cell_pad
-    grouped = torch.randn((n_g, d), generator=gen, device="cuda").to(dtype)
+    flat = torch.randn(n_g * d + offset, generator=gen,
+                       device="cuda").to(dtype)
+    grouped = flat[offset:].view(n_g, d)
     sq = grouped.float().pow(2).sum(dim=1)
     valid = torch.rand(n_g, generator=gen, device="cuda") >= 0.01
     cents = torch.randn((nlist, d), generator=gen, device="cuda")

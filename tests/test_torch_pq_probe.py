@@ -344,9 +344,9 @@ def test_a_newer_header_rebuilds_the_library(tmp_path, monkeypatch):
     assert not lib.up_to_date()
     os.unlink(paths["libk.so"])
     assert not lib.up_to_date()
-    for mod in (ivf_probe, pq_probe):
-        assert [os.path.basename(h) for h in mod.LIBRARY.headers] == [
-            "probe_common.cuh"]
+    for mod, headers in ((ivf_probe, ["probe_common.cuh", "hopper_mma.cuh"]),
+                         (pq_probe, ["probe_common.cuh"])):
+        assert [os.path.basename(h) for h in mod.LIBRARY.headers] == headers
         assert all(os.path.exists(h) for h in mod.LIBRARY.headers)
 
 

@@ -175,19 +175,49 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
                              torch.zeros(10, device="meta"))
 
 
+@pytest.mark.parametrize("n_buckets", [0, 64, 100, 192, 500])
+def test_wrapper_rejects_bucket_counts_the_kernel_does_not_take(n_buckets):
+    """A kernel block owns 128 consecutive buckets: other counts raise, on
+    either device, before any work; multiples of 128 go through."""
+    q, x = torch.zeros((2, 8)), torch.zeros((300, 8))
+    with pytest.raises(ValueError, match="multiple of 128"):
+        scan.scan_candidates(q, x, torch.zeros(300), torch.zeros(300),
+                             n_buckets)
+    meta = torch.zeros((300, 8), device="meta")
+    with pytest.raises(ValueError, match="multiple of 128"):
+        scan.scan_candidates(torch.zeros((2, 8), device="meta"), meta,
+                             torch.zeros(300, device="meta"),
+                             torch.zeros(300, device="meta"), n_buckets)
+    for ok in (128, 256, 512):
+        val, idx = scan.scan_candidates(q, x, torch.zeros(300),
+                                        torch.zeros(300), ok)
+        assert val.shape == idx.shape == (2, ok)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,nq,d,offset", [
     (torch.float32, 37, 128, 0),
     (torch.bfloat16, 37, 128, 0),
     (torch.float32, 1, 128, 0),
-    # off the vector loads: a partial last 16-deep slice (d=100), scalar
-    # loads for d % 4 (f32) or d % 8 (bf16) != 0, and a corpus pointer
-    # `offset` elements past a 16-byte boundary
+    # the query tiles 8, 32, 64 and 128 wide, and a batch of two tiles
+    (torch.float32, 7, 128, 0),
+    (torch.float32, 64, 128, 0),
+    (torch.float32, 200, 128, 0),
+    (torch.bfloat16, 1, 128, 0),
+    (torch.bfloat16, 7, 128, 0),
+    (torch.bfloat16, 64, 128, 0),
+    (torch.bfloat16, 200, 128, 0),
+    # off TMA's layouts (a row stride or a base off 16 bytes: the
+    # producer's element-wise copy), with a partial last depth slice: d=100
+    # (f32 rows 400 bytes, still TMA; bf16 200 bytes), 99, and a corpus
+    # pointer `offset` elements past a 16-byte boundary
     (torch.float32, 37, 100, 0),
     (torch.float32, 37, 99, 0),
     (torch.float32, 37, 128, 1),
     (torch.bfloat16, 37, 100, 0),
     (torch.bfloat16, 37, 96, 1),
+    (torch.float32, 200, 99, 0),
+    (torch.bfloat16, 200, 100, 0),
 ])
 def test_kernel_matches_plain_on_card(dtype, nq, d, offset):
     if not torch.cuda.is_available():

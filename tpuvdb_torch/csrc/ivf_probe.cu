@@ -29,39 +29,51 @@
 // expanded list; off128 ascends with the cell id in the compact one). So the
 // sequential fold keeps, per slot, the maximum score and, among equal
 // scores, the lowest row id, whatever the order or the repeats. That makes
-// the fold order-free, and blocks split a tile's list freely.
+// the fold order-free: blocks split a list freely, and one block may serve
+// several tiles.
 //
-// Design (simple first; tensor cores and TMA are later work):
-//   * grid = (query tiles) x (splits of the tile's list); 128 threads, one
-//     per row of a chunk. A block stages its tile's queries in shared memory
-//     (zero rows past QT), then walks its entries: thread j reads row
-//     chunk * 128 + j in 16-deep slices and accumulates its 8 dot products
-//     in f32 FMA (bf16 rows widened exactly; queries come pre-rounded to
-//     bf16, so each product is the exact bf16 x bf16 product, as the
-//     reference's f32-accumulating dot).
-//   * the candidate buffer lives in device memory as 64-bit keys
-//     (order-preserving score bits << 32 | ~row), folded with atomicMax: the
-//     largest key is the largest score and, on a tie, the lowest row. Rows
-//     whose score is <= -FLT_MAX (dead rows) are skipped, as the strict `>`
-//     from -FLT_MAX never lets them in; an empty slot keeps key 0, which
-//     decodes to (-FLT_MAX, -1). A second kernel decodes the keys.
-//   * an entry equal to the one before it (a chunk or a cell shared by the
-//     tile's queries) is skipped: it would fold the same keys again.
-//   * an entry that names no chunk, segment or cell of the arrays (an id out
-//     of range) scores nothing, so no list reads or writes outside them.
-//   * device memory, not shared memory, holds the buffer: at a wide fetch
-//     (k = 1,024, compact, S = 32) a tile's buffer is 8 x 4,096 x 8 B =
-//     256 KiB, more than a block's 227 KiB.
+// f32/bf16 cells (probe_mma_kernel), on the tensor cores:
+//   * A block serves a group of G tiles (G * QT queries, the wgmma width N
+//     = 8, 32, 64 or 128 the wrapper picks from Q) and walks the sorted
+//     union of the group's chunks, so each chunk is read once a group, not
+//     once a tile. The wrapper builds the group table with torch ops, one
+//     scatter and no sort (kernels/ivf_probe.py:group_table): per group and
+//     chunk id a G-wide row of the segment each tile gives the chunk, or -1
+//     where the tile does not list it. The producer walks its split's range
+//     of chunk ids 32 at a time (one row a lane, a ballot) and loads only
+//     the chunks some tile names, in ascending order. A batch of one tile
+//     (Q <= 8) skips the table: its block walks the tile's own list
+//     (entry_chunk) directly.
+//   * Per chunk, a 128-row x N product: rows as M (the chunk's two m64
+//     tiles, one consumer warpgroup each), the group's queries as N; bf16
+//     x bf16 or 3xTF32, with the chunk's 128 contiguous rows loaded slice by
+//     slice as 2-D TMA boxes through a ring of 3 (f32) or 4 (bf16) stages
+//     (csrc/hopper_mma.cuh; a grouped array off 16 bytes takes the
+//     producer's element-wise copy).
+//   * The epilogue folds query n's column only into its tile's own segment
+//     for the chunk, and nothing where the tile's row of the table is -1: a
+//     tile receives exactly the chunks of its own list. Its loads (table
+//     entries, current keys) go in batches of 16 before the batch's atomics,
+//     so their latencies overlap. The candidate
+//     buffer lives in device memory as 64-bit keys (order-preserving score
+//     bits << 32 | ~row, make_key), folded with atomicMax: the largest key
+//     is the largest score and, on a tie, the lowest row; a dead row never
+//     enters, an empty slot keeps key 0, and a second kernel decodes the
+//     keys. The buffer is in device memory because a wide fetch (k = 1,024,
+//     compact, S = 32) makes a tile's buffer 256 KiB.
+//   * Entries repeating the one before them, and ids out of range, score
+//     nothing, in the list walk (entry_chunk) as in the table.
 //
 // Bound on an H100 SXM: each distinct chunk moves 128 * d * 4 bytes (f32)
-// and costs 2 * QT * 128 * d operations; at d = 512 that is 256 KiB against
-// 1 MFLOP per chunk and tile, so a probe of few tiles is bound by bytes
-// (3.35 TB/s) and a probe of many tiles sharing chunks by operations
-// (67 TFLOP/s f32 FMA outside the tensor cores).
+// and a tile listing it 2 * QT * 128 * d operations (3x that in tf32 for
+// f32 cells: 495 TFLOP/s; bf16 989). The group computes its N columns for
+// every chunk of its union, whether each tile lists it or not: at Q = 256,
+// nprobe 64 of 1,024 cells, a tile lists about a third of its group's
+// chunks, so the kernel does about three times the operations of the bound.
 //
-// int8 cells (probe_fold_i8_kernel). Queries arrive quantized with one
-// batch-global scale qs (a device scalar); a row carries its dequant scale
-// rs. The score is
+// int8 cells (probe_fold_i8_kernel, CUDA cores). Queries arrive quantized
+// with one batch-global scale qs (a device scalar); a row carries its
+// dequant scale rs. The score is
 //
 //     ((2 * qs) * rs) * f32(q_i8 . x_i8) - ||x||^2 + mask
 //
@@ -69,13 +81,13 @@
 // The four f32 operations are written with __fmul_rn / __fsub_rn /
 // __fadd_rn in that order, so nvcc contracts none of them into an FMA and
 // each rounds once, as separate tensor ops do: kernel and plain twin agree
-// bit for bit. Queries are staged in shared memory as packed int8x4 words;
-// a thread reads its row 16 bytes at a time when d % 16 == 0 and the cell
-// array is 16-byte aligned, and byte by byte otherwise. The grid, the
-// entry walk, the keys and the decode are those of the f32/bf16 kernel.
-// Bound: a distinct chunk moves 128 * (d + 12) bytes (codes, scale, norm,
-// mask) and costs 2 * QT * 128 * d int8 operations (1,979 TOP/s on the
-// tensor cores; this kernel runs them on the CUDA cores).
+// bit for bit. grid = (query tiles) x (splits of the tile's list); 128
+// threads, one per row of a chunk. Queries are staged in shared memory as
+// packed int8x4 words; a thread reads its row 16 bytes at a time when
+// d % 16 == 0 and the cell array is 16-byte aligned, and byte by byte
+// otherwise. Bound: a distinct chunk moves 128 * (d + 12) bytes (codes,
+// scale, norm, mask) and costs 2 * QT * 128 * d int8 operations (1,979
+// TOP/s on the tensor cores; this kernel runs them on the CUDA cores).
 //
 // The list walk (entry_chunk), the keys (fold_key) and their decode are in
 // csrc/probe_common.cuh, shared with the IVF-PQ probe (csrc/pq_probe.cu).
@@ -89,130 +101,190 @@
 #include <cfloat>
 #include <cstdint>
 
-#include "probe_common.cuh"  // kRows, kMaxQT, entry_chunk, fold_key, decode
+#include "hopper_mma.cuh"    // the tensor-core pipeline
+#include "probe_common.cuh"  // kRows, kMaxQT, entry_chunk, keys, decode
 
 namespace {
 
-constexpr int kKT = 16;      // depth of one register slice of a row
+constexpr int kKT = 16;      // int8 kernel: depth of one slice of a row
 
-// One kKT-deep slice of a row as f32; zeros past d.
-__device__ __forceinline__ void load_slice(const float* __restrict__ x,
-                                           long long row, int d, int k0,
-                                           bool vec, float (&v)[kKT]) {
-  const float* p = x + row * static_cast<long long>(d) + k0;
-  if (vec && k0 + kKT <= d) {
-    const float4* p4 = reinterpret_cast<const float4*>(p);
-#pragma unroll
-    for (int j = 0; j < kKT / 4; ++j) {
-      const float4 t = __ldg(p4 + j);
-      v[4 * j] = t.x;
-      v[4 * j + 1] = t.y;
-      v[4 * j + 2] = t.z;
-      v[4 * j + 3] = t.w;
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < kKT; ++j) v[j] = (k0 + j < d) ? __ldg(p + j) : 0.f;
-  }
-}
+enum Walk { kListExpanded = 0, kListCompact = 1, kTable = 2 };
 
-__device__ __forceinline__ void load_slice(const __nv_bfloat16* __restrict__ x,
-                                           long long row, int d, int k0,
-                                           bool vec, float (&v)[kKT]) {
-  const __nv_bfloat16* p = x + row * static_cast<long long>(d) + k0;
-  if (vec && k0 + kKT <= d) {
-    const uint4* p4 = reinterpret_cast<const uint4*>(p);
-#pragma unroll
-    for (int j = 0; j < kKT / 8; ++j) {
-      const uint4 t = __ldg(p4 + j);
-      const uint32_t w[4] = {t.x, t.y, t.z, t.w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        // a bf16 is the high half of an f32: widening is a shift
-        v[8 * j + 2 * e] = __uint_as_float(w[e] << 16);
-        v[8 * j + 2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
+// A tile's own list, entries [e, e_end): the chunks entry_chunk accepts,
+// with their segments.
+template <bool kCompact>
+struct ListWalk {
+  const int* tcells;
+  const int* tsegs;
+  const int* off128;
+  int w128, n_chunks, nlist, n_seg, e, e_end;
+  __device__ __forceinline__ bool next(int* row0, int* aux0, int* aux1) {
+    while (e < e_end) {
+      int chunk, seg;
+      const bool ok = entry_chunk<kCompact>(e, tcells, tsegs, off128, w128,
+                                            n_chunks, nlist, n_seg, &chunk,
+                                            &seg);
+      ++e;
+      if (ok) {
+        *row0 = chunk * kRows;
+        *aux0 = seg;
+        *aux1 = 0;
+        return true;
       }
     }
-  } else {
+    return false;
+  }
+};
+
+// A group's table, chunk ids [c, c_end): the chunks some tile of the group
+// names (a row of the table not all -1), ascending. Each lane looks at one
+// of 32 chunk ids at a time, and a ballot keeps the named ones. aux0 is
+// the chunk, whose row gives each tile's segment.
+struct TableWalk {
+  const int* tab;    // the group's rows [n_chunks + 1][group]
+  int group, c, c_end, base;
+  unsigned int named;
+  __device__ __forceinline__ bool next(int* row0, int* aux0, int* aux1) {
+    while (named == 0) {
+      if (c >= c_end) return false;
+      const int mine = c + static_cast<int>(threadIdx.x & 31);
+      bool any = false;
+      if (mine < c_end) {
+        const int* r = tab + static_cast<long long>(mine) * group;
+        for (int j = 0; j < group; ++j) any |= __ldg(r + j) >= 0;
+      }
+      named = __ballot_sync(0xffffffffu, any);
+      base = c;
+      c += 32;
+    }
+    const int chunk = base + __ffs(named) - 1;
+    named &= named - 1;
+    *row0 = chunk * kRows;
+    *aux0 = chunk;
+    *aux1 = 0;
+    return true;
+  }
+};
+
+// The epilogue: column n of the product is query q0 + n, of the group's
+// tile n / qt; it folds into that tile's segment for the chunk. It works
+// in batches: the batch's table entries and current slot keys are all
+// loaded before any of its atomics, so their latencies overlap (an atomic
+// between two loads would order them, one round trip each).
+template <int N, bool kTabled>
+struct ProbeFold {
+  static constexpr int kBatch = N / 2 < 16 ? N / 2 : 16;
+  const float* sq;
+  const float* mask;
+  const int* tab;                // the group's rows [n_chunks + 1][group]
+  unsigned long long* keys;      // slot 0 of query q0
+  int qt, group, ncols, n_slots;
+
+  __device__ __forceinline__ void operator()(const float (&acc)[N / 2],
+                                             int4 block) {
+    const int t = threadIdx.x % 128;
+    const int r_lo = (threadIdx.x / 128) * 64 + (t / 32) * 16 + (t % 32) / 4;
+    float sq_r[2], mask_r[2];
 #pragma unroll
-    for (int j = 0; j < kKT; ++j)
-      v[j] = (k0 + j < d) ? __bfloat162float(p[j]) : 0.f;
+    for (int h = 0; h < 2; ++h) {
+      sq_r[h] = __ldg(sq + block.x + r_lo + 8 * h);
+      mask_r[h] = __ldg(mask + block.x + r_lo + 8 * h);
+    }
+#pragma unroll
+    for (int b = 0; b < N / 2; b += kBatch) {
+      unsigned long long* slot[kBatch];
+      unsigned long long cur[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int i = b + k;
+        const int col = 8 * (i / 4) + 2 * (t % 4) + (i % 2);
+        int seg = -1;
+        if (col < ncols)
+          seg = kTabled ? __ldg(tab + block.y * group + col / qt) : block.y;
+        slot[k] = seg < 0 ? nullptr
+                          : keys + static_cast<long long>(col) * n_slots +
+                                seg * kRows + r_lo + 8 * ((i % 4) / 2);
+      }
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k)
+        cur[k] = slot[k] != nullptr ? __ldcg(slot[k]) : ~0ull;
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int i = b + k;
+        const int h = (i % 4) / 2;
+        const float score =
+            __fadd_rn(__fsub_rn(2.f * acc[i], sq_r[h]), mask_r[h]);
+        if (slot[k] == nullptr || !(score > kNegInf)) continue;
+        const unsigned int row = block.x + r_lo + 8 * h;
+        const unsigned long long key =
+            make_key(score, static_cast<unsigned long long>(~row));
+        if (key > cur[k]) atomicMax(slot[k], key);
+      }
+    }
   }
-}
+};
 
-template <typename T, bool kCompact>
-__global__ void __launch_bounds__(kRows)
-probe_fold_kernel(const float* __restrict__ q, const T* __restrict__ x,
-                  const float* __restrict__ sq, const float* __restrict__ mask,
-                  const int* __restrict__ cells, const int* __restrict__ segs,
-                  const int* __restrict__ off128,
-                  unsigned long long* __restrict__ keys, int qt, int d,
-                  int width, int w128, int n_chunks, int nlist, int n_seg,
-                  int entries_per_block, bool vec) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* qs = reinterpret_cast<float*>(smem_raw);  // [kMaxQT][d_pad]
-  const int d_pad = (d + kKT - 1) / kKT * kKT;
-  const int tile = blockIdx.x;
-  const int tid = threadIdx.x;
-  for (int i = tid; i < kMaxQT * d_pad; i += kRows) {
-    const int qi = i / d_pad;
-    const int k = i % d_pad;
-    qs[i] = (qi < qt && k < d)
-                ? q[static_cast<long long>(tile * qt + qi) * d + k]
-                : 0.f;
-  }
-  __syncthreads();
+// grid = (groups, or the one tile of a list walk) x (splits of the walk)
+template <typename T, int N, int kWalk>
+__global__ void __launch_bounds__(hop::kThreads, 1)
+probe_mma_kernel(const __grid_constant__ CUtensorMap map_x,
+                 const __grid_constant__ CUtensorMap map_qh,
+                 const __grid_constant__ CUtensorMap map_ql, const T* x,
+                 const float* __restrict__ sq, const float* __restrict__ mask,
+                 const int* __restrict__ cells, const int* __restrict__ segs,
+                 const int* __restrict__ off128,
+                 const int* __restrict__ tab,
+                 unsigned long long* __restrict__ keys, int tiles, int qt,
+                 int group, int d, int width, int w128, int n_chunks,
+                 int nlist, int n_seg, int splits, int ragged) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = hop::align1024(smem_raw);
+  hop::init_ring<T, N>(base);
 
-  const int n_entries = kCompact ? width * w128 : width;
-  const int e_begin = blockIdx.y * entries_per_block;
-  const int e_end = min(e_begin + entries_per_block, n_entries);
-  const int* tcells = cells + static_cast<long long>(tile) * width;
-  const int* tsegs = kCompact ? nullptr
-                              : segs + static_cast<long long>(tile) * width;
+  const int g = blockIdx.x;
+  const int t0 = g * group;            // the group's first tile
+  const int q0 = t0 * qt;
   const int n_slots = kRows * n_seg;
-  unsigned long long* tkeys =
-      keys + static_cast<long long>(tile) * qt * n_slots;
+  const int n_rows = n_chunks * kRows;
 
-  for (int e = e_begin; e < e_end; ++e) {
-    int chunk, seg;
-    if (!entry_chunk<kCompact>(e, tcells, tsegs, off128, w128, n_chunks,
-                               nlist, n_seg, &chunk, &seg))
-      continue;
-    const long long row = static_cast<long long>(chunk) * kRows + tid;
-
-    float acc[kMaxQT];
-#pragma unroll
-    for (int i = 0; i < kMaxQT; ++i) acc[i] = 0.f;
-    for (int k0 = 0; k0 < d; k0 += kKT) {
-      float v[kKT];
-      load_slice(x, row, d, k0, vec, v);
-#pragma unroll
-      for (int i = 0; i < kMaxQT; ++i) {
-        const float* qi = qs + i * d_pad + k0;
-        float a = acc[i];
-#pragma unroll
-        for (int j = 0; j < kKT; j += 4) {
-          const float4 qv = *reinterpret_cast<const float4*>(qi + j);
-          a = fmaf(qv.x, v[j], a);
-          a = fmaf(qv.y, v[j + 1], a);
-          a = fmaf(qv.z, v[j + 2], a);
-          a = fmaf(qv.w, v[j + 3], a);
-        }
-        acc[i] = a;
-      }
+  if (threadIdx.x >= hop::kConsumers) {  // the producer warp
+    if (kWalk == kTable) {  // width = n_chunks: the ids this group sees
+      TableWalk walk{
+          tab + static_cast<long long>(g) * (width + 1) * group, group,
+          static_cast<int>(static_cast<long long>(width) * blockIdx.y /
+                           splits),
+          static_cast<int>(static_cast<long long>(width) *
+                           (blockIdx.y + 1) / splits),
+          0, 0u};
+      hop::produce<T, N>(base, &map_x, &map_qh, &map_ql, x, n_rows, d, q0,
+                         ragged != 0, walk);
+    } else {
+      constexpr bool kCompact = kWalk == kListCompact;
+      const long long n_entries =
+          kCompact ? static_cast<long long>(width) * w128 : width;
+      ListWalk<kCompact> walk{
+          cells + static_cast<long long>(t0) * width,
+          kCompact ? nullptr : segs + static_cast<long long>(t0) * width,
+          off128, w128, n_chunks, nlist, n_seg,
+          static_cast<int>(n_entries * blockIdx.y / splits),
+          static_cast<int>(n_entries * (blockIdx.y + 1) / splits)};
+      hop::produce<T, N>(base, &map_x, &map_qh, &map_ql, x, n_rows, d, q0,
+                         ragged != 0, walk);
     }
-
-    const float sq_r = __ldg(sq + row);
-    const float mask_r = __ldg(mask + row);
-    const unsigned long long low = ~static_cast<unsigned int>(row);
-#pragma unroll
-    for (int i = 0; i < kMaxQT; ++i) {
-      if (i >= qt) break;
-      const float score = 2.f * acc[i] - sq_r + mask_r;
-      fold_key(tkeys + static_cast<long long>(i) * n_slots + seg * kRows + tid,
-               score, low);
-    }
+    return;
   }
+  ProbeFold<N, kWalk == kTable> fold;
+  fold.sq = sq;
+  fold.mask = mask;
+  fold.tab = kWalk == kTable
+                 ? tab + static_cast<long long>(g) * (width + 1) * group
+                 : nullptr;
+  fold.keys = keys + static_cast<long long>(q0) * n_slots;
+  fold.qt = qt;
+  fold.group = group;
+  fold.ncols = min(group, tiles - t0) * qt;
+  fold.n_slots = n_slots;
+  hop::consume<T, N>(base, d, fold);
 }
 
 // int8 cells: see the header. q is the quantized batch (Q_pad, d) int8,
@@ -326,32 +398,86 @@ probe_fold_i8_kernel(const signed char* __restrict__ q,
   }
 }
 
-template <typename T, bool kCompact>
-int launch(const float* q, const T* x, const float* sq, const float* mask,
-           const int* cells, const int* segs, const int* off128,
-           unsigned long long* keys, float* val, int* idx, int tiles, int qt,
-           int d, int width, int w128, int n_chunks, int nlist, int n_seg,
-           int splits, int entries_per_block, int vec, int device,
+template <typename T, int N, int kWalk>
+cudaError_t launch_probe(const void* qh, const void* ql, const T* x,
+                         const float* sq, const float* mask, const int* cells,
+                         const int* segs, const int* off128, const int* tab,
+                         unsigned long long* keys, int blocks, int tiles, int qt, int group, int q_rows,
+                         int d_pad, int d, int width, int w128, int n_chunks,
+                         int nlist, int n_seg, int splits, int ragged,
+                         cudaStream_t stream) {
+  CUtensorMap map_x{}, map_qh{}, map_ql{};
+  cudaError_t e;
+  const long long n_rows = static_cast<long long>(n_chunks) * kRows;
+  if (!ragged) {
+    e = hop::make_map<T>(&map_x, x, n_rows, d, d, hop::kBlockRows);
+    if (e != cudaSuccess) return e;
+  }
+  e = hop::make_map<T>(&map_qh, qh, q_rows, d_pad, d_pad, N);
+  if (e != cudaSuccess) return e;
+  if (hop::Layout<T, N>::kSplit) {
+    e = hop::make_map<T>(&map_ql, ql, q_rows, d_pad, d_pad, N);
+    if (e != cudaSuccess) return e;
+  }
+  const size_t smem = hop::Layout<T, N>::kEnd + 1024;
+  e = cudaFuncSetAttribute(probe_mma_kernel<T, N, kWalk>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const dim3 grid(blocks, splits);
+  probe_mma_kernel<T, N, kWalk><<<grid, hop::kThreads, smem, stream>>>(
+      map_x, map_qh, map_ql, x, sq, mask, cells, segs, off128, tab, keys,
+      tiles, qt, group, d, width, w128, n_chunks, nlist, n_seg, splits,
+      ragged);
+  return cudaGetLastError();
+}
+
+// walk: kListExpanded / kListCompact (cells, segs / off128: one tile's list
+// a block, group 1, the width-8 product) or kTable (tab, the table of
+// kernels/ivf_probe.py:group_table, (groups, n_chunks + 1, group); width =
+// n_chunks: group tiles a block, the width-`cols` product).
+template <typename T>
+int launch(const float* q, void* qh, void* ql, const T* x, const float* sq,
+           const float* mask, const int* cells, const int* segs,
+           const int* off128, const int* tab, unsigned long long* keys,
+           float* val, int* idx, int walk, int tiles, int qt, int group, int cols,
+           int q_rows, int d_pad, int d, int width, int w128, int n_chunks,
+           int nlist, int n_seg, int splits, int ragged, int device,
            cudaStream_t stream) {
   cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  if (group * qt > cols || (walk != kTable && (group != 1 || cols != 8)))
+    return cudaErrorInvalidValue;
+  e = hop::prep_queries<T>(q, qh, ql, q_rows, d, d_pad, stream);
   if (e != cudaSuccess) return e;
   const long long count = static_cast<long long>(tiles) * qt * kRows * n_seg;
   e = cudaMemsetAsync(keys, 0, count * sizeof(unsigned long long), stream);
   if (e != cudaSuccess) return e;
-  const int d_pad = (d + kKT - 1) / kKT * kKT;
-  const size_t smem = static_cast<size_t>(kMaxQT) * d_pad * sizeof(float);
-  e = cudaFuncSetAttribute(probe_fold_kernel<T, kCompact>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
+  const int blocks = (tiles + group - 1) / group;
+#define TPUVDB_PROBE(NN, WW)                                                 \
+  launch_probe<T, NN, WW>(qh, ql, x, sq, mask, cells, segs, off128, tab,    \
+                          keys, blocks, tiles, qt, group, q_rows, d_pad, d,  \
+                          width, w128, n_chunks, nlist, n_seg, splits,       \
+                          ragged, stream)
+  if (walk == kListExpanded) {
+    e = TPUVDB_PROBE(8, kListExpanded);
+  } else if (walk == kListCompact) {
+    e = TPUVDB_PROBE(8, kListCompact);
+  } else if (cols == 8) {
+    e = TPUVDB_PROBE(8, kTable);
+  } else if (cols == 32) {
+    e = TPUVDB_PROBE(32, kTable);
+  } else if (cols == 64) {
+    e = TPUVDB_PROBE(64, kTable);
+  } else if (cols == 128) {
+    e = TPUVDB_PROBE(128, kTable);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+#undef TPUVDB_PROBE
   if (e != cudaSuccess) return e;
-  const dim3 grid(tiles, splits);
-  probe_fold_kernel<T, kCompact><<<grid, kRows, smem, stream>>>(
-      q, x, sq, mask, cells, segs, off128, keys, qt, d, width, w128, n_chunks,
-      nlist, n_seg, entries_per_block, vec != 0);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  const int blocks = static_cast<int>((count + 255) / 256);
-  decode_kernel<<<blocks, 256, 0, stream>>>(keys, val, idx, count);
+  const int dblocks = static_cast<int>((count + 255) / 256);
+  decode_kernel<<<dblocks, 256, 0, stream>>>(keys, val, idx, count);
   return cudaGetLastError();
 }
 
@@ -392,60 +518,38 @@ extern "C" {
 int tpuvdb_ivf_rows_per_chunk() { return kRows; }
 int tpuvdb_ivf_max_query_tile() { return kMaxQT; }
 
-// Expanded form: cells = chunk ids (tiles, width) sorted per tile, segs the
-// segment of each entry.
-int tpuvdb_ivf_expanded_f32(const float* q, const float* x, const float* sq,
-                            const float* mask, const int* cells,
-                            const int* segs, unsigned long long* keys,
-                            float* val, int* idx, int tiles, int qt, int d,
-                            int width, int n_chunks, int n_seg, int splits,
-                            int entries_per_block, int vec, int device,
-                            cudaStream_t stream) {
-  return launch<float, false>(q, x, sq, mask, cells, segs, nullptr, keys, val,
-                              idx, tiles, qt, d, width, 1, n_chunks, 0, n_seg,
-                              splits, entries_per_block, vec, device, stream);
+// f32/bf16 cells, either form. q: the padded (q_rows, d) f32 queries; qh,
+// ql: (q_rows, d_pad) scratch for their operands (f32: tf32 hi and lo
+// parts; bf16: qh the bf16 queries, ql unused); the lists of the walk (see
+// launch); keys the (Q_pad, 128 * n_seg) scratch decoded into val / idx.
+int tpuvdb_ivf_probe_f32(const float* q, void* qh, void* ql, const float* x,
+                         const float* sq, const float* mask, const int* cells,
+                         const int* segs, const int* off128, const int* tab,
+                         unsigned long long* keys, float* val, int* idx,
+                         int walk, int tiles, int qt, int group, int cols,
+                         int q_rows, int d_pad, int d, int width, int w128,
+                         int n_chunks, int nlist, int n_seg, int splits,
+                         int ragged, int device, cudaStream_t stream) {
+  return launch<float>(q, qh, ql, x, sq, mask, cells, segs, off128, tab,
+                       keys, val, idx, walk, tiles, qt, group, cols, q_rows,
+                       d_pad, d, width, w128, n_chunks, nlist, n_seg, splits,
+                       ragged, device, stream);
 }
 
-int tpuvdb_ivf_expanded_bf16(const float* q, const void* x, const float* sq,
-                             const float* mask, const int* cells,
-                             const int* segs, unsigned long long* keys,
-                             float* val, int* idx, int tiles, int qt, int d,
-                             int width, int n_chunks, int n_seg, int splits,
-                             int entries_per_block, int vec, int device,
-                             cudaStream_t stream) {
-  return launch<__nv_bfloat16, false>(
-      q, static_cast<const __nv_bfloat16*>(x), sq, mask, cells, segs, nullptr,
-      keys, val, idx, tiles, qt, d, width, 1, n_chunks, 0, n_seg, splits,
-      entries_per_block, vec, device, stream);
-}
-
-// Compact form: cells = probed cell ids (tiles, width) sorted per tile,
-// off128 the per-cell start in chunks (nlist entries), w128 the scan window
-// in chunks.
-int tpuvdb_ivf_compact_f32(const float* q, const float* x, const float* sq,
-                           const float* mask, const int* cells,
-                           const int* off128, unsigned long long* keys,
-                           float* val, int* idx, int tiles, int qt, int d,
-                           int width, int w128, int n_chunks, int nlist,
-                           int n_seg, int splits, int entries_per_block,
-                           int vec, int device, cudaStream_t stream) {
-  return launch<float, true>(q, x, sq, mask, cells, nullptr, off128, keys, val,
-                             idx, tiles, qt, d, width, w128, n_chunks, nlist,
-                             n_seg, splits, entries_per_block, vec, device,
-                             stream);
-}
-
-int tpuvdb_ivf_compact_bf16(const float* q, const void* x, const float* sq,
-                            const float* mask, const int* cells,
-                            const int* off128, unsigned long long* keys,
-                            float* val, int* idx, int tiles, int qt, int d,
-                            int width, int w128, int n_chunks, int nlist,
-                            int n_seg, int splits, int entries_per_block,
-                            int vec, int device, cudaStream_t stream) {
-  return launch<__nv_bfloat16, true>(
-      q, static_cast<const __nv_bfloat16*>(x), sq, mask, cells, nullptr,
-      off128, keys, val, idx, tiles, qt, d, width, w128, n_chunks, nlist,
-      n_seg, splits, entries_per_block, vec, device, stream);
+int tpuvdb_ivf_probe_bf16(const float* q, void* qh, void* ql, const void* x,
+                          const float* sq, const float* mask,
+                          const int* cells, const int* segs,
+                          const int* off128, const int* tab,
+                          unsigned long long* keys, float* val, int* idx,
+                          int walk, int tiles, int qt, int group, int cols,
+                          int q_rows, int d_pad, int d, int width, int w128,
+                          int n_chunks, int nlist, int n_seg, int splits,
+                          int ragged, int device, cudaStream_t stream) {
+  return launch<__nv_bfloat16>(
+      q, qh, ql, static_cast<const __nv_bfloat16*>(x), sq, mask, cells,
+      segs, off128, tab, keys, val, idx, walk, tiles, qt, group, cols,
+      q_rows, d_pad, d, width, w128, n_chunks, nlist, n_seg, splits, ragged,
+      device, stream);
 }
 
 // int8 cells: q the quantized queries, qscale their scale (one f32 on the

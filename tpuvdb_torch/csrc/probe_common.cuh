@@ -68,13 +68,19 @@ __device__ __forceinline__ bool entry_chunk(int e, const int* tcells,
   return *chunk >= 0 && *chunk < n_chunks;
 }
 
-// Fold one score into its slot: the largest key is the largest score and,
-// on a tie, the lowest row. A dead row (score <= -FLT_MAX) never enters.
+// The key of a score and its row's low word (~row): the largest key is the
+// largest score and, on a tie, the lowest row.
+__device__ __forceinline__ unsigned long long make_key(
+    float score, unsigned long long low) {
+  return (static_cast<unsigned long long>(order_bits(score)) << 32) | low;
+}
+
+// Fold one score into its slot. A dead row (score <= -FLT_MAX) never
+// enters.
 __device__ __forceinline__ void fold_key(unsigned long long* slot, float score,
                                          unsigned long long low) {
   if (!(score > kNegInf)) return;
-  const unsigned long long key =
-      (static_cast<unsigned long long>(order_bits(score)) << 32) | low;
+  const unsigned long long key = make_key(score, low);
   if (key > __ldcg(slot)) atomicMax(slot, key);
 }
 

@@ -1,4 +1,5 @@
-// Fused L2 scan with a per-bucket running max, for Hopper (sm_90a).
+// Fused L2 scan with a per-bucket running max on Hopper's tensor cores
+// (sm_90a).
 //
 // Replaces tpuvdb/kernels/pallas_scan.py::_scan_kernel (launched by
 // pallas_candidates). For every query q and bucket b it computes
@@ -10,27 +11,38 @@
 // whose score is <= -FLT_MAX (mask_r = -FLT_MAX for dead rows) never enter.
 // The (Q, N) score matrix is never written to device memory.
 //
-// Design (simple first; tensor cores, TMA and 3xTF32 are later work):
-//   * grid = (query tiles of 16) x (corpus splits). Splits give Q = 1 enough
-//     blocks for all 132 SMs; the 16 query-tile blocks of one split run side
-//     by side and read the same corpus rows, so the corpus comes from device
-//     memory about once and from L2 for the rest.
-//   * a block walks its split in steps of 256 rows. Each step is a
-//     16 x 256 x d product in f32 FMA: 16-deep slices of the query tile and
-//     of the 256 rows are staged in shared memory (double-buffered through
-//     registers), and each thread accumulates a 4 x 4 tile of scores.
-//   * the per-(query, bucket) running max and row live in shared memory
-//     (16 x NB x 8 bytes). 256 consecutive rows fall in 256 distinct buckets
-//     when NB >= 256, so no two threads update one slot in a step.
-//   * a second kernel merges the per-split buffers in split (= row) order
-//     with the same strict `>`, so the result equals the sequential fold.
-//   * bf16 corpora are widened to f32 when staged; the wrapper hands in the
-//     queries already rounded to bf16, so every product is the exact
-//     bf16 x bf16 product, accumulated in f32, as in the reference.
+// Bound on an H100 SXM, Q = 256, N = 1,048,576, d = 512: 2*Q*N*d = 2.7e11
+// operations. f32 on the tensor cores as 3xTF32 is three tf32 products each,
+// 8.2e11 at 495 TFLOP/s = 1.67 ms (below the 4.1 ms of f32 FMA at 67
+// TFLOP/s); bf16 2.7e11 at 989 TFLOP/s = 0.27 ms, under the 0.32 ms that its
+// 1.07 GB of rows take at 3.35 TB/s. Q = 1 is bound by the rows' bytes
+// (0.64 ms f32).
 //
-// Bound on an H100 SXM, Q = 256, N = 1,048,576, d = 512, f32: 2*Q*N*d =
-// 2.7e11 FLOP = 4.1 ms at 67 TFLOP/s of f32 FMA outside the tensor cores;
-// the corpus is 2.1 GB = 0.64 ms at 3.35 TB/s, which bounds Q = 1.
+// Design (csrc/hopper_mma.cuh holds the shared pipeline):
+//   * Rows as M, queries as N. A block owns a bucket range [b0, b0 + 128)
+//     and a tile of N queries (N = 8, 32, 64 or 128: Q = 1 pads to 8), and
+//     walks the rows g * NB + b0 .. g * NB + b0 + 127 of its split's groups
+//     g in increasing g. Those 128 rows are contiguous, so each depth slice
+//     is one 2-D TMA box, and accumulator element (m, n) belongs to the one
+//     slot (query n, bucket b0 + m) for the whole walk.
+//   * The running max of a slot lives in a register of the thread that owns
+//     the accumulator element: the strict-`>` fold is a compare in
+//     registers, in row order by construction, with no shared
+//     read-modify-write between threads. On an improvement the thread writes
+//     the group's offset in its split (16 bits) to its own cell of a shared
+//     slab, so a slot costs one register; the row is rebuilt at the end.
+//   * bf16 corpora: wgmma bf16 x bf16 -> f32. f32 corpora: 3xTF32 (the
+//     header of hopper_mma.cuh gives the error it leaves; the plain twin
+//     stays full f32).
+//   * A ring of 3 (f32) or 4 (bf16) TMA stages with mbarriers, filled by a
+//     producer warp ahead of the two consumer warpgroups. A corpus whose
+//     base or row stride is not a multiple of 16 bytes takes the producer's
+//     element-wise copy into the same layout, still on the tensor cores.
+//   * grid = (query tiles) x (NB / 128 bucket ranges) x (splits of the
+//     groups); the query tiles of one row range are neighbours in launch
+//     order, so the corpus comes from device memory about once. A second
+//     kernel merges the per-split buffers in split (= row) order with the
+//     same strict `>`, so the result equals the sequential fold.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC; bound with ctypes (tpuvdb_torch/kernels/scan.py).
@@ -41,185 +53,119 @@
 #include <cfloat>
 #include <cstdint>
 
+#include "hopper_mma.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kQT = 16;   // queries per block
-constexpr int kRT = 256;  // corpus rows per step
-constexpr int kKT = 16;   // depth of one shared-memory stage
-constexpr int kTQ = 4;    // queries per thread
-constexpr int kTR = 4;    // rows per thread
+using hop::kBlockRows;
+using hop::Layout;
+
 constexpr float kNegInf = -FLT_MAX;  // finfo(float32).min, as the reference
 
-static_assert(kRT == kThreads, "each thread stages one corpus row");
-static_assert(kQT * kKT == kThreads, "each thread stages one query element");
-static_assert((kQT / kTQ) * (kRT / kTR) == kThreads,
-              "thread tiles cover the block tile");
-static_assert(kTQ == 4 && kTR == 4, "the inner product reads float4 tiles");
+// Walk of a block: the 128-row blocks g * nb + b0, g in [g0, g1).
+struct ScanWalk {
+  int g, g1, nb, b0, g0;
+  __device__ __forceinline__ bool next(int* row0, int* aux0, int* aux1) {
+    if (g >= g1) return false;
+    *row0 = g * nb + b0;
+    *aux0 = g - g0;
+    *aux1 = 0;
+    ++g;
+    return true;
+  }
+};
 
-// One kKT-deep slice of a corpus row as f32; zeros past the ragged edges.
-__device__ __forceinline__ void load_slice(const float* __restrict__ x,
-                                           long long row, int n, int d,
-                                           int k0, bool vec, float (&v)[kKT]) {
-  if (row >= n) {
+// The fold: per accumulator element, its slot's running max in a register
+// and the group reaching it in the shared slab.
+template <int N>
+struct ScanFold {
+  float val[N / 2];
+  uint16_t* slab;    // [kBlockRows][N]
+  const float* sq;
+  const float* mask;
+  int n, ncols;      // rows of the corpus; live query columns of the tile
+
+  __device__ __forceinline__ void operator()(const float (&acc)[N / 2],
+                                             int4 block) {
+    const int t = threadIdx.x % 128;
+    const int r_lo = (threadIdx.x / 128) * 64 + (t / 32) * 16 + (t % 32) / 4;
+    float sq_r[2], mask_r[2];
+    bool live[2];
 #pragma unroll
-    for (int j = 0; j < kKT; ++j) v[j] = 0.f;
+    for (int h = 0; h < 2; ++h) {
+      const int row = block.x + r_lo + 8 * h;
+      live[h] = row < n;
+      sq_r[h] = live[h] ? __ldg(sq + row) : 0.f;
+      mask_r[h] = live[h] ? __ldg(mask + row) : 0.f;
+    }
+    const uint16_t g = static_cast<uint16_t>(block.y);
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const int h = (i % 4) / 2;
+      const int col = 8 * (i / 4) + 2 * (t % 4) + (i % 2);
+      if (!live[h] || col >= ncols) continue;
+      const float score =
+          __fadd_rn(__fsub_rn(2.f * acc[i], sq_r[h]), mask_r[h]);
+      if (score > val[i]) {
+        val[i] = score;
+        slab[(r_lo + 8 * h) * N + col] = g;
+      }
+    }
+  }
+};
+
+template <typename T, int N>
+__global__ void __launch_bounds__(hop::kThreads, 1)
+scan_kernel(const __grid_constant__ CUtensorMap map_x,
+            const __grid_constant__ CUtensorMap map_qh,
+            const __grid_constant__ CUtensorMap map_ql, const T* x,
+            const float* __restrict__ sq, const float* __restrict__ mask,
+            float* __restrict__ out_val, int* __restrict__ out_idx, int nq,
+            int n, int d, int nb, int groups_per_split, int ragged) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = hop::align1024(smem_raw);
+  using L = Layout<T, N>;
+  hop::init_ring<T, N>(base);
+
+  const int q0 = blockIdx.x * N;
+  const int b0 = blockIdx.y * kBlockRows;
+  const int split = blockIdx.z;
+  const int g0 = split * groups_per_split;
+  // groups whose row g * nb + b0 exists
+  const int g_rows = n > b0 ? (n - b0 + nb - 1) / nb : 0;
+  const int g1 = min(g0 + groups_per_split, g_rows);
+
+  if (threadIdx.x >= hop::kConsumers) {  // the producer warp
+    ScanWalk walk{g0, g1, nb, b0, g0};
+    hop::produce<T, N>(base, &map_x, &map_qh, &map_ql, x, n, d, q0,
+                       ragged != 0, walk);
     return;
   }
-  const float* p = x + row * static_cast<long long>(d) + k0;
-  if (vec && k0 + kKT <= d) {
-    const float4* p4 = reinterpret_cast<const float4*>(p);
+  ScanFold<N> fold;
 #pragma unroll
-    for (int j = 0; j < kKT / 4; ++j) {
-      const float4 t = __ldg(p4 + j);
-      v[4 * j] = t.x;
-      v[4 * j + 1] = t.y;
-      v[4 * j + 2] = t.z;
-      v[4 * j + 3] = t.w;
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < kKT; ++j) v[j] = (k0 + j < d) ? p[j] : 0.f;
-  }
-}
+  for (int i = 0; i < N / 2; ++i) fold.val[i] = kNegInf;
+  fold.slab = reinterpret_cast<uint16_t*>(base + L::kEnd);
+  fold.sq = sq;
+  fold.mask = mask;
+  fold.n = n;
+  fold.ncols = min(N, nq - q0);
+  hop::consume<T, N>(base, d, fold);
 
-__device__ __forceinline__ void load_slice(const __nv_bfloat16* __restrict__ x,
-                                           long long row, int n, int d,
-                                           int k0, bool vec, float (&v)[kKT]) {
-  if (row >= n) {
+  // this thread's slots -> (split, query, bucket)
+  const int t = threadIdx.x % 128;
+  const int r_lo = (threadIdx.x / 128) * 64 + (t / 32) * 16 + (t % 32) / 4;
 #pragma unroll
-    for (int j = 0; j < kKT; ++j) v[j] = 0.f;
-    return;
-  }
-  const __nv_bfloat16* p = x + row * static_cast<long long>(d) + k0;
-  if (vec && k0 + kKT <= d) {
-    const uint4* p4 = reinterpret_cast<const uint4*>(p);
-#pragma unroll
-    for (int j = 0; j < kKT / 8; ++j) {
-      const uint4 t = __ldg(p4 + j);
-      const uint32_t w[4] = {t.x, t.y, t.z, t.w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        // a bf16 is the high half of an f32: widening is a shift
-        v[8 * j + 2 * e] = __uint_as_float(w[e] << 16);
-        v[8 * j + 2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < kKT; ++j)
-      v[j] = (k0 + j < d) ? __bfloat162float(p[j]) : 0.f;
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
-scan_fold_kernel(const float* __restrict__ q, const T* __restrict__ x,
-                 const float* __restrict__ sq, const float* __restrict__ mask,
-                 float* __restrict__ out_val, int* __restrict__ out_idx,
-                 int nq, int n, int d, int nb, int tiles_per_split, bool vec) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* xs = reinterpret_cast<float*>(smem_raw);      // [2][kKT][kRT]
-  float* qs = xs + 2 * kKT * kRT;                      // [2][kKT][kQT]
-  float* run_val = qs + 2 * kKT * kQT;                 // [kQT][nb]
-  int* run_idx = reinterpret_cast<int*>(run_val + kQT * nb);  // [kQT][nb]
-
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * kQT;
-  const int split = blockIdx.y;
-  const int n_tiles = (n + kRT - 1) / kRT;
-  const int t_begin = split * tiles_per_split;
-  const int t_end = min(t_begin + tiles_per_split, n_tiles);
-  const int n_stages = (d + kKT - 1) / kKT;
-  const int tq = tid / (kRT / kTR);  // this thread's 4 queries: tq*4 ..
-  const int tr = tid % (kRT / kTR);  // this thread's 4 rows: tr*4 ..
-  const int lq = tid % kQT;          // query element this thread stages
-  const int lk = tid / kQT;
-  const bool q_live = q0 + lq < nq;
-  const float* q_row = q + static_cast<long long>(q0 + lq) * d;
-
-  for (int i = tid; i < kQT * nb; i += kThreads) {
-    run_val[i] = kNegInf;
-    run_idx[i] = -1;
-  }
-
-  float xv[kKT];
-  for (int t = t_begin; t < t_end; ++t) {
-    const long long base = static_cast<long long>(t) * kRT;
-    float acc[kTQ][kTR];
-#pragma unroll
-    for (int i = 0; i < kTQ; ++i)
-#pragma unroll
-      for (int j = 0; j < kTR; ++j) acc[i][j] = 0.f;
-
-    load_slice(x, base + tid, n, d, 0, vec, xv);
-    float qv = (q_live && lk < d) ? q_row[lk] : 0.f;
-#pragma unroll
-    for (int j = 0; j < kKT; ++j) xs[j * kRT + tid] = xv[j];
-    qs[lk * kQT + lq] = qv;
-    __syncthreads();
-
-    for (int s = 0; s < n_stages; ++s) {
-      const int buf = s & 1;
-      const bool more = s + 1 < n_stages;
-      if (more) {  // prefetch the next stage while this one computes
-        const int k0 = (s + 1) * kKT;
-        load_slice(x, base + tid, n, d, k0, vec, xv);
-        qv = (q_live && k0 + lk < d) ? q_row[k0 + lk] : 0.f;
-      }
-      const float* xb = xs + buf * kKT * kRT;
-      const float* qb = qs + buf * kKT * kQT;
-#pragma unroll
-      for (int kk = 0; kk < kKT; ++kk) {
-        const float4 a =
-            *reinterpret_cast<const float4*>(qb + kk * kQT + tq * kTQ);
-        const float4 b =
-            *reinterpret_cast<const float4*>(xb + kk * kRT + tr * kTR);
-        const float av[kTQ] = {a.x, a.y, a.z, a.w};
-        const float bv[kTR] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int i = 0; i < kTQ; ++i)
-#pragma unroll
-          for (int j = 0; j < kTR; ++j)
-            acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-      if (more) {
-        float* xn = xs + (buf ^ 1) * kKT * kRT;
-#pragma unroll
-        for (int j = 0; j < kKT; ++j) xn[j * kRT + tid] = xv[j];
-        qs[(buf ^ 1) * kKT * kQT + lk * kQT + lq] = qv;
-      }
-      __syncthreads();
-    }
-
-    // fold this step's scores into the running max (strict >)
-#pragma unroll
-    for (int j = 0; j < kTR; ++j) {
-      const long long r = base + tr * kTR + j;
-      if (r >= n) continue;
-      const float sq_r = __ldg(sq + r);
-      const float mask_r = __ldg(mask + r);
-      const int b = static_cast<int>(r % nb);
-#pragma unroll
-      for (int i = 0; i < kTQ; ++i) {
-        const float score = 2.f * acc[i][j] - sq_r + mask_r;
-        const int slot = (tq * kTQ + i) * nb + b;
-        if (score > run_val[slot]) {
-          run_val[slot] = score;
-          run_idx[slot] = static_cast<int>(r);
-        }
-      }
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < kQT * nb; i += kThreads) {
-    const int ql = i / nb;
-    if (q0 + ql < nq) {
-      const long long o =
-          (static_cast<long long>(split) * nq + q0 + ql) * nb + (i % nb);
-      out_val[o] = run_val[i];
-      out_idx[o] = run_idx[i];
-    }
+  for (int i = 0; i < N / 2; ++i) {
+    const int rl = r_lo + 8 * ((i % 4) / 2);
+    const int col = 8 * (i / 4) + 2 * (t % 4) + (i % 2);
+    if (col >= fold.ncols) continue;
+    const long long o =
+        (static_cast<long long>(split) * nq + q0 + col) * nb + b0 + rl;
+    const float v = fold.val[i];
+    out_val[o] = v;
+    out_idx[o] = v > kNegInf
+                     ? (g0 + fold.slab[rl * N + col]) * nb + b0 + rl
+                     : -1;
   }
 }
 
@@ -246,26 +192,72 @@ __global__ void merge_splits_kernel(const float* __restrict__ part_val,
   out_idx[i] = best_row;
 }
 
-template <typename T>
-int launch(const float* q, const T* x, const float* sq, const float* mask,
-           float* part_val, int* part_idx, float* out_val, int* out_idx,
-           int nq, int n, int d, int nb, int n_splits, int tiles_per_split,
-           int vec, int device, cudaStream_t stream) {
-  cudaError_t e = cudaSetDevice(device);
+template <typename T, int N>
+cudaError_t launch_tile(const void* qh, const void* ql, const T* x,
+                        const float* sq, const float* mask, float* val,
+                        int* idx, int nq, int d_pad, int n, int d, int nb,
+                        int n_splits, int groups_per_split, int ragged,
+                        cudaStream_t stream) {
+  CUtensorMap map_x{}, map_qh{}, map_ql{};
+  cudaError_t e;
+  if (!ragged) {
+    e = hop::make_map<T>(&map_x, x, n, d, d, kBlockRows);
+    if (e != cudaSuccess) return e;
+  }
+  e = hop::make_map<T>(&map_qh, qh, nq, d_pad, d_pad, N);
   if (e != cudaSuccess) return e;
-  const size_t smem =
-      static_cast<size_t>(2 * kKT * kRT + 2 * kKT * kQT) * sizeof(float) +
-      static_cast<size_t>(kQT) * nb * (sizeof(float) + sizeof(int));
-  e = cudaFuncSetAttribute(scan_fold_kernel<T>,
+  if (Layout<T, N>::kSplit) {
+    e = hop::make_map<T>(&map_ql, ql, nq, d_pad, d_pad, N);
+    if (e != cudaSuccess) return e;
+  }
+  const size_t smem = Layout<T, N>::kEnd +
+                      static_cast<size_t>(kBlockRows) * N * sizeof(uint16_t) +
+                      1024;
+  e = cudaFuncSetAttribute(scan_kernel<T, N>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  const dim3 grid((nq + kQT - 1) / kQT, n_splits);
+  const dim3 grid((nq + N - 1) / N, nb / kBlockRows, n_splits);
+  scan_kernel<T, N><<<grid, hop::kThreads, smem, stream>>>(
+      map_x, map_qh, map_ql, x, sq, mask, val, idx, nq, n, d, nb,
+      groups_per_split, ragged);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch(const float* q, void* qh, void* ql, const T* x, const float* sq,
+           const float* mask, float* part_val, int* part_idx, float* out_val,
+           int* out_idx, int nq, int d_pad, int n, int d, int nb,
+           int query_tile, int n_splits, int groups_per_split, int ragged,
+           int device, cudaStream_t stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  if (nb % kBlockRows != 0) return cudaErrorInvalidValue;
+  e = hop::prep_queries<T>(q, qh, ql, nq, d, d_pad, stream);
+  if (e != cudaSuccess) return e;
   const bool direct = n_splits == 1;
-  scan_fold_kernel<T><<<grid, kThreads, smem, stream>>>(
-      q, x, sq, mask, direct ? out_val : part_val,
-      direct ? out_idx : part_idx, nq, n, d, nb, tiles_per_split, vec != 0);
-  e = cudaGetLastError();
+  float* val = direct ? out_val : part_val;
+  int* idx = direct ? out_idx : part_idx;
+  switch (query_tile) {
+    case 8:
+      e = launch_tile<T, 8>(qh, ql, x, sq, mask, val, idx, nq, d_pad, n, d,
+                            nb, n_splits, groups_per_split, ragged, stream);
+      break;
+    case 32:
+      e = launch_tile<T, 32>(qh, ql, x, sq, mask, val, idx, nq, d_pad, n, d,
+                             nb, n_splits, groups_per_split, ragged, stream);
+      break;
+    case 64:
+      e = launch_tile<T, 64>(qh, ql, x, sq, mask, val, idx, nq, d_pad, n, d,
+                             nb, n_splits, groups_per_split, ragged, stream);
+      break;
+    case 128:
+      e = launch_tile<T, 128>(qh, ql, x, sq, mask, val, idx, nq, d_pad, n, d,
+                              nb, n_splits, groups_per_split, ragged, stream);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
   if (e != cudaSuccess || direct) return e;
   const long long count = static_cast<long long>(nq) * nb;
   const int blocks = static_cast<int>((count + 255) / 256);
@@ -278,28 +270,33 @@ int launch(const float* q, const T* x, const float* sq, const float* mask,
 
 extern "C" {
 
-int tpuvdb_scan_rows_per_step() { return kRT; }
-int tpuvdb_scan_queries_per_block() { return kQT; }
+int tpuvdb_scan_bucket_block() { return kBlockRows; }
 
-int tpuvdb_scan_f32(const float* q, const float* x, const float* sq,
-                    const float* mask, float* part_val, int* part_idx,
-                    float* out_val, int* out_idx, int nq, int n, int d,
-                    int nb, int n_splits, int tiles_per_split, int vec,
+// q: the (nq, d) f32 queries; qh, ql: (nq, d_pad) scratch for their
+// operands, d_pad a multiple of 16 bytes of the corpus type (f32: the tf32
+// hi and lo parts; bf16: qh the bf16 queries, ql unused); x the (n, d)
+// corpus; ragged = 1 when x's base or row stride is off 16 bytes.
+int tpuvdb_scan_f32(const float* q, void* qh, void* ql, const float* x,
+                    const float* sq, const float* mask, float* part_val,
+                    int* part_idx, float* out_val, int* out_idx, int nq,
+                    int d_pad, int n, int d, int nb, int query_tile,
+                    int n_splits, int groups_per_split, int ragged,
                     int device, cudaStream_t stream) {
-  return launch<float>(q, x, sq, mask, part_val, part_idx, out_val, out_idx,
-                       nq, n, d, nb, n_splits, tiles_per_split, vec, device,
-                       stream);
+  return launch<float>(q, qh, ql, x, sq, mask, part_val, part_idx, out_val,
+                       out_idx, nq, d_pad, n, d, nb, query_tile, n_splits,
+                       groups_per_split, ragged, device, stream);
 }
 
-int tpuvdb_scan_bf16(const float* q, const void* x, const float* sq,
-                     const float* mask, float* part_val, int* part_idx,
-                     float* out_val, int* out_idx, int nq, int n, int d,
-                     int nb, int n_splits, int tiles_per_split, int vec,
+int tpuvdb_scan_bf16(const float* q, void* qh, void* ql, const void* x,
+                     const float* sq, const float* mask, float* part_val,
+                     int* part_idx, float* out_val, int* out_idx, int nq,
+                     int d_pad, int n, int d, int nb, int query_tile,
+                     int n_splits, int groups_per_split, int ragged,
                      int device, cudaStream_t stream) {
   return launch<__nv_bfloat16>(
-      q, static_cast<const __nv_bfloat16*>(x), sq, mask, part_val, part_idx,
-      out_val, out_idx, nq, n, d, nb, n_splits, tiles_per_split, vec, device,
-      stream);
+      q, qh, ql, static_cast<const __nv_bfloat16*>(x), sq, mask, part_val,
+      part_idx, out_val, out_idx, nq, d_pad, n, d, nb, query_tile, n_splits,
+      groups_per_split, ragged, device, stream);
 }
 
 const char* tpuvdb_scan_error(int code) {

@@ -52,6 +52,31 @@ def queries_like(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
     return q
 
 
+MMA_WIDTHS = (8, 32, 64, 128)  # query tiles the tensor-core kernels build
+
+
+def mma_width(cols: int) -> int:
+    """The tensor-core kernels' query tile for `cols` queries: the narrowest
+    width that holds them (one query pads to 8), the widest above that."""
+    return next((w for w in MMA_WIDTHS if cols <= w), MMA_WIDTHS[-1])
+
+
+def mma_queries(queries: torch.Tensor, corpus: torch.Tensor):
+    """The tensor-core kernels' query inputs (csrc/hopper_mma.cuh): the f32
+    queries, contiguous, and scratch for the operands the kernel library
+    makes of them (prep_queries_kernel): rows padded to d_pad, a multiple
+    of 16 bytes; f32 corpora the tf32 hi and lo parts, bf16 corpora the
+    bf16 queries (the second buffer unused). Returns (queries, hi, lo,
+    d_pad)."""
+    q = queries.to(torch.float32).contiguous()
+    nq, d = q.shape
+    per = 16 // corpus.element_size()
+    d_pad = -(-d // per) * per
+    hi = torch.empty((nq, d_pad), dtype=corpus.dtype, device=q.device)
+    lo = torch.empty_like(hi) if corpus.dtype == torch.float32 else hi
+    return q, hi, lo, d_pad
+
+
 def _partial_neg_scores(qc: torch.Tensor, chunk: torch.Tensor,
                         chunk_sq: torch.Tensor) -> torch.Tensor:
     """(Q, B) negated partial scores 2 q.x - ||x||^2 in f32."""

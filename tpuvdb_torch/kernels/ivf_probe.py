@@ -23,6 +23,15 @@ plain PyTorch twin on CPU tensors:
                           call of pallas_ivf_candidates_packed_int8, :549):
                           the second form on int8 cells.
 
+On CUDA tensors the f32/bf16 forms run on the tensor cores: the wrapper
+groups `group_size` tiles, builds their `group_table` (per group and chunk
+id the segment each tile gives the chunk, or -1; one scatter on the
+device, no sort, no host sync) and the kernel reads each chunk some tile
+names once a group; a batch of one tile walks its own list and builds no
+table.
+`ivf_candidates_grouped_plain` is the plain consumer of that table and
+returns what the per-tile twins return.
+
 For each tile of `query_tile` queries all return, per query and slot
 (segment * 128 + column), the best score `2 q.x - ||x||^2 + mask` among the
 rows chunk * 128 + column of the chunks in that segment, and its row (the
@@ -66,13 +75,16 @@ import torch
 import torch.nn.functional as F
 
 from tpuvdb_torch.kernels.cuda_build import CudaLibrary
-from tpuvdb_torch.kernels.distance import queries_like
+from tpuvdb_torch.kernels.distance import (mma_queries, mma_width,
+                                           queries_like)
 from tpuvdb_torch.kernels.quant import int8_dots, quantize_batch
 
 NEG_INF = float(torch.finfo(torch.float32).min)
 CHUNK = 128          # rows per chunk, the reference's lane width
 MAX_QUERY_TILE = 8   # queries per tile, the reference's query_tile
 EXPANDED_MAX = 1 << 20
+MMA_COLS = 128       # queries of the widest tensor-core product
+MIN_BLOCK_CHUNKS = 4  # chunks a block of the tensor-core probe walks, at least
 PLAIN_BLOCK_CHUNKS = 512  # chunks gathered at once by the plain twins
 
 LAUNCHES_EXPANDED = 0  # ivf_candidates kernel launches (CUDA tensors)
@@ -86,12 +98,9 @@ _sm_counts = {}
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.tpuvdb_ivf_expanded_f32, lib.tpuvdb_ivf_expanded_bf16):
+    for fn in (lib.tpuvdb_ivf_probe_f32, lib.tpuvdb_ivf_probe_bf16):
         fn.restype = i
-        fn.argtypes = [p] * 9 + [i] * 10 + [p]
-    for fn in (lib.tpuvdb_ivf_compact_f32, lib.tpuvdb_ivf_compact_bf16):
-        fn.restype = i
-        fn.argtypes = [p] * 9 + [i] * 12 + [p]
+        fn.argtypes = [p] * 13 + [i] * 16 + [p]
     lib.tpuvdb_ivf_expanded_i8.restype = i
     lib.tpuvdb_ivf_expanded_i8.argtypes = [p] * 11 + [i] * 10 + [p]
     lib.tpuvdb_ivf_compact_i8.restype = i
@@ -101,7 +110,7 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 
 LIBRARY = CudaLibrary("ivf_probe.cu", "libtpuvdb_ivf_probe.so", _bind,
-                      headers=("probe_common.cuh",))
+                      headers=("probe_common.cuh", "hopper_mma.cuh"))
 
 
 # ------------------------------------------------------------ plain twins
@@ -262,6 +271,73 @@ def ivf_candidates_packed_int8_plain(queries, cells, off128, grouped_i8,
         n_segments, query_tile)
 
 
+def group_size(tiles: int, query_tile: int) -> int:
+    """Tiles a kernel block serves together: as many as the widest product
+    (128 queries) holds, so each chunk is read once for up to 128 queries."""
+    return max(1, min(tiles, MMA_COLS // query_tile))
+
+
+def list_entries(cells, segs=None, off128=None, w128: int = 1,
+                 n_chunks: int = 0, n_segments: int = 1):
+    """(chunk, segment, ok) for every entry of the per-tile lists, as the
+    kernel's list walk reads them (entry_chunk in csrc/probe_common.cuh):
+    expanded (segs given), an entry that repeats the one before it or names
+    no chunk or segment is not ok; compact (off128 given), entry g is chunk
+    min(off128[cells[g // w128]] + g % w128, n_chunks - 1) with segment
+    chunk mod n_segments, not ok where the cell is out of range (entries
+    that repeat a chunk carry its one segment)."""
+    if segs is None:
+        chunks = packed_chunks(cells, off128, w128, n_chunks)
+        ok = chunks >= 0
+        return chunks, torch.where(ok, chunks % n_segments, -1), ok
+    first = torch.ones_like(cells, dtype=torch.bool)
+    first[:, 1:] = cells[:, 1:] != cells[:, :-1]
+    ok = (first & (cells >= 0) & (cells < n_chunks) & (segs >= 0)
+          & (segs < n_segments))
+    return cells, segs, ok
+
+
+def group_table(chunks, segs, ok, n_chunks: int,
+                group: int) -> torch.Tensor:
+    """What each group of `group` consecutive tiles reads once, from the
+    per-tile entries (chunks, segs, ok, each (tiles, W), from
+    list_entries): a (groups, n_chunks + 1, group) int32 table whose
+    [g, c, j] is the segment tile g * group + j gives chunk c, or -1 where
+    that tile's list does not name it; a chunk no tile of the group names
+    is a row of -1, which the kernel skips, and row n_chunks takes the
+    entries that name no chunk (it is never read). One scatter, in torch
+    ops of fixed shapes: nothing is sorted or read back to the host."""
+    tiles, width = chunks.shape
+    groups = -(-tiles // group)
+    dev = chunks.device
+    tile = torch.arange(tiles, device=dev)[:, None]
+    chunk = torch.where(ok, chunks.long(), n_chunks)
+    flat = ((tile // group) * (n_chunks + 1) + chunk) * group + tile % group
+    table = torch.full((groups * (n_chunks + 1) * group,), -1,
+                       dtype=torch.int32, device=dev)
+    table[flat.reshape(-1)] = segs.to(torch.int32).reshape(-1)
+    return table.view(groups, n_chunks + 1, group)
+
+
+def ivf_candidates_grouped_plain(queries, table, grouped, grouped_sq,
+                                 neg_mask, n_segments: int, query_tile: int):
+    """Plain consumer of a group_table: each tile folds the chunks its
+    column of the table names, in their segments. Equal to
+    ivf_candidates_plain / ivf_candidates_packed_plain on the lists the
+    table was built from."""
+    _, rows, group = table.shape
+    tile_chunks, tile_segs = [], []
+    for t in range(queries.shape[0] // query_tile):
+        g, j = divmod(t, group)
+        col = table[g, :rows - 1, j]
+        listed = torch.nonzero(col >= 0).reshape(-1)
+        tile_chunks.append(listed)
+        tile_segs.append(col[listed])
+    return _plain_fold(_score_float(queries, grouped, grouped_sq, neg_mask),
+                       queries.shape[0], grouped, tile_chunks, tile_segs,
+                       n_segments, query_tile)
+
+
 # --------------------------------------------------------------- wrappers
 
 
@@ -323,14 +399,18 @@ def _check_lists(name, queries, query_tile, n_segments, cells, segs=None,
         raise ValueError(f"{name}: off128 must be 1-D")
 
 
-def _launch_shape(tiles: int, n_entries: int, dev) -> Tuple[int, int]:
-    """(splits, entries_per_block): about four blocks per SM in all."""
+def _splits(blocks: int, n_entries: int, dev) -> int:
+    """Splits of each block's walk: about four blocks per SM in all."""
     if dev.index not in _sm_counts:
         _sm_counts[dev.index] = torch.cuda.get_device_properties(
             dev).multi_processor_count
-    want = -(-4 * _sm_counts[dev.index] // tiles)
-    splits = max(1, min(n_entries, want, 65535))
-    epb = -(-n_entries // splits)
+    want = -(-4 * _sm_counts[dev.index] // blocks)
+    return max(1, min(n_entries, want, 65535))
+
+
+def _launch_shape(tiles: int, n_entries: int, dev) -> Tuple[int, int]:
+    """(splits, entries_per_block) of the int8 kernels: no empty split."""
+    epb = -(-n_entries // _splits(tiles, n_entries, dev))
     return -(-n_entries // epb), epb
 
 
@@ -361,34 +441,11 @@ def ivf_candidates(
         return ivf_candidates_plain(queries, cells, segs, grouped,
                                     grouped_sq, neg_mask, n_segments,
                                     query_tile)
-    # held in names until the launch: a temporary passed as a pointer
-    # could be freed, and its memory reused, before the kernel runs
-    sq = grouped_sq.reshape(-1).contiguous()
-    mask = neg_mask.reshape(-1).contiguous()
-    _check("ivf_candidates", queries, grouped, (sq, mask), (cells, segs))
-    lib = LIBRARY.load()
-    q = queries_like(queries, grouped).contiguous()
-    cells, segs = cells.contiguous(), segs.contiguous()
-    dev = grouped.device
-    tiles, width = cells.shape
-    keys, val, idx = _outputs(q.shape[0], n_segments, dev)
-    if tiles == 0 or width == 0:
-        return val.fill_(NEG_INF), idx.fill_(-1)
-    splits, epb = _launch_shape(tiles, width, dev)
-    f32 = grouped.dtype == torch.float32
-    d = grouped.shape[1]
-    vec = d % (4 if f32 else 8) == 0 and grouped.data_ptr() % 16 == 0
-    fn = lib.tpuvdb_ivf_expanded_f32 if f32 else lib.tpuvdb_ivf_expanded_bf16
-    rc = fn(q.data_ptr(), grouped.data_ptr(), sq.data_ptr(),
-            mask.data_ptr(), cells.data_ptr(), segs.data_ptr(),
-            keys.data_ptr(), val.data_ptr(), idx.data_ptr(), tiles,
-            query_tile, d, width, grouped.shape[0] // CHUNK, n_segments,
-            splits, epb, int(vec), dev.index,
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError("ivf probe kernel launch failed: "
-                           f"{lib.tpuvdb_ivf_error(rc).decode()}")
-    LAUNCHES_EXPANDED += 1
+    launched, val, idx = _launch_float(
+        "ivf_candidates", queries, grouped, grouped_sq, neg_mask, n_segments,
+        query_tile, cells, segs=segs)
+    if launched:
+        LAUNCHES_EXPANDED += 1
     return val, idx
 
 
@@ -412,36 +469,71 @@ def ivf_candidates_packed(
         return ivf_candidates_packed_plain(queries, cells, off128, grouped,
                                            grouped_sq, neg_mask, w128,
                                            n_segments, query_tile)
+    launched, val, idx = _launch_float(
+        "ivf_candidates_packed", queries, grouped, grouped_sq, neg_mask,
+        n_segments, query_tile, cells, off128=off128, w128=w128)
+    if launched:
+        LAUNCHES_COMPACT += 1
+    return val, idx
+
+
+def _launch_float(name, queries, grouped, grouped_sq, neg_mask, n_segments,
+                  query_tile, cells, segs=None, off128=None, w128=None):
+    """Shared body of the f32/bf16 wrappers on CUDA tensors: the expanded
+    lists (cells, segs) or the compact ones (cells, off128, w128). A batch
+    of one tile walks its list; more tiles go in groups of group_size
+    through their group_table. Returns (launched, val, idx)."""
     # held in names until the launch: a temporary passed as a pointer
     # could be freed, and its memory reused, before the kernel runs
     sq = grouped_sq.reshape(-1).contiguous()
     mask = neg_mask.reshape(-1).contiguous()
-    _check("ivf_candidates_packed", queries, grouped, (sq, mask),
-           (cells, off128))
+    compact = off128 is not None
+    second = off128 if compact else segs
+    _check(name, queries, grouped, (sq, mask), (cells, second))
     lib = LIBRARY.load()
-    q = queries_like(queries, grouped).contiguous()
-    cells, off128 = cells.contiguous(), off128.contiguous()
+    q, q_hi, q_lo, d_pad = mma_queries(queries, grouped)
+    cells, second = cells.contiguous(), second.contiguous()
     dev = grouped.device
     tiles, width = cells.shape
     keys, val, idx = _outputs(q.shape[0], n_segments, dev)
-    if tiles == 0 or width == 0:
-        return val.fill_(NEG_INF), idx.fill_(-1)
-    splits, epb = _launch_shape(tiles, width * w128, dev)
+    n, d = grouped.shape
+    if tiles == 0 or width == 0 or n == 0:
+        return False, val.fill_(NEG_INF), idx.fill_(-1)
+    n_chunks = n // CHUNK
+    group = group_size(tiles, query_tile)
+    nlist = off128.numel() if compact else 0
+    if group == 1:   # one tile: its own list, no table
+        walk = 1 if compact else 0
+        n_entries = width * (w128 if compact else 1)
+        lists = (cells, None if compact else second,
+                 second if compact else None, None)
+        tab_width, cols = width, mma_width(query_tile)
+    else:
+        table = group_table(*list_entries(
+            cells, None if compact else second, off128 if compact else None,
+            w128 or 1, n_chunks, n_segments), n_chunks, group)
+        walk = 2
+        n_entries = n_chunks   # chunk ids a group's blocks look at
+        lists = (None, None, None, table)
+        tab_width, cols = n_chunks, mma_width(group * query_tile)
+    blocks = -(-tiles // group)
+    # a few chunks a block at least: each block fills its ring anew
+    splits = _splits(blocks, max(1, n_entries // MIN_BLOCK_CHUNKS), dev)
+    # TMA reads a base and a row stride that are multiples of 16 bytes
+    ragged = grouped.data_ptr() % 16 != 0 or (d * grouped.element_size()) % 16
+    ptrs = [q.data_ptr(), q_hi.data_ptr(), q_lo.data_ptr(),
+            grouped.data_ptr(), sq.data_ptr(), mask.data_ptr()]
+    ptrs += [None if t is None else t.data_ptr() for t in lists]
     f32 = grouped.dtype == torch.float32
-    d = grouped.shape[1]
-    vec = d % (4 if f32 else 8) == 0 and grouped.data_ptr() % 16 == 0
-    fn = lib.tpuvdb_ivf_compact_f32 if f32 else lib.tpuvdb_ivf_compact_bf16
-    rc = fn(q.data_ptr(), grouped.data_ptr(), sq.data_ptr(),
-            mask.data_ptr(), cells.data_ptr(), off128.data_ptr(),
-            keys.data_ptr(), val.data_ptr(), idx.data_ptr(), tiles,
-            query_tile, d, width, w128, grouped.shape[0] // CHUNK,
-            off128.numel(), n_segments, splits, epb, int(vec), dev.index,
-            torch.cuda.current_stream(dev).cuda_stream)
+    fn = lib.tpuvdb_ivf_probe_f32 if f32 else lib.tpuvdb_ivf_probe_bf16
+    rc = fn(*ptrs, keys.data_ptr(), val.data_ptr(), idx.data_ptr(), walk,
+            tiles, query_tile, group, cols, q.shape[0], d_pad, d, tab_width,
+            w128 or 1, n_chunks, nlist, n_segments, splits, int(bool(ragged)),
+            dev.index, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError("ivf probe kernel launch failed: "
                            f"{lib.tpuvdb_ivf_error(rc).decode()}")
-    LAUNCHES_COMPACT += 1
-    return val, idx
+    return True, val, idx
 
 
 def _launch_int8(name, queries, lists, grouped_i8, cell_scales, grouped_sq,

@@ -14,13 +14,16 @@ On a CUDA tensor it launches the hand-written kernel in
 `tpuvdb_torch/build/` on first use (kernels/cuda_build.py) and bound
 with ctypes, or raises. On a
 CPU tensor it runs `scan_candidates_plain`, the same function in torch ops.
-`LAUNCHES` counts kernel launches.
+`LAUNCHES` counts kernel launches. On either device n_buckets must be a
+multiple of 128: a kernel block owns 128 buckets.
 
-Bound on an H100 SXM (published peaks: 67 TFLOP/s f32 FMA outside the
-tensor cores, 3.35 TB/s): at Q=256, N=1,048,576, d=512, f32 the scan does
-2*Q*N*d = 2.7e11 FLOP = 4.1 ms and reads 2.1 GB = 0.64 ms, so it is bound
-by operations; at Q=1 it is bound by bytes (0.64 ms). The kernel runs on
-the f32 FMA units, not the tensor cores (see scan.cu for its design).
+The kernel runs on the tensor cores: bf16 x bf16 products for bf16 corpora,
+3xTF32 for f32 ones (queries split on the card, once a call), fed by TMA, or
+by an element-wise copy where the corpus's base or row stride is off 16
+bytes (see scan.cu and hopper_mma.cuh). Bound on an H100 SXM at Q=256,
+N=1,048,576, d=512: f32 3 * 2*Q*N*d = 8.2e11 tf32 operations = 1.67 ms at
+495 TFLOP/s (the rows, 2.1 GB, take 0.64 ms at 3.35 TB/s); bf16 0.27 ms of
+operations, 0.32 ms of bytes. At Q=1 the bytes bound it.
 
 `scan_l2sq_topk` is the port of `pallas_l2sq_topk`: the scan plus an exact
 torch.topk over the (Q, n_buckets) candidates and `||q||^2 - score`, which
@@ -36,13 +39,14 @@ import torch
 import torch.nn.functional as F
 
 from tpuvdb_torch.kernels.cuda_build import CudaLibrary
-from tpuvdb_torch.kernels.distance import queries_like
+from tpuvdb_torch.kernels.distance import mma_queries, mma_width, queries_like
 
 NEG_INF = float(torch.finfo(torch.float32).min)
 
 LAUNCHES = 0  # kernel launches through scan_candidates on CUDA tensors
 
-MIN_BUCKETS = 256   # 256 consecutive rows per kernel step need distinct buckets
+BUCKET_BLOCK = 128            # buckets (and rows a step) of one kernel block
+MAX_GROUPS_PER_SPLIT = 65535  # a split's group offsets are kept in 16 bits
 PLAIN_BLOCK_ROWS = 16384
 
 _sm_counts = {}
@@ -52,27 +56,30 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.tpuvdb_scan_f32, lib.tpuvdb_scan_bf16):
         fn.restype = i
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p] * 10 + [i] * 10 + [p]
     lib.tpuvdb_scan_error.restype = ctypes.c_char_p
     lib.tpuvdb_scan_error.argtypes = [i]
 
 
-LIBRARY = CudaLibrary("scan.cu", "libtpuvdb_scan.so", _bind)
+LIBRARY = CudaLibrary("scan.cu", "libtpuvdb_scan.so", _bind,
+                      headers=("hopper_mma.cuh",))
 
 
-def _splits(nq: int, n: int, dev: torch.device) -> Tuple[int, int]:
-    """(n_splits, tiles_per_split): about four blocks per SM in all, no
-    empty split."""
+def _splits(nq: int, n: int, n_buckets: int, tile: int,
+            dev: torch.device) -> Tuple[int, int]:
+    """(n_splits, groups_per_split) of the n_buckets-row groups: about four
+    blocks per SM in all, no empty split, a split's group offsets within
+    16 bits."""
     if dev.index not in _sm_counts:
         _sm_counts[dev.index] = torch.cuda.get_device_properties(
             dev).multi_processor_count
-    lib = LIBRARY.load()
-    n_tiles = -(-n // lib.tpuvdb_scan_rows_per_step())
-    q_tiles = -(-nq // lib.tpuvdb_scan_queries_per_block())
-    want = -(-4 * _sm_counts[dev.index] // q_tiles)
-    s = max(1, min(n_tiles, want, 65535))
-    tps = -(-n_tiles // s)
-    return -(-n_tiles // tps), tps
+    groups = -(-n // n_buckets)
+    others = -(-nq // tile) * (n_buckets // BUCKET_BLOCK)
+    want = max(1, 4 * _sm_counts[dev.index] // others)
+    s = max(1, min(groups, want, 65535),
+            -(-groups // MAX_GROUPS_PER_SPLIT))
+    gps = -(-groups // s)
+    return -(-groups // gps), gps
 
 
 def scan_candidates(
@@ -85,6 +92,10 @@ def scan_candidates(
     """(cand_val f32, cand_idx int32), each (Q, n_buckets): per bucket the
     best negated partial score and its corpus row (-1 if none)."""
     global LAUNCHES
+    if n_buckets < BUCKET_BLOCK or n_buckets % BUCKET_BLOCK:
+        # a kernel block owns 128 consecutive buckets
+        raise ValueError(f"n_buckets={n_buckets}: the scan takes a positive "
+                         f"multiple of {BUCKET_BLOCK} buckets")
     sq = sqnorms.reshape(-1)
     mask = neg_mask.reshape(-1)
     if corpus.device.type == "cpu":
@@ -108,12 +119,13 @@ def scan_candidates(
         raise ValueError(f"queries {tuple(queries.shape)} vs corpus dim {d}")
     if sq.shape[0] != n or mask.shape[0] != n:
         raise ValueError("scan_candidates: sqnorms/neg_mask must have N rows")
-    if n_buckets < MIN_BUCKETS:
-        # more buckets than fit the block's shared memory fail at launch
-        raise ValueError(f"n_buckets={n_buckets}: the scan kernel needs "
-                         f">= {MIN_BUCKETS} buckets")
+    if n + n_buckets >= 2 ** 31:
+        raise ValueError(f"scan_candidates: {n} rows, the kernel takes "
+                         "fewer than 2**31")
     lib = LIBRARY.load()
-    q = queries_like(queries, corpus).contiguous()
+    # held in names until the launch: a temporary passed as a pointer could
+    # be freed, and its memory reused, before the kernel runs
+    q, q_hi, q_lo, d_pad = mma_queries(queries, corpus)
     sq = sq.contiguous()
     mask = mask.contiguous()
     nq = q.shape[0]
@@ -122,7 +134,8 @@ def scan_candidates(
     out_idx = torch.full((nq, n_buckets), -1, dtype=torch.int32, device=dev)
     if nq == 0 or n == 0:
         return out_val, out_idx
-    n_splits, tiles_per_split = _splits(nq, n, dev)
+    tile = mma_width(nq)
+    n_splits, gps = _splits(nq, n, n_buckets, tile, dev)
     if n_splits > 1:
         part_val = torch.empty((n_splits, nq, n_buckets), dtype=torch.float32,
                                device=dev)
@@ -130,13 +143,16 @@ def scan_candidates(
                                device=dev)
     else:
         part_val, part_idx = out_val, out_idx
+    # TMA reads a base and a row stride that are multiples of 16 bytes
+    ragged = (corpus.data_ptr() % 16 != 0
+              or (d * corpus.element_size()) % 16 != 0)
     f32 = corpus.dtype == torch.float32
-    vec = d % (4 if f32 else 8) == 0 and corpus.data_ptr() % 16 == 0
     fn = lib.tpuvdb_scan_f32 if f32 else lib.tpuvdb_scan_bf16
-    rc = fn(q.data_ptr(), corpus.data_ptr(), sq.data_ptr(), mask.data_ptr(),
+    rc = fn(q.data_ptr(), q_hi.data_ptr(), q_lo.data_ptr(),
+            corpus.data_ptr(), sq.data_ptr(), mask.data_ptr(),
             part_val.data_ptr(), part_idx.data_ptr(), out_val.data_ptr(),
-            out_idx.data_ptr(), nq, n, d, n_buckets, n_splits,
-            tiles_per_split, int(vec), dev.index,
+            out_idx.data_ptr(), nq, d_pad, n, d, n_buckets, tile, n_splits,
+            gps, int(ragged), dev.index,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(
