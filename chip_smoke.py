@@ -3,10 +3,13 @@
     python3 chip_smoke.py
 
 It runs every phase, in this order; any failure exits non-zero, and nothing
-is caught and carried on. The kernels (csrc/scan.cu; csrc/ivf_probe.cu with
-the f32/bf16 and the int8 probes; csrc/pq_probe.cu with the IVF-PQ ADC
-probe) are built first with nvcc for sm_90a, one nvcc per source, side by
-side: three libraries.
+is caught and carried on. The kernels (csrc/scan.cu; csrc/ivf_probe.cu, one
+tensor-core probe template for f32, bf16 and int8 cells; csrc/pq_probe.cu
+with the IVF-PQ ADC probe) are built first with nvcc for sm_90a, one nvcc
+per source, side by side: three libraries. Their registers and spills
+(nvcc -Xptxas -v) and, where cuobjdump is installed, each library's count
+of tensor-core instructions (HGMMA for bf16 / tf32, IGMMA for s8) and TMA
+loads (UTMALDG) are printed.
 
   kernel      Holds the scan
               kernel against its plain PyTorch version on 1,048,576 x 512
@@ -78,9 +81,11 @@ side: three libraries.
               made to fail) and returns identical keys.
   int8 kernel Inside the ivf kernel phase, on the same corpus and dead rows:
               IVFIndex.build(nlist 1,024, nprobe 64, dtype=torch.int8), and
-              both int8 probe kernels against their plain twins at Q = 1, 8
+              both int8 probe forms against their plain twins at Q = 1, 8
               and 256, the compact form through force_compact and at
-              Q = 1,024 above 2**20 entries. Exact int32 dots and f32
+              Q = 1,024 above 2**20 entries. The kernel is the f32/bf16
+              probe's template on wgmma s8 (the group table, each chunk
+              read once for up to 128 queries); exact int32 dots and f32
               operations rounded once each in both, so candidate ids and
               scores must be equal bit for bit (max_abs_err 0). The bound
               counts 1 byte per element plus 12 per row (scale, norm, mask)
@@ -124,8 +129,10 @@ side: three libraries.
               lookups (per tile QT x rows x M2) over the card's rate for
               them. With 256 codes a subspace that is the shared-memory
               rate for a bf16 entry: SMs x 128 bytes a clock / 2 bytes x the
-              card's maximum SM clock (nvidia-smi clocks.max.sm); a layout
-              that serves a tile's queries from one wide load reaches it.
+              card's maximum SM clock (nvidia-smi clocks.max.sm). The kernel
+              stages the LUT interleaved by query ([m][code][G]) and serves
+              G queries of a tile (G = 4 at 64 and 96 code bytes) from one
+              wide load a code, which a bank word carries whole.
               With 16 codes a subspace's table is 32 bytes and fits in
               registers, so shared memory is no floor: there the operations
               are the f32 additions, one a lookup, at SMs x 128 lanes a
@@ -1415,6 +1422,24 @@ def phase_ivf_pq(tt, pq_probe, data, queries, truth, keys, sm_clocks,
 # ------------------------------------------------------------------ main
 
 
+def log_sass_counts(libs) -> None:
+    """Each library's tensor-core (HGMMA: bf16 / tf32; IGMMA: s8) and TMA
+    load (UTMALDG) instructions, from cuobjdump -sass where it is
+    installed."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        log("cuobjdump not found: no SASS instruction counts")
+        return
+    for lib in libs:
+        sass = subprocess.run([tool, "-sass", lib.library],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        counts = {op: sass.count(op) for op in ("HGMMA", "IGMMA", "UTMALDG")}
+        log(f"sass {os.path.basename(lib.library)}: {json.dumps(counts)}")
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1435,6 +1460,7 @@ def main() -> int:
         for line in lib.build_log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"nvcc {os.path.basename(lib.source)}: {line.strip()}")
+    log_sass_counts(libs)
 
     kern = phase_kernel(scan)
     scan.LAUNCHES = 0

@@ -665,3 +665,54 @@ def test_keys_after_the_rerank_agree_with_the_jax_engine(rng, tier):
     assert recall(got) >= 0.9 and recall(jgot) >= 0.9
     first_same = np.mean([a[0] == b[0] for a, b in zip(got, jgot)])
     assert first_same >= 0.95
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_adaptive_rescore_counters_equal_the_jax_engine(tmp_path,
+                                                        monkeypatch, seed):
+    """The adaptive re-rank skips the same candidates as the reference's,
+    on a corpus where its bound does skip: tight clusters (spread 0.2 of
+    centres 3 apart), so most of the 64 x k window lies far past the kth
+    exact distance. The JAX engine builds the index and checkpoints it with
+    its packed file; the port restarts from that data_dir without a build,
+    so both hold the same codes, centroids and pq_err, and with every cell
+    probed both rank the same candidates. rescored_rows and
+    rescore_skipped_rows must then agree (up to candidates whose bound
+    lies within rounding of the kth distance), and the keys be equal."""
+    rng = np.random.default_rng(seed)
+    d = str(tmp_path / "db")
+    kw = dict(shard_capacity=4096, ivf_delta_max=100_000)
+    cents = rng.standard_normal((8, DIM)).astype(np.float32) * 3
+    vecs = {f"k{i}": cents[i % 8]
+            + rng.standard_normal(DIM).astype(np.float32) * 0.2
+            for i in range(1500)}
+    q = np.stack([vecs[f"k{i}"] for i in range(32)])
+    q = q + rng.standard_normal(q.shape).astype(np.float32) * 0.05
+    jeng = JaxEngine(pq_config(JaxConfig, **kw), data_dir=d)
+    _jax_fill(jeng, vecs)
+    jeng.flush()
+    jeng.close()
+    forbid_training(monkeypatch)
+    forbid_build(monkeypatch)
+    eng = engine(d, **kw)
+    jeng = JaxEngine(pq_config(JaxConfig, **kw), data_dir=d)
+    for name in ("rescored_rows", "rescore_skipped_rows"):
+        assert eng.stats[name] == jeng.stats[name] == 0
+    _, keys = eng.search_batch(q, 10)
+    _, jkeys = jeng.search_batch(q, 10)
+    assert eng.stats.get("ivf_packed_restores", 0) == 1
+    assert eng._ivf.pq_err == pytest.approx(jeng._ivf.pq_err, rel=1e-6)
+    assert keys == jkeys
+    done, jdone = eng.stats["rescored_rows"], jeng.stats["rescored_rows"]
+    skip = eng.stats["rescore_skipped_rows"]
+    jskip = jeng.stats["rescore_skipped_rows"]
+    window = 32 * 10 * eng.config.ivf_pq_rescore_overfetch
+    assert done + skip == jdone + jskip == window   # the same candidates
+    # a candidate whose bound lies within f32 rounding of the kth exact
+    # distance may fall either way: the ADC sums are taken in another
+    # order (the port adds subspaces in turn, the reference contracts a
+    # one-hot), so at most 0.1% of the window may differ
+    assert abs(skip - jskip) <= 0.001 * (done + skip), (skip, jskip)
+    assert skip > done > 0      # the bound skips most of the window
+    eng.close()
+    jeng.close()

@@ -20,6 +20,10 @@
   reference's probe rows; given the same centroids, a port build packs the
   same codes, scales and norms; appends quantize and land as the
   reference's do.
+* What the s8 tensor-core kernel adds on the host: the padded query
+  operand (`int8_query_operand`) leaves every dot as it was, and the
+  int32 sums stay exact up to `INT8_MAX_DIM` columns, past which the
+  wrappers raise.
 
 The CUDA kernels cannot run here; `test_int8_kernel_matches_plain_on_card`
 holds them against the plain twins, bit for bit, when a card is present:
@@ -34,7 +38,8 @@ import pytest
 import torch
 
 from tpuvdb_torch.kernels import ivf_probe
-from tpuvdb_torch.kernels.quant import quantize_rows_np
+from tpuvdb_torch.kernels.quant import (int8_dots, quantize_batch,
+                                         quantize_rows_np)
 
 NEG_INF = ivf_probe.NEG_INF
 SCORE_RTOL, SCORE_ATOL = 1e-4, 1e-5
@@ -350,20 +355,69 @@ def test_int8_wrappers_reject_what_the_kernels_do_not_take():
         ivf_probe.ivf_candidates(q, cells, cells, x, z, z, 4, 8)
 
 
+@pytest.mark.parametrize("d", [27, 100, 128])
+def test_the_padded_query_operand_leaves_every_dot_unchanged(rng, d):
+    """The int8 kernel reads its queries by TMA, rows padded with zeros to
+    a multiple of 16 bytes (int8_query_operand). The pad is zeros and the
+    codes are quantize_batch's, so every dot with a row is the unpadded
+    one, whatever the row holds past d (the kernel's copy of a ragged row
+    zero-fills it; TMA's out-of-range reads give zeros as well)."""
+    q = torch.from_numpy(rng.standard_normal((11, d)).astype(np.float32))
+    q8, qscale, d_pad = ivf_probe.int8_query_operand(q)
+    qi, want_scale = quantize_batch(q)
+    assert d_pad % 16 == 0 and d <= d_pad < d + 16
+    assert q8.shape == (11, d_pad) and q8.dtype == torch.int8
+    assert q8.is_contiguous() and torch.equal(qscale, want_scale)
+    assert torch.equal(q8[:, :d], qi) and not q8[:, d:].any()
+    rows = torch.from_numpy(rng.integers(-127, 128, (300, d_pad),
+                                         dtype=np.int8))
+    want = qi.long() @ rows[:, :d].long().T
+    got = q8.long() @ rows.long().T   # junk past d in the rows: no matter
+    assert torch.equal(got, want)
+    assert torch.equal(int8_dots(q8, rows).long(), want)
+
+
+def test_int8_dots_stay_exact_at_the_widest_row():
+    """|q|, |x| <= 127, so a dot of INT8_MAX_DIM columns fits int32 at its
+    largest (and smallest), running sums included, one column more may
+    not; the wrappers raise for such rows, on either device."""
+    wide = ivf_probe.INT8_MAX_DIM
+    for sign in (1, -1):
+        terms = np.full(wide, sign * 127 * 127, np.int64)
+        run64 = np.cumsum(terms)
+        run32 = np.cumsum(terms.astype(np.int32), dtype=np.int32)
+        assert np.array_equal(run32.astype(np.int64), run64)
+        assert abs(int(run64[-1])) <= 2 ** 31 - 1
+        assert abs(int(run64[-1]) + sign * 127 * 127) > 2 ** 31 - 1
+    x = torch.zeros((128, wide + 1), dtype=torch.int8)
+    z = torch.zeros(128)
+    cells = torch.zeros((1, 1), dtype=torch.int32)
+    q = torch.zeros((8, wide + 1))
+    with pytest.raises(ValueError, match="overflow int32"):
+        ivf_probe.ivf_candidates_int8(q, cells, cells, x, z, z, z, 4, 8)
+    with pytest.raises(ValueError, match="overflow int32"):
+        ivf_probe.ivf_candidates_packed_int8(q, cells, cells[0], x, z, z, z,
+                                             1, 4, 8)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("compact", [False, True])
 @pytest.mark.parametrize("d", [128, 100])
 @pytest.mark.parametrize("k", [10, 2560])
-def test_int8_kernel_matches_plain_on_card(compact, d, k):
-    """Kernel and twin agree bit for bit: exact int32 dots, and the four
-    f32 score operations each rounded once in both. d = 100 takes the
-    kernel's byte loads; k = 2,560 its widest candidate buffer (40 segments
-    expanded, 80 compact, as a rescore window of 256 * k asks)."""
+@pytest.mark.parametrize("nq", [1, 8, 32, 37, 256])
+def test_int8_kernel_matches_plain_on_card(compact, d, k, nq):
+    """Kernel and twin agree bit for bit: exact int32 dots on wgmma s8, and
+    the four f32 score operations each rounded once in both. nq = 1 and 8
+    walk one tile's list (the width-8 product), 32, 37 and 256 a group
+    table (widths 32, 64 and 128). d = 100 is off TMA's 16-byte rows and
+    takes the producer's element-wise copy; k = 2,560 the widest candidate
+    buffer (40 segments expanded, 80 compact, as a rescore window of 256 *
+    k asks)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the IVF probe kernels have no CPU "
                     "mode")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    nlist, cell_pad, nq = 64, 256, 37
+    nlist, cell_pad = 64, 256
     n_g = nlist * cell_pad + cell_pad
     rows = torch.randn((n_g, d), generator=gen, device="cuda")
     valid = torch.rand(n_g, generator=gen, device="cuda") >= 0.01

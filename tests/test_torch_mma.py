@@ -10,6 +10,13 @@ rest on, held on the CPU.
   against `pallas_ivf_candidates(interpret=True)` by
   tests/test_torch_ivf_probe.py, so the table is held to the reference
   through them.
+* The same table on int8 cells (the int8 kernel on wgmma s8 walks it
+  too): its consumer with `cell_scales` equals the int8
+  twins `ivf_candidates_int8_plain` / `ivf_candidates_packed_int8_plain`
+  bit for bit, in both forms, at d = 24 and 27 (off 16 bytes), at several
+  group sizes, and `pallas_ivf_candidates_int8` /
+  `pallas_ivf_candidates_packed_int8(interpret=True)` with the same ids and
+  scores within 1e-4 relative + 1e-5.
 * 3xTF32: a numpy emulation of the split the f32 kernels use (hi =
   tf32(x), lo = tf32(x - hi), round to nearest, ties away; the sum lo*hi +
   hi*lo + hi*hi, lo*lo dropped) holds the scan's score tolerance (rtol 1e-5
@@ -25,8 +32,14 @@ import torch
 
 from tpuvdb_torch.kernels import ivf_probe
 from tpuvdb_torch.kernels.distance import mma_queries, mma_width
+from tpuvdb_torch.kernels.quant import quantize_rows_np
 
 NEG_INF = ivf_probe.NEG_INF
+# int8 scores against the reference's: the int32 dots are exact in both and
+# the batch goes to both whole (one query scale); XLA may fuse the four f32
+# score operations where the port rounds each once (as
+# tests/test_torch_ivf_probe_int8.py holds them)
+INT8_RTOL, INT8_ATOL = 1e-4, 1e-5
 
 
 # ------------------------------------------------------------ group table
@@ -132,6 +145,118 @@ def test_group_size_and_widths():
     assert ivf_probe.group_size(40, 3) == 40 and ivf_probe.group_size(50, 3) == 42
     assert [mma_width(c) for c in (1, 8, 9, 33, 64, 65, 300)] == [
         8, 8, 32, 64, 64, 128, 128]
+
+
+# --------------------------------------------------- group table, int8
+
+
+@pytest.fixture()
+def ref_ivf():
+    """The JAX reference's probe functions, tpuvdb.kernels.pallas_ivf."""
+    import jax.numpy as jnp
+
+    from tpuvdb.kernels import pallas_ivf
+
+    return jnp, pallas_ivf
+
+
+def _grouped_int8(rng, n_chunks, d):
+    """int8 cells quantized per row as the index quantizes them, chunk 8 a
+    copy of chunk 0 (exact ties), 2% dead rows."""
+    n = n_chunks * 128
+    rows = rng.standard_normal((n, d)).astype(np.float32)
+    rows[8 * 128:9 * 128] = rows[:128]
+    codes, scales = quantize_rows_np(rows)
+    sq = np.einsum("nd,nd->n", rows, rows).astype(np.float32)
+    mask = np.zeros(n, np.float32)
+    mask[rng.choice(n, n // 50, replace=False)] = NEG_INF
+    return codes, scales, sq, mask
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.array(a)) for a in arrays]
+
+
+@pytest.mark.parametrize("d", [24, 27])
+@pytest.mark.parametrize("nq,qt", [(37, 8), (64, 8), (21, 3)])
+def test_group_table_equals_per_tile_twin_expanded_int8(rng, ref_ivf, d, nq,
+                                                        qt):
+    """The int8 kernel's group table (the tiles of a group sharing chunks,
+    as the f32 / bf16 ones do) folds exactly what the per-tile int8 twin
+    folds, ids and scores bit for bit, and what
+    pallas_ivf_candidates_int8 folds: the same ids, scores within
+    INT8_RTOL / INT8_ATOL."""
+    jnp, pallas_ivf = ref_ivf
+    n_chunks, n_seg = 24, 4
+    codes, scales, sq, mask = _grouped_int8(rng, n_chunks, d)
+    q_pad = -(-nq // qt) * qt
+    q = rng.standard_normal((q_pad, d)).astype(np.float32)
+    tiles = q_pad // qt
+    # per tile a sorted list of chunks in range, some shared, with repeats
+    cells = np.sort(rng.integers(0, n_chunks, (tiles, 20)), axis=1)
+    distinct = np.ones_like(cells, bool)
+    distinct[:, 1:] = cells[:, 1:] != cells[:, :-1]
+    segs = (np.cumsum(distinct, axis=1) - 1) % n_seg
+    cells, segs = cells.astype(np.int32), segs.astype(np.int32)
+    tq, tcells, tsegs, tcodes, tscales, tsq, tmask = _t(
+        q, cells, segs, codes, scales, sq, mask)
+    group = ivf_probe.group_size(tiles, qt)
+    table = ivf_probe.group_table(*ivf_probe.list_entries(
+        tcells, tsegs, n_chunks=n_chunks, n_segments=n_seg), n_chunks, group)
+    got = ivf_probe.ivf_candidates_grouped_plain(
+        tq, table, tcodes, tsq, tmask, n_seg, qt, cell_scales=tscales)
+    want = ivf_probe.ivf_candidates_int8_plain(
+        tq, tcells, tsegs, tcodes, tscales, tsq, tmask, n_seg, qt)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+    jval, jidx = pallas_ivf.pallas_ivf_candidates_int8(
+        jnp.asarray(q), jnp.asarray(cells), jnp.asarray(segs),
+        jnp.asarray(codes), jnp.asarray(scales)[None], jnp.asarray(sq)[None],
+        jnp.asarray(mask)[None], cell_pad=128, n_buckets=128, query_tile=qt,
+        n_segments=n_seg, cps=1, interpret=True)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(jidx))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(jval),
+                               rtol=INT8_RTOL, atol=INT8_ATOL)
+    assert (want[1] >= 0).any()
+
+
+@pytest.mark.parametrize("d", [24, 27])
+@pytest.mark.parametrize("nq,qt", [(37, 8), (21, 3)])
+def test_group_table_equals_per_tile_twin_compact_int8(rng, ref_ivf, d, nq,
+                                                       qt):
+    """The compact form's table on int8 cells: windows of 3 chunks from
+    cells 2 chunks apart (chunks reached from two cells, a clamp at the
+    last chunk), against the per-tile twin bit for bit and
+    pallas_ivf_candidates_packed_int8 as above."""
+    jnp, pallas_ivf = ref_ivf
+    n_chunks, n_seg, w128, nlist = 24, 8, 3, 12
+    codes, scales, sq, mask = _grouped_int8(rng, n_chunks, d)
+    q_pad = -(-nq // qt) * qt
+    q = rng.standard_normal((q_pad, d)).astype(np.float32)
+    tiles = q_pad // qt
+    off128 = np.arange(0, 2 * nlist, 2, dtype=np.int32)
+    cells = np.sort(rng.integers(0, nlist, (tiles, 6)), axis=1).astype(
+        np.int32)
+    tq, tcells, toff, tcodes, tscales, tsq, tmask = _t(
+        q, cells, off128, codes, scales, sq, mask)
+    group = ivf_probe.group_size(tiles, qt)
+    table = ivf_probe.group_table(*ivf_probe.list_entries(
+        tcells, off128=toff, w128=w128, n_chunks=n_chunks,
+        n_segments=n_seg), n_chunks, group)
+    got = ivf_probe.ivf_candidates_grouped_plain(
+        tq, table, tcodes, tsq, tmask, n_seg, qt, cell_scales=tscales)
+    want = ivf_probe.ivf_candidates_packed_int8_plain(
+        tq, tcells, toff, tcodes, tscales, tsq, tmask, w128, n_seg, qt)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+    jval, jidx = pallas_ivf.pallas_ivf_candidates_packed_int8(
+        jnp.asarray(q), jnp.asarray(cells), jnp.asarray(off128),
+        jnp.asarray(codes), jnp.asarray(scales)[None], jnp.asarray(sq)[None],
+        jnp.asarray(mask)[None], w128=w128, n_buckets=128, query_tile=qt,
+        n_segments=n_seg, cps=1, interpret=True)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(jidx))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(jval),
+                               rtol=INT8_RTOL, atol=INT8_ATOL)
 
 
 # ---------------------------------------------------------------- 3xTF32

@@ -24,6 +24,14 @@ reconstruction `_recon_dist` (numpy, f32 codebooks) must lie within the
 rounding bound of the bf16 LUT: 2**-8 of the largest entry of each
 subspace, summed over the subspaces.
 
+The kernel's layout is held here by a numpy emulation (`_emulate_kernel`):
+its interleaved table ([m][code][query of the block's group]), read a
+group's entries a load and summed in the kernel's order, gives the twin's
+candidates bit for bit, for 256 and 16 codes and groups of 8, 4, 2 and 1,
+and in place of the wrapper it holds pallas_pq_search's results at the
+tolerances above; `lut_group` picks the widest group whose table fits in a
+block's shared memory.
+
 The CUDA kernel cannot run here; `test_pq_kernel_matches_plain_on_card`
 holds it against the twin, bit for bit, when a card is present:
 
@@ -267,6 +275,142 @@ def test_twin_is_the_direct_sum():
             assert (val[qi, empty] == NEG_INF).all()
 
 
+def _bf16_bits_to_f32(bits):
+    """bf16 bits (uint16) widened as the kernel widens them: the high half
+    of an f32."""
+    return (bits.astype(np.uint32) << 16).view(np.float32)
+
+
+def _emulate_kernel(lut, qc2, cells, segs, cellof, codes, bias, n_seg, qt,
+                    group):
+    """numpy emulation of csrc/pq_probe.cu: per tile, blocks of `group`
+    queries; each stages the interleaved table [m * J + code][group] from
+    the LUT's bf16 bits, reads a code's `group` entries at once and adds
+    each into its query's f32 sum, subspaces ascending from +0, then
+    + qc2 of the entry's cell, then + bias; the fold keeps the best score
+    of a slot and the lowest row on a tie. Entries the kernel skips
+    (repeats, chunk, segment or cell out of range) score nothing."""
+    bits = lut.view(torch.int16).numpy().view(np.uint16)
+    qp, lut_w = bits.shape
+    mb = codes.shape[1]
+    n_codes = 256 if lut_w == mb * 256 else 16
+    codes_np, bias_np, qc2_np = codes.numpy(), bias.numpy(), qc2.numpy()
+    n_chunks = codes_np.shape[0] // 128
+    nlist = qc2_np.shape[1]
+    val = np.full((qp, 128 * n_seg), NEG_INF, np.float32)
+    idx = np.full((qp, 128 * n_seg), -1, np.int64)
+    for t in range(cells.shape[0]):
+        c, sg, cl = (a[t].numpy() for a in (cells, segs, cellof))
+        first = np.ones(len(c), bool)
+        first[1:] = c[1:] != c[:-1]
+        ok = (first & (c >= 0) & (c < n_chunks) & (sg >= 0) & (sg < n_seg)
+              & (cl >= 0) & (cl < nlist))
+        rows = (c[ok][:, None] * 128 + np.arange(128)).reshape(-1)
+        slots = (sg[ok][:, None] * 128 + np.arange(128)).reshape(-1)
+        cell = np.repeat(cl[ok], 128)
+        code = codes_np[rows].astype(np.int64)            # (R, Mb)
+        for j0 in range(0, qt, group):
+            ng = min(group, qt - j0)
+            q0 = t * qt + j0
+            staged = np.zeros((lut_w, group), np.uint16)
+            staged[:, :ng] = bits[q0:q0 + ng].T
+            acc = np.zeros((len(rows), group), np.float32)
+            for b in range(mb):
+                if n_codes == 256:
+                    picks = [b * 256 + code[:, b]]
+                else:  # low nibble: subspace 2b, high: 2b + 1
+                    picks = [2 * b * 16 + (code[:, b] & 15),
+                             (2 * b + 1) * 16 + (code[:, b] >> 4)]
+                for i in picks:    # one load: the group's entries of i
+                    acc = acc + _bf16_bits_to_f32(staged[i])
+            for j in range(ng):
+                score = (acc[:, j] + qc2_np[q0 + j, cell]) + bias_np[rows]
+                live = score > NEG_INF
+                s, r, sl = score[live], rows[live], slots[live]
+                order = np.lexsort((r, -s, sl))
+                s, r, sl = s[order], r[order], sl[order]
+                head = np.ones(len(sl), bool)
+                head[1:] = sl[1:] != sl[:-1]
+                val[q0 + j, sl[head]] = s[head]
+                idx[q0 + j, sl[head]] = r[head]
+    return torch.from_numpy(val), torch.from_numpy(idx.astype(np.int32))
+
+
+@pytest.mark.parametrize("n_codes,mb", [(256, 8), (256, 5), (16, 4)])
+@pytest.mark.parametrize("nq,group", [(37, 8), (37, 4), (20, 2), (3, 4),
+                                      (3, 1)])
+def test_interleaved_lut_emulation_equals_the_twin(n_codes, mb, nq, group):
+    """The kernel's interleaved table, read `group` entries a load and
+    summed in its order, gives the twin's candidates bit for bit (for 4-bit
+    codes too, nibble order included), with exact ties (a chunk copying
+    another), dead rows, an owning cell out of range and a last block of
+    fewer queries than the group."""
+    gen = torch.Generator().manual_seed(7)
+    plan, lut, cellof, bias, codes = _synthetic(mb, n_codes, 640, nq, "cpu",
+                                                gen)
+    codes[9 * 128:10 * 128] = codes[128:256]
+    bias[9 * 128:10 * 128] = bias[128:256]
+    cellof = cellof.clone()
+    cellof[0, 5] = 10 ** 6
+    args = (lut, plan.qc2, plan.cells, plan.segs, cellof, codes, bias,
+            plan.n_segments, plan.query_tile)
+    want_v, want_i = pq_probe.pq_candidates_plain(*args)
+    got_v, got_i = _emulate_kernel(*args, group)
+    torch.testing.assert_close(got_i, want_i, rtol=0, atol=0)
+    torch.testing.assert_close(got_v, want_v, rtol=0, atol=0)
+    assert (want_i >= 0).float().mean() > 0.5
+
+
+@pytest.mark.parametrize("case", ["8bit", "4bit"])
+def test_interleaved_lut_emulation_matches_pallas_pq_search(rng, ref,
+                                                            monkeypatch,
+                                                            case):
+    """The emulated kernel in place of the wrapper, through
+    pq_probe_search, against pallas_pq_search(interpret=True) on the JAX
+    package's index, at the module's tolerances (the reference contracts a
+    one-hot in one dot, so the two agree within DIST_ATOL, not bit for
+    bit)."""
+    x, idx = _built(ref, rng, case)
+    port = port_index(idx)
+    q = x[rng.choice(len(x), 20, replace=False)].copy()
+
+    def emulated(lut, qc2, cells, segs, cellof, codes, bias, n_seg, qt):
+        m2, n_codes = pq_probe._geometry("emulated", lut, codes)
+        return _emulate_kernel(lut, qc2, cells, segs, cellof, codes, bias,
+                               n_seg, qt, pq_probe.lut_group(m2, n_codes, qt))
+
+    monkeypatch.setattr(pq_probe, "pq_candidates", emulated)
+    nprobe = CASES[case]["nprobe"]
+    want_d, want_g = _ref_search(ref, idx, q, 640, nprobe)
+    got_d, got_g = _port_search(port, q, 640, nprobe)
+    _hold(want_d, want_g, got_d, got_g)
+
+
+@pytest.mark.parametrize("m2,n_codes,qt,want", [
+    (56, 256, 8, 8), (57, 256, 8, 4), (64, 256, 8, 4), (96, 256, 8, 4),
+    (113, 256, 8, 4), (114, 256, 8, 2), (227, 256, 8, 2), (228, 256, 8, 1),
+    (454, 256, 8, 1), (192, 16, 8, 8), (64, 256, 3, 4), (8, 256, 3, 4),
+    (8, 256, 2, 2), (8, 256, 1, 1), (96, 256, 1, 1), (8, 256, 5, 8)])
+def test_lut_group_fits_the_shared_memory(m2, n_codes, qt, want):
+    """A block serves the widest group whose interleaved table (M2 x J x G
+    bf16) fits in the 227 KB a block can have, and no wider than the
+    smallest power of two that holds the tile."""
+    g = pq_probe.lut_group(m2, n_codes, qt)
+    assert g == want
+    assert m2 * n_codes * g * 2 <= pq_probe.SMEM_MAX
+    if g < min(8, 1 << (qt - 1).bit_length()):
+        assert m2 * n_codes * 2 * g * 2 > pq_probe.SMEM_MAX
+
+
+def test_a_table_that_fits_at_no_group_raises():
+    """One query's table above 227 KB (455 x 256 bf16 entries) fits in no
+    block; the wrapper says so before any launch."""
+    with pytest.raises(ValueError, match="more than the 232448"):
+        pq_probe.lut_group(455, 256, 8)
+    with pytest.raises(ValueError, match="more than the 232448"):
+        pq_probe.lut_group(455, 256, 1)
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     gen = torch.Generator().manual_seed(1)
     plan, lut, cellof, bias, codes = _synthetic(4, 256, 10, 8, "cpu", gen)
@@ -351,20 +495,29 @@ def test_a_newer_header_rebuilds_the_library(tmp_path, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mb", [8, 50, 64, 96])
+@pytest.mark.parametrize("mb", [8, 50, 64, 96, 128])
 @pytest.mark.parametrize("n_codes", [256, 16])
 @pytest.mark.parametrize("k", [10, 640])
-def test_pq_kernel_matches_plain_on_card(mb, n_codes, k):
+@pytest.mark.parametrize("nq", [3, 37])
+def test_pq_kernel_matches_plain_on_card(mb, n_codes, k, nq):
     """Kernel and twin agree bit for bit: the same bf16 entries added in
     the same order, each f32 addition rounded once in both. Mb = 8 and 50
-    take the kernel's byte loads (50 from a base off 16 bytes), 64 and 96
-    its 16-byte loads; k = 640 is the PQ rescore window (10 segments)."""
+    take the kernel's byte loads (50 from a base off 16 bytes), 64, 96 and
+    128 its 16-byte loads; k = 640 is the PQ rescore window (10 segments).
+    A block serves G queries of a tile from its interleaved table: with
+    256 codes G = 8 at Mb = 8 and 50, 4 at 64 and 96, 2 at 128; with 16
+    codes 8; a tile of 3 queries (nq = 3) takes G = 4 at most, and its
+    last block serves fewer queries than G."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the PQ probe kernel has no CPU mode")
     gen = torch.Generator(device="cuda").manual_seed(0)
     plan, lut, cellof, bias, codes = _synthetic(
-        mb, n_codes, k, 37, "cuda", gen, unaligned=(mb == 50))
+        mb, n_codes, k, nq, "cuda", gen, unaligned=(mb == 50))
     assert plan.n_segments == (4 if k == 10 else 10)
+    m2 = mb if n_codes == 256 else 2 * mb
+    want_g = 8 if n_codes == 16 or mb <= 50 else 4 if mb <= 96 else 2
+    assert pq_probe.lut_group(m2, n_codes, plan.query_tile) == min(
+        want_g, 4 if nq == 3 else 8)
     assert (codes.data_ptr() % 16 != 0) == (mb == 50)
     args = (lut, plan.qc2, plan.cells, plan.segs, cellof, codes, bias,
             plan.n_segments, plan.query_tile)

@@ -10,9 +10,9 @@
 //   * 288 threads: two consumer warpgroups (rows 0-63 and 64-127 of each
 //     block, one m64nNk wgmma chain each) and one producer warp.
 //   * The producer fills a ring of stages, one 128-byte-wide slice of the
-//     depth per stage (32 f32 or 64 bf16 columns): the A slice (128 rows),
-//     the query slice (N rows) and, for f32, the slice of the queries' low
-//     parts. Each lands by a 2-D TMA box in the 128-byte swizzle that
+//     depth per stage (32 f32, 64 bf16 or 128 int8 columns): the A slice
+//     (128 rows), the query slice (N rows) and, for f32, the slice of the
+//     queries' low parts. Each lands by a 2-D TMA box in the 128-byte swizzle that
 //     wgmma's K-major descriptors read; one mbarrier a stage counts the
 //     bytes ("full"), one counts the 256 consumer threads that let the stage
 //     go ("empty"). TMA needs a 16-byte aligned base and a row stride that
@@ -22,7 +22,8 @@
 //     128 contiguous bytes at a time), zero-filled past the ragged edges,
 //     into the same swizzled layout, fences it for the async proxy and
 //     arrives. The queries always take TMA: prep_queries_kernel writes
-//     their operands with rows padded to a multiple of 16 bytes. (cp.async
+//     their f32/bf16 operands with rows padded to a multiple of 16 bytes,
+//     the int8 caller pads its quantized queries the same way. (cp.async
 //     copies at least 4 bytes, so a bf16 row off a 4-byte boundary cannot
 //     be copied by it.)
 //   * Each stage carries its metadata (row0, two words for the caller, the
@@ -31,6 +32,15 @@
 //   * bf16: wgmma m64nNk16 bf16 x bf16 -> f32. The queries arrive rounded to
 //     bf16 (distance.queries_like), so each product is the exact bf16 x bf16
 //     product and only the f32 summation order differs from the reference.
+//   * int8: wgmma m64nNk32 s8 x s8 -> s32, 128 columns a stage (one
+//     128-byte row, as bf16's 64), a ring of 6 stages. A k32 step of s8 is
+//     32 bytes, as a k16 step of bf16, so the descriptors and the swizzle
+//     are the same; TMA copies the bytes as UINT8 (the map type has no
+//     signed 8-bit kind; the bits are the same). The dot is exact in int32
+//     (|q|, |x| <= 127: |dot| <= 127^2 d, below 2^31 for d <= 133,144),
+//     so the order of the sums does not matter. The caller passes queries
+//     already quantized, rows padded with zeros to a multiple of 16 bytes
+//     (zero columns add 0 to an exact dot); no prep_queries.
 //   * f32: 3xTF32. Each operand x is split into hi = tf32(x) and lo =
 //     tf32(x - hi) (round to nearest, cvt.rna); the sum is lo*hi + hi*lo +
 //     hi*hi, in f32, on wgmma m64nNk8 tf32. prep_queries_kernel splits the
@@ -46,9 +56,9 @@
 //     the stage go, and call the epilogue with the accumulator and the
 //     block's metadata while the producer loads ahead.
 //
-// Accumulator layout (m64nN, f32): thread t of a warpgroup (warp w = t / 32,
-// lane l) holds acc[4 j + e] = element (16 w + l / 4 + 8 (e / 2),
-// 8 j + 2 (l % 4) + (e % 2)) of its 64 x N tile.
+// Accumulator layout (m64nN, f32 or s32): thread t of a warpgroup (warp
+// w = t / 32, lane l) holds acc[4 j + e] = element (16 w + l / 4 +
+// 8 (e / 2), 8 j + 2 (l % 4) + (e % 2)) of its 64 x N tile.
 
 #pragma once
 
@@ -76,6 +86,7 @@ struct Tile<float> {
   static constexpr bool kSplit = true;  // 3xTF32
   static constexpr CUtensorMapDataType kTmaType =
       CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  using Acc = float;                    // the accumulator's type
 };
 template <>
 struct Tile<__nv_bfloat16> {
@@ -84,6 +95,16 @@ struct Tile<__nv_bfloat16> {
   static constexpr bool kSplit = false;
   static constexpr CUtensorMapDataType kTmaType =
       CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  using Acc = float;
+};
+template <>
+struct Tile<int8_t> {
+  static constexpr int kBK = 128;
+  static constexpr int kStages = 6;     // 6 x 32 KiB at N = 128
+  static constexpr bool kSplit = false;
+  static constexpr CUtensorMapDataType kTmaType =
+      CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  using Acc = int;
 };
 
 // Byte offsets in the (1024-aligned) shared memory of a block; the caller's
@@ -197,6 +218,11 @@ __device__ __forceinline__ void fence_acc(float (&acc)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(acc[i]) :: "memory");
 }
+template <int R>
+__device__ __forceinline__ void fence_acc(int (&acc)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(acc[i]) :: "memory");
+}
 
 // K-major operand in the 128-byte swizzle: rows of 128 bytes, 8-row groups
 // 1024 bytes apart (SBO); the leading offset is unused in this mode. One
@@ -221,11 +247,15 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t da,
 template <int N>
 __device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], uint64_t da,
                                            uint64_t db, int scale_d);
+template <int N>
+__device__ __forceinline__ void wgmma_s8(int (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d);
 
 // The wgmma instructions for each N this repository uses, written out: the
 // inline PTX names every accumulator register. scale_d = 0 overwrites the
 // accumulator, 1 adds to it; both operands K-major ("1, 1" scale A and B by
-// +1; bf16 also takes "0, 0": no transpose).
+// +1; bf16 also takes "0, 0": no transpose; the integer forms take
+// neither).
 
 template <>
 __device__ __forceinline__ void wgmma_bf16<8>(float (&d)[4], uint64_t da,
@@ -395,11 +425,96 @@ __device__ __forceinline__ void wgmma_tf32<128>(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_s8<8>(int (&d)[4], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 {"
+      "%0, %1, %2, %3 "
+      "}, %4, %5, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<32>(int (&d)[16], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, %16, %17, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<64>(int (&d)[32], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<128>(int (&d)[64], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // --------------------------------------------------------- the pipeline
 
 template <typename T>
-using Raw = typename std::conditional<sizeof(T) == 4, uint32_t,
-                                      uint16_t>::type;
+using Raw = typename std::conditional<
+    sizeof(T) == 4, uint32_t,
+    typename std::conditional<sizeof(T) == 2, uint16_t, uint8_t>::type>::type;
 
 // The ragged path's copy of one 128 x kBK slice of A, element by element,
 // zeros past row n and column d, into the swizzled layout.
@@ -498,8 +613,9 @@ __device__ __forceinline__ void produce(unsigned char* base,
 }
 
 // The two consumer warpgroups. For each 128-row block, epi(acc, meta) with
-// meta = (row0, aux0, aux1, -) of the block; this warpgroup's rows are
-// 64 * (threadIdx.x / 128) .. + 63 of it.
+// meta = (row0, aux0, aux1, -) of the block and acc of Tile<T>::Acc (f32,
+// or s32 for int8); this warpgroup's rows are 64 * (threadIdx.x / 128) ..
+// + 63 of it.
 template <typename T, int N, class Epi>
 __device__ __forceinline__ void consume(unsigned char* base, int d,
                                         Epi& epi) {
@@ -513,9 +629,9 @@ __device__ __forceinline__ void consume(unsigned char* base, int d,
   const int wg = threadIdx.x / 128;
   const int t = threadIdx.x % 128;
   const int n_kb = (d + kBK - 1) / kBK;
-  float acc[N / 2];
+  typename Tile<T>::Acc acc[N / 2];
 #pragma unroll
-  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0;
   int4 block = make_int4(0, 0, 0, 0);
   int pending = -1;  // a stage whose wgmmas may still run
   for (int it = 0;; ++it) {
@@ -554,6 +670,8 @@ __device__ __forceinline__ void consume(unsigned char* base, int d,
         wgmma_tf32<N>(acc, dal + 2 * ks, db + 2 * ks, keep);
         wgmma_tf32<N>(acc, da + 2 * ks, dbl + 2 * ks, 1);
         wgmma_tf32<N>(acc, da + 2 * ks, db + 2 * ks, 1);
+      } else if constexpr (std::is_same<T, int8_t>::value) {
+        wgmma_s8<N>(acc, da + 2 * ks, db + 2 * ks, keep);
       } else {
         wgmma_bf16<N>(acc, da + 2 * ks, db + 2 * ks, keep);
       }

@@ -32,7 +32,8 @@
 // the fold order-free: blocks split a list freely, and one block may serve
 // several tiles.
 //
-// f32/bf16 cells (probe_mma_kernel), on the tensor cores:
+// One kernel for the three cell types (probe_mma_kernel), on the tensor
+// cores:
 //   * A block serves a group of G tiles (G * QT queries, the wgmma width N
 //     = 8, 32, 64 or 128 the wrapper picks from Q) and walks the sorted
 //     union of the group's chunks, so each chunk is read once a group, not
@@ -46,48 +47,43 @@
 //     (entry_chunk) directly.
 //   * Per chunk, a 128-row x N product: rows as M (the chunk's two m64
 //     tiles, one consumer warpgroup each), the group's queries as N; bf16
-//     x bf16 or 3xTF32, with the chunk's 128 contiguous rows loaded slice by
-//     slice as 2-D TMA boxes through a ring of 3 (f32) or 4 (bf16) stages
-//     (csrc/hopper_mma.cuh; a grouped array off 16 bytes takes the
-//     producer's element-wise copy).
+//     x bf16, 3xTF32 or s8 x s8, with the chunk's 128 contiguous rows loaded
+//     slice by slice as 2-D TMA boxes through a ring of 3 (f32), 4 (bf16)
+//     or 6 (int8) stages (csrc/hopper_mma.cuh; a grouped array whose base
+//     or row stride is off 16 bytes takes the producer's element-wise copy).
 //   * The epilogue folds query n's column only into its tile's own segment
 //     for the chunk, and nothing where the tile's row of the table is -1: a
-//     tile receives exactly the chunks of its own list. Its loads (table
-//     entries, current keys) go in batches of 16 before the batch's atomics,
-//     so their latencies overlap. The candidate
-//     buffer lives in device memory as 64-bit keys (order-preserving score
-//     bits << 32 | ~row, make_key), folded with atomicMax: the largest key
-//     is the largest score and, on a tie, the lowest row; a dead row never
-//     enters, an empty slot keeps key 0, and a second kernel decodes the
-//     keys. The buffer is in device memory because a wide fetch (k = 1,024,
+//     tile receives exactly the chunks of its own list. It loads its table
+//     entries all at once and folds each live score with an atomicMax
+//     that asks for no old value (fold_key: a reduction in L2, no round
+//     trip). The candidate buffer lives in device memory as 64-bit keys
+//     (order-preserving score bits << 32 | ~row, make_key), folded with
+//     atomicMax: the largest key is the largest score and, on a tie, the
+//     lowest row; a dead row never enters, an empty slot keeps key 0, and
+//     a second kernel decodes the keys. The buffer is in device memory because a wide fetch (k = 1,024,
 //     compact, S = 32) makes a tile's buffer 256 KiB.
 //   * Entries repeating the one before them, and ids out of range, score
 //     nothing, in the list walk (entry_chunk) as in the table.
 //
-// Bound on an H100 SXM: each distinct chunk moves 128 * d * 4 bytes (f32)
-// and a tile listing it 2 * QT * 128 * d operations (3x that in tf32 for
-// f32 cells: 495 TFLOP/s; bf16 989). The group computes its N columns for
-// every chunk of its union, whether each tile lists it or not: at Q = 256,
-// nprobe 64 of 1,024 cells, a tile lists about a third of its group's
-// chunks, so the kernel does about three times the operations of the bound.
-//
-// int8 cells (probe_fold_i8_kernel, CUDA cores). Queries arrive quantized
-// with one batch-global scale qs (a device scalar); a row carries its
-// dequant scale rs. The score is
+// int8 cells: queries arrive quantized with one batch-global scale qs (a
+// device scalar), rows padded with zeros to a multiple of 16 bytes; a row
+// carries its dequant scale rs. The score is
 //
 //     ((2 * qs) * rs) * f32(q_i8 . x_i8) - ||x||^2 + mask
 //
-// with the dot exact in int32 (__dp4a on 4 packed int8; |dot| <= 127^2 * d).
-// The four f32 operations are written with __fmul_rn / __fsub_rn /
-// __fadd_rn in that order, so nvcc contracts none of them into an FMA and
-// each rounds once, as separate tensor ops do: kernel and plain twin agree
-// bit for bit. grid = (query tiles) x (splits of the tile's list); 128
-// threads, one per row of a chunk. Queries are staged in shared memory as
-// packed int8x4 words; a thread reads its row 16 bytes at a time when
-// d % 16 == 0 and the cell array is 16-byte aligned, and byte by byte
-// otherwise. Bound: a distinct chunk moves 128 * (d + 12) bytes (codes,
-// scale, norm, mask) and costs 2 * QT * 128 * d int8 operations (1,979
-// TOP/s on the tensor cores; this kernel runs them on the CUDA cores).
+// with the dot exact in int32 on wgmma s8 (|dot| <= 127^2 * d). The four
+// f32 operations are written with __fmul_rn / __fsub_rn / __fadd_rn in that
+// order, so nvcc contracts none of them into an FMA and each rounds once,
+// as separate tensor ops do: kernel and plain twin agree bit for bit.
+//
+// Bound on an H100 SXM: each distinct chunk moves 128 * d * 4 bytes (f32;
+// bf16 2, int8 1 plus 12 a row: scale, norm, mask) and a tile listing it
+// 2 * QT * 128 * d operations (3x that in tf32 for f32 cells: 495
+// TFLOP/s; bf16 989; int8 1,979 TOP/s). The group computes its N columns
+// for every chunk of its union, whether each tile lists it or not: at
+// Q = 256, nprobe 64 of 1,024 cells, a tile lists about a third of its
+// group's chunks, so the kernel does about three times the operations of
+// the bound.
 //
 // The list walk (entry_chunk), the keys (fold_key) and their decode are in
 // csrc/probe_common.cuh, shared with the IVF-PQ probe (csrc/pq_probe.cu).
@@ -100,13 +96,12 @@
 
 #include <cfloat>
 #include <cstdint>
+#include <type_traits>
 
 #include "hopper_mma.cuh"    // the tensor-core pipeline
-#include "probe_common.cuh"  // kRows, kMaxQT, entry_chunk, keys, decode
+#include "probe_common.cuh"  // kRows, kMaxQT, entry_chunk, fold_key, decode
 
 namespace {
-
-constexpr int kKT = 16;      // int8 kernel: depth of one slice of a row
 
 enum Walk { kListExpanded = 0, kListCompact = 1, kTable = 2 };
 
@@ -167,59 +162,64 @@ struct TableWalk {
 };
 
 // The epilogue: column n of the product is query q0 + n, of the group's
-// tile n / qt; it folds into that tile's segment for the chunk. It works
-// in batches: the batch's table entries and current slot keys are all
-// loaded before any of its atomics, so their latencies overlap (an atomic
-// between two loads would order them, one round trip each).
-template <int N, bool kTabled>
+// tile n / qt; it folds into that tile's segment for the chunk. A load
+// costs a round trip to L2, so the epilogue loads once, all together: the
+// rows' norms, masks (int8: scales) and the table entries of the thread's
+// N / 4 columns. It never loads a slot's key (fold_key). T = int8 scores
+// s32 dots with the row's scale, the others 2 * dot.
+template <typename T, int N, bool kTabled>
 struct ProbeFold {
-  static constexpr int kBatch = N / 2 < 16 ? N / 2 : 16;
+  using Acc = typename hop::Tile<T>::Acc;
+  static constexpr bool kInt8 = std::is_same<T, int8_t>::value;
+  static constexpr int kCols = N / 4;  // columns a thread holds
   const float* sq;
   const float* mask;
+  const float* rs;               // int8: per-row dequant scales
+  float two_qs;                  // int8: 2 * the batch's query scale
   const int* tab;                // the group's rows [n_chunks + 1][group]
   unsigned long long* keys;      // slot 0 of query q0
   int qt, group, ncols, n_slots;
 
-  __device__ __forceinline__ void operator()(const float (&acc)[N / 2],
+  __device__ __forceinline__ void operator()(const Acc (&acc)[N / 2],
                                              int4 block) {
     const int t = threadIdx.x % 128;
     const int r_lo = (threadIdx.x / 128) * 64 + (t / 32) * 16 + (t % 32) / 4;
-    float sq_r[2], mask_r[2];
+    float sq_r[2], mask_r[2], scale_r[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       sq_r[h] = __ldg(sq + block.x + r_lo + 8 * h);
       mask_r[h] = __ldg(mask + block.x + r_lo + 8 * h);
+      if constexpr (kInt8)
+        scale_r[h] = __fmul_rn(two_qs, __ldg(rs + block.x + r_lo + 8 * h));
+    }
+    // column c of the thread is 8 (c / 2) + 2 (t % 4) + c % 2 (element i
+    // of the accumulator holds column c = 2 (i / 4) + i % 2); its tile's
+    // segment for the chunk, or -1
+    int seg[kCols];
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      const int col = 8 * (c / 2) + 2 * (t % 4) + (c % 2);
+      seg[c] = col >= ncols ? -1
+               : kTabled    ? __ldg(tab + block.y * group + col / qt)
+                            : block.y;
     }
 #pragma unroll
-    for (int b = 0; b < N / 2; b += kBatch) {
-      unsigned long long* slot[kBatch];
-      unsigned long long cur[kBatch];
-#pragma unroll
-      for (int k = 0; k < kBatch; ++k) {
-        const int i = b + k;
-        const int col = 8 * (i / 4) + 2 * (t % 4) + (i % 2);
-        int seg = -1;
-        if (col < ncols)
-          seg = kTabled ? __ldg(tab + block.y * group + col / qt) : block.y;
-        slot[k] = seg < 0 ? nullptr
-                          : keys + static_cast<long long>(col) * n_slots +
-                                seg * kRows + r_lo + 8 * ((i % 4) / 2);
-      }
-#pragma unroll
-      for (int k = 0; k < kBatch; ++k)
-        cur[k] = slot[k] != nullptr ? __ldcg(slot[k]) : ~0ull;
-#pragma unroll
-      for (int k = 0; k < kBatch; ++k) {
-        const int i = b + k;
-        const int h = (i % 4) / 2;
-        const float score =
-            __fadd_rn(__fsub_rn(2.f * acc[i], sq_r[h]), mask_r[h]);
-        if (slot[k] == nullptr || !(score > kNegInf)) continue;
-        const unsigned int row = block.x + r_lo + 8 * h;
-        const unsigned long long key =
-            make_key(score, static_cast<unsigned long long>(~row));
-        if (key > cur[k]) atomicMax(slot[k], key);
-      }
+    for (int i = 0; i < N / 2; ++i) {
+      const int c = 2 * (i / 4) + (i % 2);
+      const int h = (i % 4) / 2;
+      float score;
+      if constexpr (kInt8)  // ((2 qs) rs) dot - sq + mask, each rounded
+        score = __fadd_rn(
+            __fsub_rn(__fmul_rn(scale_r[h], __int2float_rn(acc[i])),
+                      sq_r[h]),
+            mask_r[h]);
+      else
+        score = __fadd_rn(__fsub_rn(2.f * acc[i], sq_r[h]), mask_r[h]);
+      if (seg[c] < 0) continue;
+      const int col = 8 * (c / 2) + 2 * (t % 4) + (c % 2);
+      const unsigned int row = block.x + r_lo + 8 * h;
+      fold_key(keys + col * n_slots + seg[c] * kRows + r_lo + 8 * h, score,
+               ~row);
     }
   }
 };
@@ -230,6 +230,8 @@ __global__ void __launch_bounds__(hop::kThreads, 1)
 probe_mma_kernel(const __grid_constant__ CUtensorMap map_x,
                  const __grid_constant__ CUtensorMap map_qh,
                  const __grid_constant__ CUtensorMap map_ql, const T* x,
+                 const float* __restrict__ rs,
+                 const float* __restrict__ qscale,
                  const float* __restrict__ sq, const float* __restrict__ mask,
                  const int* __restrict__ cells, const int* __restrict__ segs,
                  const int* __restrict__ off128,
@@ -273,9 +275,11 @@ probe_mma_kernel(const __grid_constant__ CUtensorMap map_x,
     }
     return;
   }
-  ProbeFold<N, kWalk == kTable> fold;
+  ProbeFold<T, N, kWalk == kTable> fold;
   fold.sq = sq;
   fold.mask = mask;
+  fold.rs = rs;
+  fold.two_qs = qscale != nullptr ? __fmul_rn(2.f, __ldg(qscale)) : 0.f;
   fold.tab = kWalk == kTable
                  ? tab + static_cast<long long>(g) * (width + 1) * group
                  : nullptr;
@@ -287,124 +291,15 @@ probe_mma_kernel(const __grid_constant__ CUtensorMap map_x,
   hop::consume<T, N>(base, d, fold);
 }
 
-// int8 cells: see the header. q is the quantized batch (Q_pad, d) int8,
-// qscale its one f32 scale on the device, rs the per-row dequant scales.
-template <bool kCompact>
-__global__ void __launch_bounds__(kRows)
-probe_fold_i8_kernel(const signed char* __restrict__ q,
-                     const float* __restrict__ qscale,
-                     const signed char* __restrict__ x,
-                     const float* __restrict__ rs, const float* __restrict__ sq,
-                     const float* __restrict__ mask,
-                     const int* __restrict__ cells,
-                     const int* __restrict__ segs,
-                     const int* __restrict__ off128,
-                     unsigned long long* __restrict__ keys, int qt, int d,
-                     int width, int w128, int n_chunks, int nlist, int n_seg,
-                     int entries_per_block, bool vec) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  int* qs = reinterpret_cast<int*>(smem_raw);  // [kMaxQT][words] int8x4
-  const int words = (d + kKT - 1) / kKT * (kKT / 4);
-  const int tile = blockIdx.x;
-  const int tid = threadIdx.x;
-  for (int i = tid; i < kMaxQT * words; i += kRows) {
-    const int qi = i / words;
-    const int k = (i % words) * 4;
-    unsigned int packed = 0;
-    if (qi < qt) {
-      const signed char* qr = q + static_cast<long long>(tile * qt + qi) * d;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (k + j < d)
-          packed |= static_cast<unsigned int>(
-                        static_cast<unsigned char>(qr[k + j]))
-                    << (8 * j);
-    }
-    qs[i] = static_cast<int>(packed);
-  }
-  __syncthreads();
-
-  const int n_entries = kCompact ? width * w128 : width;
-  const int e_begin = blockIdx.y * entries_per_block;
-  const int e_end = min(e_begin + entries_per_block, n_entries);
-  const int* tcells = cells + static_cast<long long>(tile) * width;
-  const int* tsegs = kCompact ? nullptr
-                              : segs + static_cast<long long>(tile) * width;
-  const int n_slots = kRows * n_seg;
-  unsigned long long* tkeys =
-      keys + static_cast<long long>(tile) * qt * n_slots;
-  const float two_qs = __fmul_rn(2.f, __ldg(qscale));
-
-  for (int e = e_begin; e < e_end; ++e) {
-    int chunk, seg;
-    if (!entry_chunk<kCompact>(e, tcells, tsegs, off128, w128, n_chunks,
-                               nlist, n_seg, &chunk, &seg))
-      continue;
-    const long long row = static_cast<long long>(chunk) * kRows + tid;
-    const signed char* xr = x + row * static_cast<long long>(d);
-
-    int acc[kMaxQT];
-#pragma unroll
-    for (int i = 0; i < kMaxQT; ++i) acc[i] = 0;
-    for (int k0 = 0; k0 < d; k0 += kKT) {
-      int v[kKT / 4];
-      if (vec) {  // d % 16 == 0: every slice is whole and 16-byte aligned
-        const int4 t = __ldg(reinterpret_cast<const int4*>(xr + k0));
-        v[0] = t.x;
-        v[1] = t.y;
-        v[2] = t.z;
-        v[3] = t.w;
-      } else {
-#pragma unroll
-        for (int w = 0; w < kKT / 4; ++w) {
-          unsigned int packed = 0;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int k = k0 + 4 * w + j;
-            if (k < d)
-              packed |= static_cast<unsigned int>(
-                            static_cast<unsigned char>(__ldg(xr + k)))
-                        << (8 * j);
-          }
-          v[w] = static_cast<int>(packed);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kMaxQT; ++i) {
-        const int4 qv =
-            *reinterpret_cast<const int4*>(qs + i * words + k0 / 4);
-        int a = acc[i];
-        a = __dp4a(v[0], qv.x, a);
-        a = __dp4a(v[1], qv.y, a);
-        a = __dp4a(v[2], qv.z, a);
-        a = __dp4a(v[3], qv.w, a);
-        acc[i] = a;
-      }
-    }
-
-    // ((2 qs) rs) dot - sq + mask, each operation rounded once
-    const float scale = __fmul_rn(two_qs, __ldg(rs + row));
-    const float sq_r = __ldg(sq + row);
-    const float mask_r = __ldg(mask + row);
-    const unsigned long long low = ~static_cast<unsigned int>(row);
-#pragma unroll
-    for (int i = 0; i < kMaxQT; ++i) {
-      if (i >= qt) break;
-      const float score = __fadd_rn(
-          __fsub_rn(__fmul_rn(scale, __int2float_rn(acc[i])), sq_r), mask_r);
-      fold_key(tkeys + static_cast<long long>(i) * n_slots + seg * kRows + tid,
-               score, low);
-    }
-  }
-}
-
 template <typename T, int N, int kWalk>
 cudaError_t launch_probe(const void* qh, const void* ql, const T* x,
+                         const float* rs, const float* qscale,
                          const float* sq, const float* mask, const int* cells,
                          const int* segs, const int* off128, const int* tab,
-                         unsigned long long* keys, int blocks, int tiles, int qt, int group, int q_rows,
-                         int d_pad, int d, int width, int w128, int n_chunks,
-                         int nlist, int n_seg, int splits, int ragged,
+                         unsigned long long* keys, int blocks, int tiles,
+                         int qt, int group, int q_rows, int d_pad, int d,
+                         int width, int w128, int n_chunks, int nlist,
+                         int n_seg, int splits, int ragged,
                          cudaStream_t stream) {
   CUtensorMap map_x{}, map_qh{}, map_ql{};
   cudaError_t e;
@@ -426,39 +321,44 @@ cudaError_t launch_probe(const void* qh, const void* ql, const T* x,
   if (e != cudaSuccess) return e;
   const dim3 grid(blocks, splits);
   probe_mma_kernel<T, N, kWalk><<<grid, hop::kThreads, smem, stream>>>(
-      map_x, map_qh, map_ql, x, sq, mask, cells, segs, off128, tab, keys,
-      tiles, qt, group, d, width, w128, n_chunks, nlist, n_seg, splits,
-      ragged);
+      map_x, map_qh, map_ql, x, rs, qscale, sq, mask, cells, segs, off128,
+      tab, keys, tiles, qt, group, d, width, w128, n_chunks, nlist, n_seg,
+      splits, ragged);
   return cudaGetLastError();
 }
 
 // walk: kListExpanded / kListCompact (cells, segs / off128: one tile's list
 // a block, group 1, the width-8 product) or kTable (tab, the table of
 // kernels/ivf_probe.py:group_table, (groups, n_chunks + 1, group); width =
-// n_chunks: group tiles a block, the width-`cols` product).
+// n_chunks: group tiles a block, the width-`cols` product). q: the f32
+// queries, split here into qh / ql (f32, bf16); int8 takes its quantized
+// queries as qh and q = nullptr.
 template <typename T>
-int launch(const float* q, void* qh, void* ql, const T* x, const float* sq,
-           const float* mask, const int* cells, const int* segs,
-           const int* off128, const int* tab, unsigned long long* keys,
-           float* val, int* idx, int walk, int tiles, int qt, int group, int cols,
-           int q_rows, int d_pad, int d, int width, int w128, int n_chunks,
-           int nlist, int n_seg, int splits, int ragged, int device,
+int launch(const float* q, void* qh, void* ql, const T* x, const float* rs,
+           const float* qscale, const float* sq, const float* mask,
+           const int* cells, const int* segs, const int* off128,
+           const int* tab, unsigned long long* keys, float* val, int* idx,
+           int walk, int tiles, int qt, int group, int cols, int q_rows,
+           int d_pad, int d, int width, int w128, int n_chunks, int nlist,
+           int n_seg, int splits, int ragged, int device,
            cudaStream_t stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   if (group * qt > cols || (walk != kTable && (group != 1 || cols != 8)))
     return cudaErrorInvalidValue;
-  e = hop::prep_queries<T>(q, qh, ql, q_rows, d, d_pad, stream);
-  if (e != cudaSuccess) return e;
+  if constexpr (!std::is_same<T, int8_t>::value) {
+    e = hop::prep_queries<T>(q, qh, ql, q_rows, d, d_pad, stream);
+    if (e != cudaSuccess) return e;
+  }
   const long long count = static_cast<long long>(tiles) * qt * kRows * n_seg;
   e = cudaMemsetAsync(keys, 0, count * sizeof(unsigned long long), stream);
   if (e != cudaSuccess) return e;
   const int blocks = (tiles + group - 1) / group;
 #define TPUVDB_PROBE(NN, WW)                                                 \
-  launch_probe<T, NN, WW>(qh, ql, x, sq, mask, cells, segs, off128, tab,    \
-                          keys, blocks, tiles, qt, group, q_rows, d_pad, d,  \
-                          width, w128, n_chunks, nlist, n_seg, splits,       \
-                          ragged, stream)
+  launch_probe<T, NN, WW>(qh, ql, x, rs, qscale, sq, mask, cells, segs,     \
+                          off128, tab, keys, blocks, tiles, qt, group,       \
+                          q_rows, d_pad, d, width, w128, n_chunks, nlist,    \
+                          n_seg, splits, ragged, stream)
   if (walk == kListExpanded) {
     e = TPUVDB_PROBE(8, kListExpanded);
   } else if (walk == kListCompact) {
@@ -481,36 +381,6 @@ int launch(const float* q, void* qh, void* ql, const T* x, const float* sq,
   return cudaGetLastError();
 }
 
-template <bool kCompact>
-int launch_i8(const signed char* q, const float* qscale, const signed char* x,
-              const float* rs, const float* sq, const float* mask,
-              const int* cells, const int* segs, const int* off128,
-              unsigned long long* keys, float* val, int* idx, int tiles,
-              int qt, int d, int width, int w128, int n_chunks, int nlist,
-              int n_seg, int splits, int entries_per_block, int vec,
-              int device, cudaStream_t stream) {
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
-  const long long count = static_cast<long long>(tiles) * qt * kRows * n_seg;
-  e = cudaMemsetAsync(keys, 0, count * sizeof(unsigned long long), stream);
-  if (e != cudaSuccess) return e;
-  const size_t smem =
-      static_cast<size_t>(kMaxQT) * ((d + kKT - 1) / kKT * kKT);
-  e = cudaFuncSetAttribute(probe_fold_i8_kernel<kCompact>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  const dim3 grid(tiles, splits);
-  probe_fold_i8_kernel<kCompact><<<grid, kRows, smem, stream>>>(
-      q, qscale, x, rs, sq, mask, cells, segs, off128, keys, qt, d, width,
-      w128, n_chunks, nlist, n_seg, entries_per_block, vec != 0);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  const int blocks = static_cast<int>((count + 255) / 256);
-  decode_kernel<<<blocks, 256, 0, stream>>>(keys, val, idx, count);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -530,10 +400,10 @@ int tpuvdb_ivf_probe_f32(const float* q, void* qh, void* ql, const float* x,
                          int q_rows, int d_pad, int d, int width, int w128,
                          int n_chunks, int nlist, int n_seg, int splits,
                          int ragged, int device, cudaStream_t stream) {
-  return launch<float>(q, qh, ql, x, sq, mask, cells, segs, off128, tab,
-                       keys, val, idx, walk, tiles, qt, group, cols, q_rows,
-                       d_pad, d, width, w128, n_chunks, nlist, n_seg, splits,
-                       ragged, device, stream);
+  return launch<float>(q, qh, ql, x, nullptr, nullptr, sq, mask, cells, segs,
+                       off128, tab, keys, val, idx, walk, tiles, qt, group,
+                       cols, q_rows, d_pad, d, width, w128, n_chunks, nlist,
+                       n_seg, splits, ragged, device, stream);
 }
 
 int tpuvdb_ivf_probe_bf16(const float* q, void* qh, void* ql, const void* x,
@@ -546,42 +416,30 @@ int tpuvdb_ivf_probe_bf16(const float* q, void* qh, void* ql, const void* x,
                           int n_chunks, int nlist, int n_seg, int splits,
                           int ragged, int device, cudaStream_t stream) {
   return launch<__nv_bfloat16>(
-      q, qh, ql, static_cast<const __nv_bfloat16*>(x), sq, mask, cells,
-      segs, off128, tab, keys, val, idx, walk, tiles, qt, group, cols,
-      q_rows, d_pad, d, width, w128, n_chunks, nlist, n_seg, splits, ragged,
-      device, stream);
+      q, qh, ql, static_cast<const __nv_bfloat16*>(x), nullptr, nullptr, sq,
+      mask, cells, segs, off128, tab, keys, val, idx, walk, tiles, qt, group,
+      cols, q_rows, d_pad, d, width, w128, n_chunks, nlist, n_seg, splits,
+      ragged, device, stream);
 }
 
-// int8 cells: q the quantized queries, qscale their scale (one f32 on the
-// device), rs the per-row dequant scales; the rest as the forms above.
-int tpuvdb_ivf_expanded_i8(const void* q, const float* qscale, const void* x,
-                           const float* rs, const float* sq,
-                           const float* mask, const int* cells,
-                           const int* segs, unsigned long long* keys,
-                           float* val, int* idx, int tiles, int qt, int d,
-                           int width, int n_chunks, int n_seg, int splits,
-                           int entries_per_block, int vec, int device,
-                           cudaStream_t stream) {
-  return launch_i8<false>(static_cast<const signed char*>(q), qscale,
-                          static_cast<const signed char*>(x), rs, sq, mask,
-                          cells, segs, nullptr, keys, val, idx, tiles, qt, d,
-                          width, 1, n_chunks, 0, n_seg, splits,
-                          entries_per_block, vec, device, stream);
-}
-
-int tpuvdb_ivf_compact_i8(const void* q, const float* qscale, const void* x,
-                          const float* rs, const float* sq, const float* mask,
-                          const int* cells, const int* off128,
-                          unsigned long long* keys, float* val, int* idx,
-                          int tiles, int qt, int d, int width, int w128,
-                          int n_chunks, int nlist, int n_seg, int splits,
-                          int entries_per_block, int vec, int device,
-                          cudaStream_t stream) {
-  return launch_i8<true>(static_cast<const signed char*>(q), qscale,
-                         static_cast<const signed char*>(x), rs, sq, mask,
-                         cells, nullptr, off128, keys, val, idx, tiles, qt, d,
-                         width, w128, n_chunks, nlist, n_seg, splits,
-                         entries_per_block, vec, device, stream);
+// int8 cells, either form: q8 the quantized queries (q_rows, d_pad) int8,
+// rows padded with zeros; qscale their one f32 scale on the device; rs the
+// per-row dequant scales; the rest as the forms above.
+int tpuvdb_ivf_probe_i8(const void* q8, const float* qscale, const void* x,
+                        const float* rs, const float* sq, const float* mask,
+                        const int* cells, const int* segs, const int* off128,
+                        const int* tab, unsigned long long* keys, float* val,
+                        int* idx, int walk, int tiles, int qt, int group,
+                        int cols, int q_rows, int d_pad, int d, int width,
+                        int w128, int n_chunks, int nlist, int n_seg,
+                        int splits, int ragged, int device,
+                        cudaStream_t stream) {
+  return launch<int8_t>(nullptr, const_cast<void*>(q8), nullptr,
+                        static_cast<const int8_t*>(x), rs, qscale, sq, mask,
+                        cells, segs, off128, tab, keys, val, idx, walk, tiles,
+                        qt, group, cols, q_rows, d_pad, d, width, w128,
+                        n_chunks, nlist, n_seg, splits, ragged, device,
+                        stream);
 }
 
 const char* tpuvdb_ivf_error(int code) {

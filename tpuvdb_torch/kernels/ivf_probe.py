@@ -23,12 +23,12 @@ plain PyTorch twin on CPU tensors:
                           call of pallas_ivf_candidates_packed_int8, :549):
                           the second form on int8 cells.
 
-On CUDA tensors the f32/bf16 forms run on the tensor cores: the wrapper
-groups `group_size` tiles, builds their `group_table` (per group and chunk
-id the segment each tile gives the chunk, or -1; one scatter on the
-device, no sort, no host sync) and the kernel reads each chunk some tile
-names once a group; a batch of one tile walks its own list and builds no
-table.
+On CUDA tensors all four run on one tensor-core kernel template (bf16,
+3xTF32 or s8 products): the wrapper groups `group_size` tiles, builds
+their `group_table` (per group and chunk id the segment each tile gives
+the chunk, or -1; one scatter on the device, no sort, no host sync) and
+the kernel reads each chunk some tile names once a group; a batch of one
+tile walks its own list and builds no table.
 `ivf_candidates_grouped_plain` is the plain consumer of that table and
 returns what the per-tile twins return.
 
@@ -39,8 +39,9 @@ lowest on a tie; -1 and f32-min for an empty slot). On int8 cells the
 wrappers quantize the query batch with one scale (`quantize_batch`; the
 scale covers the whole padded batch, so a batch and a slice of it score
 differently) and the score is `((2 s_q) s_r) (q_i8 . x_i8) - ||x||^2 +
-mask` with the dot exact in int32 and each f32 operation rounded once, in
-the kernel as in the twin: the two agree bit for bit. That is what the
+mask` with the dot exact in int32 (rows of at most INT8_MAX_DIM columns;
+wider ones raise, on either device) and each f32 operation rounded once,
+in the kernel as in the twin: the two agree bit for bit. That is what the
 reference's sequential strict-`>` fold computes, because a chunk always
 lands in the same slots and distinct chunks first appear in ascending order
 (csrc/ivf_probe.cu explains why); the plain twins compute it directly, with
@@ -84,7 +85,10 @@ CHUNK = 128          # rows per chunk, the reference's lane width
 MAX_QUERY_TILE = 8   # queries per tile, the reference's query_tile
 EXPANDED_MAX = 1 << 20
 MMA_COLS = 128       # queries of the widest tensor-core product
+# int8 cells: the widest row whose dot stays exact in int32 (|q|, |x| <= 127)
+INT8_MAX_DIM = (2 ** 31 - 1) // 127 ** 2
 MIN_BLOCK_CHUNKS = 4  # chunks a block of the tensor-core probe walks, at least
+BLOCKS_PER_SM = 16    # blocks the splits aim at, per SM, in all
 PLAIN_BLOCK_CHUNKS = 512  # chunks gathered at once by the plain twins
 
 LAUNCHES_EXPANDED = 0  # ivf_candidates kernel launches (CUDA tensors)
@@ -98,13 +102,10 @@ _sm_counts = {}
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.tpuvdb_ivf_probe_f32, lib.tpuvdb_ivf_probe_bf16):
+    for fn in (lib.tpuvdb_ivf_probe_f32, lib.tpuvdb_ivf_probe_bf16,
+               lib.tpuvdb_ivf_probe_i8):
         fn.restype = i
         fn.argtypes = [p] * 13 + [i] * 16 + [p]
-    lib.tpuvdb_ivf_expanded_i8.restype = i
-    lib.tpuvdb_ivf_expanded_i8.argtypes = [p] * 11 + [i] * 10 + [p]
-    lib.tpuvdb_ivf_compact_i8.restype = i
-    lib.tpuvdb_ivf_compact_i8.argtypes = [p] * 11 + [i] * 12 + [p]
     lib.tpuvdb_ivf_error.restype = ctypes.c_char_p
     lib.tpuvdb_ivf_error.argtypes = [i]
 
@@ -188,6 +189,27 @@ def _score_float(queries, grouped, grouped_sq, neg_mask):
     return score
 
 
+def check_int8_dim(name: str, d: int) -> None:
+    """Raise where an int8 dot of width d could leave int32: the kernel's
+    s32 sums and the twin's are exact only below that."""
+    if d > INT8_MAX_DIM:
+        raise ValueError(f"{name}: int8 rows of {d} > {INT8_MAX_DIM} "
+                         "columns: their dots could overflow int32")
+
+
+def int8_query_operand(queries):
+    """The int8 kernel's query input: the batch quantized with one scale
+    (quantize_batch), rows padded with zeros to d_pad, a multiple of 16
+    bytes, so TMA reads them (a zero column adds 0 to an exact dot).
+    Returns (q8 (Q, d_pad) int8, scale (1, 1) f32, d_pad)."""
+    qi, qscale = quantize_batch(queries)
+    d = qi.shape[1]
+    d_pad = -(-d // 16) * 16
+    if d_pad != d:
+        qi = F.pad(qi, (0, d_pad - d))
+    return qi.contiguous(), qscale, d_pad
+
+
 def _score_int8(queries, grouped_i8, cell_scales, grouped_sq, neg_mask):
     """score() of _plain_fold for int8 cells, in the reference's order:
     ((2 s_q) s_r) f32(q_i8 . x_i8) - ||x||^2 + mask, each tensor op rounded
@@ -195,6 +217,7 @@ def _score_int8(queries, grouped_i8, cell_scales, grouped_sq, neg_mask):
     if grouped_i8.dtype != torch.int8:
         raise ValueError(f"int8 probe takes int8 cells, not "
                          f"{grouped_i8.dtype}")
+    check_int8_dim("int8 probe", grouped_i8.shape[1])
     qi, qscale = quantize_batch(queries)
     scales = cell_scales.reshape(-1).to(torch.float32)
     sq, mask = grouped_sq.reshape(-1), neg_mask.reshape(-1)
@@ -320,11 +343,14 @@ def group_table(chunks, segs, ok, n_chunks: int,
 
 
 def ivf_candidates_grouped_plain(queries, table, grouped, grouped_sq,
-                                 neg_mask, n_segments: int, query_tile: int):
+                                 neg_mask, n_segments: int, query_tile: int,
+                                 cell_scales=None):
     """Plain consumer of a group_table: each tile folds the chunks its
-    column of the table names, in their segments. Equal to
-    ivf_candidates_plain / ivf_candidates_packed_plain on the lists the
-    table was built from."""
+    column of the table names, in their segments. Equal to the per-tile
+    twins (ivf_candidates_plain / ivf_candidates_packed_plain, and with
+    `cell_scales` on int8 cells ivf_candidates_int8_plain /
+    ivf_candidates_packed_int8_plain) on the lists the table was built
+    from."""
     _, rows, group = table.shape
     tile_chunks, tile_segs = [], []
     for t in range(queries.shape[0] // query_tile):
@@ -333,9 +359,11 @@ def ivf_candidates_grouped_plain(queries, table, grouped, grouped_sq,
         listed = torch.nonzero(col >= 0).reshape(-1)
         tile_chunks.append(listed)
         tile_segs.append(col[listed])
-    return _plain_fold(_score_float(queries, grouped, grouped_sq, neg_mask),
-                       queries.shape[0], grouped, tile_chunks, tile_segs,
-                       n_segments, query_tile)
+    score = (_score_float(queries, grouped, grouped_sq, neg_mask)
+             if cell_scales is None else
+             _score_int8(queries, grouped, cell_scales, grouped_sq, neg_mask))
+    return _plain_fold(score, queries.shape[0], grouped, tile_chunks,
+                       tile_segs, n_segments, query_tile)
 
 
 # --------------------------------------------------------------- wrappers
@@ -399,19 +427,16 @@ def _check_lists(name, queries, query_tile, n_segments, cells, segs=None,
         raise ValueError(f"{name}: off128 must be 1-D")
 
 
-def _splits(blocks: int, n_entries: int, dev) -> int:
-    """Splits of each block's walk: about four blocks per SM in all."""
+def _splits(blocks: int, most: int, dev,
+            per_sm: Optional[int] = None) -> int:
+    """Splits of each block's walk: about `per_sm` (BLOCKS_PER_SM) blocks
+    per SM in all, at most `most`."""
     if dev.index not in _sm_counts:
         _sm_counts[dev.index] = torch.cuda.get_device_properties(
             dev).multi_processor_count
-    want = -(-4 * _sm_counts[dev.index] // blocks)
-    return max(1, min(n_entries, want, 65535))
-
-
-def _launch_shape(tiles: int, n_entries: int, dev) -> Tuple[int, int]:
-    """(splits, entries_per_block) of the int8 kernels: no empty split."""
-    epb = -(-n_entries // _splits(tiles, n_entries, dev))
-    return -(-n_entries // epb), epb
+    per_sm = per_sm or BLOCKS_PER_SM
+    want = -(-per_sm * _sm_counts[dev.index] // blocks)
+    return max(1, min(most, want, 65535))
 
 
 def _outputs(qp, n_segments, dev):
@@ -441,7 +466,7 @@ def ivf_candidates(
         return ivf_candidates_plain(queries, cells, segs, grouped,
                                     grouped_sq, neg_mask, n_segments,
                                     query_tile)
-    launched, val, idx = _launch_float(
+    launched, val, idx = _launch(
         "ivf_candidates", queries, grouped, grouped_sq, neg_mask, n_segments,
         query_tile, cells, segs=segs)
     if launched:
@@ -469,7 +494,7 @@ def ivf_candidates_packed(
         return ivf_candidates_packed_plain(queries, cells, off128, grouped,
                                            grouped_sq, neg_mask, w128,
                                            n_segments, query_tile)
-    launched, val, idx = _launch_float(
+    launched, val, idx = _launch(
         "ivf_candidates_packed", queries, grouped, grouped_sq, neg_mask,
         n_segments, query_tile, cells, off128=off128, w128=w128)
     if launched:
@@ -477,26 +502,42 @@ def ivf_candidates_packed(
     return val, idx
 
 
-def _launch_float(name, queries, grouped, grouped_sq, neg_mask, n_segments,
-                  query_tile, cells, segs=None, off128=None, w128=None):
-    """Shared body of the f32/bf16 wrappers on CUDA tensors: the expanded
-    lists (cells, segs) or the compact ones (cells, off128, w128). A batch
-    of one tile walks its list; more tiles go in groups of group_size
-    through their group_table. Returns (launched, val, idx)."""
+def _launch(name, queries, grouped, grouped_sq, neg_mask, n_segments,
+            query_tile, cells, segs=None, off128=None, w128=None,
+            cell_scales=None):
+    """Shared body of the four wrappers on CUDA tensors: the expanded
+    lists (cells, segs) or the compact ones (cells, off128, w128); int8
+    cells take their `cell_scales`. A batch of one tile walks its list;
+    more tiles go in groups of group_size through their group_table.
+    Returns (launched, val, idx)."""
     # held in names until the launch: a temporary passed as a pointer
     # could be freed, and its memory reused, before the kernel runs
     sq = grouped_sq.reshape(-1).contiguous()
     mask = neg_mask.reshape(-1).contiguous()
+    int8 = cell_scales is not None
     compact = off128 is not None
     second = off128 if compact else segs
-    _check(name, queries, grouped, (sq, mask), (cells, second))
+    per_row = (sq, mask)
+    if int8:
+        scales = cell_scales.reshape(-1).contiguous()
+        per_row += (scales,)
+    _check(name, queries, grouped, per_row, (cells, second),
+           dtypes=(torch.int8,) if int8 else (torch.float32, torch.bfloat16))
     lib = LIBRARY.load()
-    q, q_hi, q_lo, d_pad = mma_queries(queries, grouped)
+    n, d = grouped.shape
+    if int8:
+        check_int8_dim(name, d)
+        q8, qscale, d_pad = int8_query_operand(queries)
+        q_ops = (q8, qscale)
+        q_rows = q8.shape[0]
+    else:
+        q, q_hi, q_lo, d_pad = mma_queries(queries, grouped)
+        q_ops = (q, q_hi, q_lo)
+        q_rows = q.shape[0]
     cells, second = cells.contiguous(), second.contiguous()
     dev = grouped.device
     tiles, width = cells.shape
-    keys, val, idx = _outputs(q.shape[0], n_segments, dev)
-    n, d = grouped.shape
+    keys, val, idx = _outputs(q_rows, n_segments, dev)
     if tiles == 0 or width == 0 or n == 0:
         return False, val.fill_(NEG_INF), idx.fill_(-1)
     n_chunks = n // CHUNK
@@ -521,59 +562,20 @@ def _launch_float(name, queries, grouped, grouped_sq, neg_mask, n_segments,
     splits = _splits(blocks, max(1, n_entries // MIN_BLOCK_CHUNKS), dev)
     # TMA reads a base and a row stride that are multiples of 16 bytes
     ragged = grouped.data_ptr() % 16 != 0 or (d * grouped.element_size()) % 16
-    ptrs = [q.data_ptr(), q_hi.data_ptr(), q_lo.data_ptr(),
-            grouped.data_ptr(), sq.data_ptr(), mask.data_ptr()]
+    ptrs = [t.data_ptr() for t in q_ops] + [grouped.data_ptr()]
+    if int8:
+        ptrs.append(scales.data_ptr())
+    ptrs += [sq.data_ptr(), mask.data_ptr()]
     ptrs += [None if t is None else t.data_ptr() for t in lists]
-    f32 = grouped.dtype == torch.float32
-    fn = lib.tpuvdb_ivf_probe_f32 if f32 else lib.tpuvdb_ivf_probe_bf16
+    fn = (lib.tpuvdb_ivf_probe_i8 if int8
+          else lib.tpuvdb_ivf_probe_f32 if grouped.dtype == torch.float32
+          else lib.tpuvdb_ivf_probe_bf16)
     rc = fn(*ptrs, keys.data_ptr(), val.data_ptr(), idx.data_ptr(), walk,
-            tiles, query_tile, group, cols, q.shape[0], d_pad, d, tab_width,
+            tiles, query_tile, group, cols, q_rows, d_pad, d, tab_width,
             w128 or 1, n_chunks, nlist, n_segments, splits, int(bool(ragged)),
             dev.index, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError("ivf probe kernel launch failed: "
-                           f"{lib.tpuvdb_ivf_error(rc).decode()}")
-    return True, val, idx
-
-
-def _launch_int8(name, queries, lists, grouped_i8, cell_scales, grouped_sq,
-                 neg_mask, n_segments, query_tile, w128=None):
-    """Shared body of the int8 wrappers on CUDA tensors. `lists` is
-    (cells, segs) for the expanded form and (cells, off128), with w128,
-    for the compact one."""
-    # held in names until the launch: a temporary passed as a pointer
-    # could be freed, and its memory reused, before the kernel runs
-    scales = cell_scales.reshape(-1).contiguous()
-    sq = grouped_sq.reshape(-1).contiguous()
-    mask = neg_mask.reshape(-1).contiguous()
-    _check(name, queries, grouped_i8, (scales, sq, mask), lists,
-           dtypes=(torch.int8,))
-    lib = LIBRARY.load()
-    qi, qscale = quantize_batch(queries)
-    qi = qi.contiguous()
-    cells, second = (t.contiguous() for t in lists)
-    dev = grouped_i8.device
-    tiles, width = cells.shape
-    keys, val, idx = _outputs(qi.shape[0], n_segments, dev)
-    if tiles == 0 or width == 0:
-        return False, val.fill_(NEG_INF), idx.fill_(-1)
-    compact = w128 is not None
-    splits, epb = _launch_shape(tiles, width * (w128 if compact else 1), dev)
-    n, d = grouped_i8.shape
-    vec = d % 16 == 0 and grouped_i8.data_ptr() % 16 == 0
-    head = (qi.data_ptr(), qscale.data_ptr(), grouped_i8.data_ptr(),
-            scales.data_ptr(), sq.data_ptr(), mask.data_ptr(),
-            cells.data_ptr(), second.data_ptr(), keys.data_ptr(),
-            val.data_ptr(), idx.data_ptr(), tiles, query_tile, d, width)
-    tail = (n_segments, splits, epb, int(vec), dev.index,
-            torch.cuda.current_stream(dev).cuda_stream)
-    if compact:
-        rc = lib.tpuvdb_ivf_compact_i8(*head, w128, n // CHUNK,
-                                       second.numel(), *tail)
-    else:
-        rc = lib.tpuvdb_ivf_expanded_i8(*head, n // CHUNK, *tail)
-    if rc != 0:
-        raise RuntimeError("ivf int8 probe kernel launch failed: "
                            f"{lib.tpuvdb_ivf_error(rc).decode()}")
     return True, val, idx
 
@@ -599,9 +601,9 @@ def ivf_candidates_int8(
         return ivf_candidates_int8_plain(queries, cells, segs, grouped_i8,
                                          cell_scales, grouped_sq, neg_mask,
                                          n_segments, query_tile)
-    launched, val, idx = _launch_int8(
-        "ivf_candidates_int8", queries, (cells, segs), grouped_i8,
-        cell_scales, grouped_sq, neg_mask, n_segments, query_tile)
+    launched, val, idx = _launch(
+        "ivf_candidates_int8", queries, grouped_i8, grouped_sq, neg_mask,
+        n_segments, query_tile, cells, segs=segs, cell_scales=cell_scales)
     if launched:
         LAUNCHES_EXPANDED_INT8 += 1
     return val, idx
@@ -628,9 +630,10 @@ def ivf_candidates_packed_int8(
         return ivf_candidates_packed_int8_plain(
             queries, cells, off128, grouped_i8, cell_scales, grouped_sq,
             neg_mask, w128, n_segments, query_tile)
-    launched, val, idx = _launch_int8(
-        "ivf_candidates_packed_int8", queries, (cells, off128), grouped_i8,
-        cell_scales, grouped_sq, neg_mask, n_segments, query_tile, w128=w128)
+    launched, val, idx = _launch(
+        "ivf_candidates_packed_int8", queries, grouped_i8, grouped_sq,
+        neg_mask, n_segments, query_tile, cells, off128=off128, w128=w128,
+        cell_scales=cell_scales)
     if launched:
         LAUNCHES_COMPACT_INT8 += 1
     return val, idx

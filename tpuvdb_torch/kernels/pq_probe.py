@@ -19,8 +19,11 @@ once, in the kernel as in the twin: the two agree bit for bit. The TPU body
 builds a one-hot of each chunk and contracts it on the MXU because a TPU
 cannot gather; the kernel here looks the table up in shared memory, and
 none of that form (the one-hot, `m_block`, the `cps` clamp, the lane-mask
-column read, the query chunking for SMEM) is carried over. On a CUDA tensor
-the wrapper launches its kernel or raises; `LAUNCHES_PQ` counts launches.
+column read, the query chunking for SMEM) is carried over. A kernel block
+serves `lut_group` queries of a tile from one table staged interleaved
+([m][code][query]), so one load gives a code's entries for all of them; a
+table that fits in no block's shared memory raises. On a CUDA tensor the
+wrapper launches its kernel or raises; `LAUNCHES_PQ` counts launches.
 
 `pq_probe_search` is the port of `pallas_pq_search`: the coarse product in
 full f32 (it picks the cells and feeds the distances), the expanded chunk
@@ -49,20 +52,23 @@ from tpuvdb_torch.kernels.ivf_probe import (
     _check_lists,
     _outputs,
     _plain_fold,
-    _sm_counts,
+    _splits,
     probe_plan,
 )
 
 LAUNCHES_PQ = 0  # pq_candidates kernel launches (CUDA tensors)
 
 SMEM_MAX = 232_448     # bytes of shared memory a block can have (227 KB)
-MIN_BLOCK_ENTRIES = 4  # chunks a block walks at least, per staged LUT
+GROUPS = (8, 4, 2, 1)  # queries a block may serve from one staged table
+TEAMS = 8              # 128-thread teams a block (4 with groups of 8)
+BLOCKS_PER_SM = 8      # blocks the splits aim at, per SM, in all
+MIN_TEAM_ENTRIES = 2   # chunks each team walks at least, per staged table
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.tpuvdb_pq_probe.restype = i
-    lib.tpuvdb_pq_probe.argtypes = [p] * 10 + [i] * 12 + [p]
+    lib.tpuvdb_pq_probe.argtypes = [p] * 10 + [i] * 14 + [p]
     lib.tpuvdb_pq_error.restype = ctypes.c_char_p
     lib.tpuvdb_pq_error.argtypes = [i]
 
@@ -139,15 +145,28 @@ def pq_candidates_plain(lut, qc2, cells, segs, cellof, codes, bias,
                        query_tile, tile_extra=cellof)
 
 
-def _launch_shape(tiles: int, query_tile: int, n_entries: int, dev):
-    """(splits, entries_per_block): about four blocks per SM in all, and
-    at least MIN_BLOCK_ENTRIES chunks a block, so a staged LUT is used."""
-    if dev.index not in _sm_counts:
-        _sm_counts[dev.index] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
-    want = -(-4 * _sm_counts[dev.index] // (tiles * query_tile))
-    splits = max(1, min(n_entries, want, 65535))
-    epb = max(-(-n_entries // splits), min(MIN_BLOCK_ENTRIES, n_entries))
+def lut_group(m2: int, n_codes: int, query_tile: int) -> int:
+    """Queries a kernel block serves from one staged table: the widest of
+    GROUPS whose interleaved table (M2 x J x G bf16) fits in SMEM_MAX, and
+    no wider than the smallest power of two that holds the tile. Raises
+    where even one query's table does not fit."""
+    cap = 1 << (max(1, query_tile) - 1).bit_length()
+    for g in GROUPS:
+        if g <= cap and m2 * n_codes * g * 2 <= SMEM_MAX:
+            return g
+    raise ValueError(
+        f"pq_candidates: a query's LUT of {m2} x {n_codes} bf16 entries is "
+        f"{m2 * n_codes * 2} bytes, more than the {SMEM_MAX} a block can "
+        "stage")
+
+
+def _launch_shape(blocks: int, n_entries: int, dev) -> Tuple[int, int]:
+    """(splits, entries_per_block) of each (tile, query group)'s list:
+    about BLOCKS_PER_SM blocks an SM in all, and at least MIN_TEAM_ENTRIES
+    chunks for each team of a block, so a staged table is used."""
+    splits = _splits(blocks, n_entries // (TEAMS * MIN_TEAM_ENTRIES), dev,
+                     BLOCKS_PER_SM)
+    epb = -(-n_entries // splits)
     return -(-n_entries // epb), epb
 
 
@@ -186,11 +205,7 @@ def pq_candidates(
         raise ValueError(f"{name}: codes must be contiguous")
     if lut_c.data_ptr() % 16:
         lut_c = lut_c.clone()  # the kernel stages it 16 bytes at a time
-    smem = m2 * n_codes * 2
-    if smem > SMEM_MAX:
-        raise ValueError(
-            f"{name}: a query's LUT of {m2} x {n_codes} bf16 entries is "
-            f"{smem} bytes, more than the {SMEM_MAX} a block can stage")
+    group = lut_group(m2, n_codes, query_tile)
     tiles, width = cells.shape
     if tiles > 65535:
         raise ValueError(f"{name}: {tiles} tiles, the grid takes 65,535")
@@ -198,7 +213,7 @@ def pq_candidates(
     keys, val, idx = _outputs(lut_c.shape[0], n_segments, dev)
     if tiles == 0 or width == 0:
         return val.fill_(NEG_INF), idx.fill_(-1)
-    splits, epb = _launch_shape(tiles, query_tile, width, dev)
+    splits, epb = _launch_shape(tiles * -(-query_tile // group), width, dev)
     n, mb = codes.shape
     vec = mb % 16 == 0 and codes.data_ptr() % 16 == 0
     rc = lib.tpuvdb_pq_probe(
@@ -206,7 +221,7 @@ def pq_candidates(
         bias_c.data_ptr(), cells.data_ptr(), segs.data_ptr(),
         cellof.data_ptr(), keys.data_ptr(), val.data_ptr(), idx.data_ptr(),
         tiles, query_tile, mb, n_codes, qc2_c.shape[1], width, n // CHUNK,
-        n_segments, splits, epb, int(vec), dev.index,
+        n_segments, group, TEAMS, splits, epb, int(vec), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError("pq probe kernel launch failed: "
