@@ -9,7 +9,16 @@ with the IVF-PQ ADC probe) are built first with nvcc for sm_90a, one nvcc
 per source, side by side: three libraries. Their registers and spills
 (nvcc -Xptxas -v) and, where cuobjdump is installed, each library's count
 of tensor-core instructions (HGMMA for bf16 / tf32, IGMMA for s8) and TMA
-loads (UTMALDG) are printed.
+loads (UTMALDG) are printed. Beside them g++ builds the native host runtime
+(tpuvdb_torch/native: the C++ doc store, the group-commit WAL writer, the
+mmap vector file, the fused exact rescore, and the fastlist extension);
+its compile time is printed with the vectorizer's report on the rescore's
+two dot loops (one more compile with -fopt-info-vec-all into a temp dir,
+logged, not asserted).
+
+Every engine runs on the native runtime: each timed engine, restart and
+durability engine must show in info() the native doc store, fastlist and
+the native rescore, and, with a data_dir, the native WAL writer.
 
   kernel      Holds the scan
               kernel against its plain PyTorch version on 1,048,576 x 512
@@ -43,10 +52,15 @@ loads (UTMALDG) are printed.
               searches see the changes before and after flush(). The scan
               kernel's launch count is zeroed before this phase and read
               after it; it must be > 0.
-  durability  A data_dir engine with the WAL on, 50,000 rows: checkpoint,
-              more puts and deletes, then reopen twice (after a crash that
-              leaves a WAL tail to replay, and after close()); search
-              results and count() must be identical each time.
+  durability  A data_dir engine with the WAL on, 50,000 rows, on the
+              native doc store and WAL writer: checkpoint, more puts and
+              deletes, then reopen twice (after a crash that leaves a WAL
+              tail to replay, and after close()); search results and
+              count() must be identical each time, the acknowledged writes
+              read back and the deleted keys stay gone. Run twice: RAM
+              mirrors, then mmap mirrors, where the checkpoint must
+              hardlink the mirror files (same inode) and each reopen adopt
+              them.
   ivf kernel  Builds an IVFIndex (nlist 1,024, nprobe 64) over a clustered
               1,048,576 x 512 corpus with ~1% dead rows and holds both IVF
               probe kernels against their plain twins, f32 and bf16, at
@@ -98,7 +112,8 @@ loads (UTMALDG) are printed.
               timers and the host rescore's share, b256 under
               torch.profiler (the torch ops of the int8 scan), recall@10 >=
               0.95 against an exact f32 scan, the device index's bytes
-              beside an f32 one's; then a rescore_mode="device" engine and
+              beside an f32 one's, the rescore phase (below); then a
+              rescore_mode="device" engine and
               a "none" engine at b256 (latency and recall, reported). This
               path is torch ops (`_int_mm`, top-k): it launches no
               hand-written kernel, and the line it prints says so.
@@ -108,7 +123,10 @@ loads (UTMALDG) are printed.
               recall of a rescore_mode="none" engine (reported), a b1,024
               index search through the compact int8 kernel, the write
               checks with a delta-overflow append, and a 50,000-row warm
-              restart (with int8 mirrors). The int8 probe launches are
+              restart (with int8 mirrors); the rescore phase; and an engine
+              with int8 mirrors (mirror_dtype="int8"): b256, its recall
+              (reported: the re-rank ranks the stored int8 rows, so their
+              quantization bounds it), and the rescore phase on them. The int8 probe launches are
               zeroed before the engine's searches and before the index
               search, and must be > 0 after each.
 
@@ -143,7 +161,8 @@ loads (UTMALDG) are printed.
               phase's rows: build time, device index bytes beside the f32 and
               int8 figures, b1 / b8 / b32 / b256 at k=10 (40 closed-loop
               searches each) with the stage timers, rescored and skipped
-              rows, b256 under torch.profiler, recall@10 >= 0.95 against the
+              rows, b256 under torch.profiler, the rescore phase,
+              recall@10 >= 0.95 against the
               exact f32 scan under the exact rescore (were the default window
               to miss it, the first wider window that reaches it is reported
               and named; the limit stays), the PQ kernel against its twin on
@@ -157,6 +176,19 @@ loads (UTMALDG) are printed.
               The PQ launches are zeroed before the engine's searches and
               must be > 0 after them.
 
+  rescore     On the flat int8, IVF int8 (f32 and int8 mirrors) and IVF-PQ
+              engines: the candidate rows of one real b256 search go through
+              the native and the numpy forms of the exact re-rank on the
+              same mirrors (`_rescore_exact`; on the adaptive IVF-PQ path
+              also `_exact_masked` over the window and `_rescore_adaptive`).
+              Distances within 1e-5 of |q|^2 + max |x|^2 plus 1e-4 (the CPU
+              tests' tolerance, scaled by the terms that cancel), top-10
+              ids equal except inside near-ties of that width, the
+              adaptive counters equal; each form's time (fastest of 3) and
+              the rows and bytes read are printed.
+
+At the end a table gives each engine's b1 and b256 stage p50s
+(search.device, search.assemble, search.rescore), p50 and idle share.
 The last two lines of standard output are the card's name and power limit
 (as nvidia-smi reports them) and the JSON result line.
 """
@@ -218,6 +250,9 @@ IVF_ENGINE_ROWS = 1_000_000
 IVF_BATCHES = (1, 8, 32, 256)
 IVF_RESTART_ROWS = 50_000
 SIDE_REPS = 30           # b256 searches of the "device" / "none" engines
+RESCORE_REPS = 3         # timed calls of each rescore form
+RESCORE_RTOL = 1e-5      # of |q|^2 + max |x|^2 (the terms that cancel),
+RESCORE_ATOL = 1e-4      # plus this: the CPU tests' tolerance, scaled
 
 # the reference's capacity run (scripts/bench_capacity_pq.py:68-75)
 PQ_D = 768
@@ -290,6 +325,47 @@ def tflops(ops: float, ms: float) -> float:
     """Achieved rate of the algorithm's operations (2 per multiply-add;
     3xTF32's three products count once), TFLOP/s."""
     return ops / (ms * 1e-3) / 1e12
+
+
+def check_native(eng, label: str) -> None:
+    """The engine runs on the native host runtime: the C++ doc store with
+    fastlist, the fused rescore and, with a data_dir, the native WAL
+    writer."""
+    info = eng.info()
+    want = {"docstore_backend": "native", "rescore_backend": "native",
+            "fastlist": True}
+    if eng.wal is not None:
+        want["wal_backend"] = "native"
+    got = {k: info[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{label}: not on the native runtime: {got}")
+
+
+def build_native() -> dict:
+    """Builds the native host runtime (tpuvdb_torch/native) from the
+    checkout with g++, and, apart from it, compiles its source once more
+    into a temp dir with -fopt-info-vec-all for the vectorizer's report on
+    the two rescore dot loops (logged, not asserted)."""
+    from tpuvdb_torch import native
+
+    t0 = time.perf_counter()
+    native.load()
+    out = {"load_s": time.perf_counter() - t0,
+           "build_s": dict(native.build_seconds)}
+    src = os.path.join(native.SRC_DIR, "tpuvdb_native.cpp")
+    with open(src) as f:
+        loops = [i + 1 for i, line in enumerate(f) if "acc +=" in line]
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run(
+            ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-pthread",
+             "-fopt-info-vec-all", src, "-o", os.path.join(tmp, "v.so")],
+            capture_output=True, text=True)
+    report = sorted({line.split(src + ":", 1)[1]
+                     for line in proc.stderr.splitlines()
+                     if any(f"{src}:{n}:" in line for n in loops)
+                     and ("vectorized" in line or "couldn't" in line)})
+    out.update(dot_loop_lines=loops, vectorizer=report)
+    return out
 
 
 # --------------------------------------------------------------- phase 1
@@ -413,6 +489,7 @@ def _timed_searches(eng, label: str, queries, batches, out: dict,
     p90, QPS over the window and the engine's stage timers, into out[bN]."""
     from tpuvdb_torch.utils.tracing import StageTimer
 
+    check_native(eng, label)
     for b in batches:
         q = queries[:b]
         eng.search_batch(q, 10)  # warm
@@ -550,33 +627,77 @@ def _device_share(eng, queries, label: str) -> dict:
 # --------------------------------------------------------------- phase 3
 
 
-def phase_durability(tt) -> None:
+def _linked(eng, ckpt: str) -> bool:
+    """Every mirror file of the engine shares its inode with the
+    checkpoint's file of the same shard and part (a hardlink)."""
+    return all(os.stat(path).st_ino
+               == os.stat(os.path.join(ckpt, f"shard_{s}.{part}")).st_ino
+               for s, m in enumerate(eng.mirrors)
+               for part, path in m.file_paths.items())
+
+
+def phase_durability(tt, mirror_backend: str = "ram") -> dict:
+    """A data_dir engine on the native doc store and WAL writer: write,
+    checkpoint, a WAL tail of puts and deletes, a crash (the WAL writer
+    closed, no checkpoint), then reopen twice (WAL tail replay, then after
+    close()). Each reopen returns the acknowledged writes, loses the
+    deleted keys and searches identically. With mmap mirrors the
+    checkpoint hardlinks the mirror files and each reopen adopts them."""
+    label = f"durability ({mirror_backend} mirrors)"
     rng = np.random.default_rng(7)
-    cfg = tt.DBConfig(vector_dim=512, checkpoint_every_puts=10 ** 9)
+    cfg = tt.DBConfig(vector_dim=512, checkpoint_every_puts=10 ** 9,
+                      docstore_backend="native",
+                      mirror_backend=mirror_backend)
     data = _unit_rows(rng, DURABLE_ROWS + 1000, cfg.vector_dim)
     queries = _unit_rows(rng, 32, cfg.vector_dim)
     keys = [f"d{i}" for i in range(len(data))]
+    acked = [7, DURABLE_ROWS - 1, DURABLE_ROWS + 3, len(data) - 1]
+    deleted = list(range(0, 500, 5))
+    mmap = mirror_backend == "mmap"
+    out = {"rows": len(data)}
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT)
     try:
         eng = tt.VectorDBEngine(cfg, data_dir=work)
+        check_native(eng, label)
         assert eng.put_rows(keys[:DURABLE_ROWS], data[:DURABLE_ROWS]).success
-        assert eng.save_checkpoint() is not None
+        t0 = time.perf_counter()
+        ckpt = eng.save_checkpoint()
+        out["checkpoint_s"] = time.perf_counter() - t0
+        if mmap and not _linked(eng, ckpt):
+            raise AssertionError("the checkpoint copied the mirror files "
+                                 "instead of hardlinking them")
         assert eng.put_rows(keys[DURABLE_ROWS:], data[DURABLE_ROWS:]).success
-        for i in range(0, 500, 5):
+        for i in deleted:
             assert eng.delete(keys[i]).success
         want = eng.search_batch(queries, 10)
         n = eng.count()
-        eng.wal.close()  # crash: no checkpoint of the tail
+        eng.wal.close()  # crash: the writer thread joins, no checkpoint
         for how in ("WAL tail replay", "close() checkpoint"):
+            t0 = time.perf_counter()
             eng = tt.VectorDBEngine(cfg, data_dir=work)
             got = eng.search_batch(queries, 10)
+            out[f"reopen_s {how}"] = time.perf_counter() - t0
+            check_native(eng, label)
             assert eng.count() == n, (how, eng.count(), n)
             assert got[1] == want[1], how
             assert np.array_equal(got[0], want[0]), how
-            log(f"durability after {how}: {n} docs, identical results")
+            for i in acked:
+                r = eng.get(keys[i])
+                assert r.success and np.array_equal(
+                    np.asarray(r.vector_data.vector, np.float32),
+                    data[i]), (how, keys[i])
+            assert not any(eng.get(keys[i]).success for i in deleted), how
+            if mmap and not _linked(eng, eng.ckpts.latest()):
+                raise AssertionError(f"{how}: the reopen copied the "
+                                     "checkpoint's mirror files")
+            log(f"{label} after {how}: {n} docs, identical results, "
+                f"acknowledged writes back, deleted keys gone"
+                + (", mirror files hardlinked" if mmap else ""))
             eng.close()
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    log(f"{label}: " + json.dumps(out))
+    return out
 
 
 # --------------------------------------------------------------- phase 4
@@ -943,6 +1064,7 @@ def phase_ivf_restart(tt, label: str = "ivf", packed: bool = False,
             ivf_mod.IVFIndex.build_streaming)
     try:
         eng = tt.VectorDBEngine(cfg, data_dir=work)
+        check_native(eng, f"{label} restart")
         assert eng.put_rows(keys, data).success
         eng.flush()
         cents = eng._ivf.centroids_np().copy()
@@ -965,6 +1087,7 @@ def phase_ivf_restart(tt, label: str = "ivf", packed: bool = False,
         eng = tt.VectorDBEngine(cfg, data_dir=work)
         got = eng.search_batch(queries[:32], 10)
         restart_s = time.perf_counter() - t0
+        check_native(eng, f"{label} restart")
         assert np.array_equal(eng._ivf.centroids_np(), cents)
         assert got[1] == want[1], "keys differ after the warm restart"
         assert np.array_equal(got[0], want[0])
@@ -982,6 +1105,143 @@ def phase_ivf_restart(tt, label: str = "ivf", packed: bool = False,
         (ivf_mod.kmeans, pq_mod.train_pq, pq_mod.train_opq,
          ivf_mod.IVFIndex.build_streaming) = real
         shutil.rmtree(work, ignore_errors=True)
+
+
+# ---------------------------------------------------- the host rescore
+
+
+def _capture_rescore(eng, queries) -> dict:
+    """The host re-rank's inputs in one real search_batch of `queries`:
+    the device candidates (rows, and the ADC distances on the adaptive
+    IVF-PQ path), the mirrors and the layout the engine handed it."""
+    got = {}
+    exact, adaptive = eng._rescore_exact, eng._rescore_adaptive
+
+    def exact_spy(q, rows, layout, mirrors, top=None, native=False):
+        got.update(q=q, rows=rows, layout=layout, mirrors=mirrors, top=top)
+        return exact(q, rows, layout, mirrors, top=top, native=native)
+
+    def adaptive_spy(q, rows, adc, err, k, layout, mirrors, top=None):
+        got.update(q=q, rows=rows, adc=adc, err=err, k=k, layout=layout,
+                   mirrors=mirrors, top=top)
+        return adaptive(q, rows, adc, err, k, layout, mirrors, top=top)
+
+    eng._rescore_exact, eng._rescore_adaptive = exact_spy, adaptive_spy
+    try:
+        eng.search_batch(queries, 10)
+    finally:
+        del eng._rescore_exact, eng._rescore_adaptive
+    return got
+
+
+def _tie_mismatches(r_a, r_b, d_b, tol, k: int = 10) -> tuple:
+    """(mismatches apart from a tie, all mismatches) of the top-k ids of
+    two rankings: a position whose distance in ranking b lies more than
+    tol from both neighbours must hold the same id in a and b."""
+    dq = d_b[:, :k + 1]
+    apart = np.ones((dq.shape[0], k + 2), bool)
+    apart[:, 1:dq.shape[1]] = np.abs(np.diff(dq, axis=1)) > tol[:, None]
+    sep = apart[:, :k] & apart[:, 1:k + 1] & np.isfinite(dq[:, :k])
+    differ = r_a[:, :k] != r_b[:, :k]
+    return int((sep & differ).sum()), int(differ.sum())
+
+
+def _timed(fn):
+    """(result, seconds of the fastest of RESCORE_REPS calls)."""
+    best, res = float("inf"), None
+    for _ in range(RESCORE_REPS):
+        t = time.perf_counter()
+        res = fn()
+        best = min(best, time.perf_counter() - t)
+    return res, best
+
+
+def phase_rescore(eng, queries, label: str) -> dict:
+    """The candidate rows of one real b256 search through the native and
+    the numpy forms of the engine's exact re-rank, on the same mirrors:
+    `_rescore_exact` (the int8 engines' path) and, on the adaptive IVF-PQ
+    path, `_exact_masked` over the whole window and `_rescore_adaptive`
+    itself. Distances at the same positions within RESCORE_RTOL of |q|^2 +
+    max |x|^2 plus RESCORE_ATOL; top-10 ids equal except inside near-ties
+    of that width; the adaptive counters equal."""
+    from tpuvdb_torch.engine.engine import VectorDBEngine
+
+    cap = _capture_rescore(eng, queries[:256])
+    q, rows, layout, mirrors = (cap[k] for k in ("q", "rows", "layout",
+                                                 "mirrors"))
+    m0 = mirrors[0]
+    n_rows = int((rows >= 0).sum())
+    row_bytes = m0.dim + 8 if m0.quantized else m0.dim * 4 + 4
+    x_sq = max(float(m._sq[:m.next_slot].max()) for m in mirrors
+               if m.next_slot)
+    tol = (RESCORE_RTOL * (np.einsum("qd,qd->q", q, q) + x_sq)
+           + RESCORE_ATOL)
+    out = {"queries": int(rows.shape[0]), "window": int(rows.shape[1]),
+           "rows": n_rows, "bytes": n_rows * row_bytes,
+           "mirror_dtype": m0.dtype}
+
+    def hold(name, d_nat, d_np):
+        bad = ~(np.isclose(d_nat, d_np, rtol=0, atol=0)
+                | (np.abs(d_nat - d_np) <= tol[:, None]))
+        out[f"{name}_max_abs_err"] = float(np.nanmax(np.where(
+            np.isfinite(d_np), np.abs(d_nat - d_np), 0.0)))
+        if bad.any():
+            raise AssertionError(f"{label} {name}: {int(bad.sum())} native "
+                                 f"distances off the numpy form's")
+
+    forms = {}
+    for form, nat in (("native", True), ("numpy", False)):
+        forms[form], out[f"rescore_exact_{form}_s"] = _timed(
+            lambda: VectorDBEngine._rescore_exact(
+                q, rows, layout, mirrors, top=cap["top"], native=nat))
+    (d_nat, r_nat), (d_np, r_np) = forms["native"], forms["numpy"]
+    hold("rescore_exact", d_nat[:, :10], d_np[:, :10])
+    apart, ties = _tie_mismatches(r_nat, r_np, d_np, tol)
+    out["top10_id_mismatches"] = ties
+    if apart:
+        raise AssertionError(f"{label}: {apart} top-10 ids differ outside "
+                             "a near-tie")
+    if "adc" in cap:  # the adaptive IVF-PQ path
+        full = np.ones(rows.shape, bool)
+        masked = {}
+        for form, nat in (("native", True), ("numpy", False)):
+            masked[form], out[f"exact_masked_{form}_s"] = _timed(
+                lambda: VectorDBEngine._exact_masked(
+                    q, rows, full, layout, mirrors, native=nat))
+        hold("exact_masked", masked["native"], masked["numpy"])
+        backend = eng.rescore_backend
+        ranked, counts = {}, {}
+        try:
+            for form in ("native", "numpy"):
+                eng.rescore_backend = form
+                before = dict(eng.stats)
+                ranked[form], out[f"adaptive_{form}_s"] = _timed(
+                    lambda: eng._rescore_adaptive(
+                        q, rows, cap["adc"], cap["err"], cap["k"], layout,
+                        mirrors, top=cap["top"]))
+                counts[form] = tuple(
+                    (eng.stats[c] - before[c]) // RESCORE_REPS
+                    for c in ("rescored_rows", "rescore_skipped_rows"))
+        finally:
+            eng.rescore_backend = backend
+        out["adaptive_rescored_skipped"] = counts["native"]
+        if counts["native"] != counts["numpy"]:
+            raise AssertionError(f"{label}: adaptive counters differ: "
+                                 f"{counts}")
+        (da, ra), (dp, rp) = ranked["native"], ranked["numpy"]
+        hold("adaptive", da[:, :10], dp[:, :10])
+        apart, ties = _tie_mismatches(ra, rp, dp, tol)
+        out["adaptive_top10_id_mismatches"] = ties
+        if apart:
+            raise AssertionError(f"{label}: adaptive top-10 ids differ "
+                                 f"outside a near-tie ({apart})")
+    for form in ("native", "numpy"):
+        out[f"rescore_exact_{form}_GBps"] = (
+            out["bytes"] / out[f"rescore_exact_{form}_s"] / 1e9)
+    log(f"{label} rescore, b{out['queries']} x {out['window']} candidates "
+        f"({n_rows} rows, {out['bytes']} bytes of {m0.dtype} mirror rows): "
+        + json.dumps(out))
+    return out
 
 
 # ----------------------------------------------------- int8 storage tier
@@ -1047,6 +1307,7 @@ def phase_flat_int8(tt) -> dict:
     if out["recall_at_10"] < RECALL_MIN:
         raise AssertionError(f"flat int8 recall@10 {out['recall_at_10']} < "
                              f"{RECALL_MIN}")
+    out["rescore"] = phase_rescore(eng, queries, "flat int8 engine")
     # a write is visible before and after the flush that quantizes it
     from tpuvdb_torch.core.types import VectorData
 
@@ -1115,6 +1376,7 @@ def phase_ivf_int8(tt, ivf_probe, data, queries, truth, keys):
     if launches_expanded <= 0:
         raise AssertionError("the IVF int8 engine's search never launched "
                              "the expanded int8 probe kernel")
+    out["rescore"] = phase_rescore(eng, queries, "ivf int8 engine")
     ivf_probe.LAUNCHES_COMPACT_INT8 = 0
     out["index_compact"] = phase_ivf_index_compact(eng, queries, truth, keys,
                                                    ivf_probe)
@@ -1137,6 +1399,27 @@ def phase_ivf_int8(tt, ivf_probe, data, queries, truth, keys):
     side["recall_at_10"] = _recall(got, truth[:256], keys)
     log(f"ivf int8 engine (none) recall@10: {side['recall_at_10']:.4f}")
     out["none"] = side
+    eng.close()
+    del eng
+    torch.cuda.empty_cache()
+
+    # int8 mirrors: the exact rescore reads 1 byte a dimension (the native
+    # int8 loop) and dequantizes in the numpy form
+    label = "ivf int8 engine (int8 mirrors)"
+    eng, b_s = _int8_engine(tt, _ivf_config(tt, storage_dtype="int8",
+                                            mirror_dtype="int8"),
+                            keys, data, label)
+    side = {"build_s": b_s}
+    _timed_searches(eng, label, queries, (256,), side, reps=SIDE_REPS)
+    side["b256_device"] = _device_share(eng, queries[:256], label)
+    _, got = eng.search_batch(queries[:256], 10)
+    # reported, not held: the exact re-rank ranks the stored int8 rows,
+    # so the mirrors' own quantization bounds the recall against f32
+    side["recall_at_10"] = _recall(got, truth[:256], keys)
+    log(f"{label} recall@10 (re-ranked on the int8 rows): "
+        f"{side['recall_at_10']:.4f}")
+    side["rescore"] = phase_rescore(eng, queries, label)
+    out["int8_mirrors"] = side
     eng.close()
     del eng
     torch.cuda.empty_cache()
@@ -1392,6 +1675,7 @@ def phase_ivf_pq(tt, pq_probe, data, queries, truth, keys, sm_clocks,
     out["b256_device"] = _device_share(eng, queries[:256], "ivf pq engine")
     out.update(_pq_recall(eng, queries, truth, keys, "ivf pq engine"))
     launches = pq_probe.LAUNCHES_PQ
+    out["rescore"] = phase_rescore(eng, queries, "ivf pq engine")
     if launches <= 0:
         raise AssertionError("the IVF-PQ engine's search never launched "
                              "the PQ probe kernel")
@@ -1440,6 +1724,28 @@ def log_sass_counts(libs) -> None:
 
 
 
+def log_stage_table(results: dict) -> None:
+    """b1 and b256 of each engine: the stage p50s search.device,
+    search.assemble and (inside it) search.rescore, the p50, and the
+    device's idle share under torch.profiler (b256)."""
+    log("engine | batch | search.device | search.assemble | search.rescore "
+        "| p50 ms | idle share")
+    for name, out in results.items():
+        for b in ("b1", "b256"):
+            if b not in out:
+                continue
+            st = out[b]["stage_p50_ms"]
+            idle = (out.get("b256_device", {}).get("device_idle_share",
+                                                   "not measured")
+                    if b == "b256" else "not measured")
+            cells = [st.get(k, "-") for k in ("search.device",
+                                              "search.assemble",
+                                              "search.rescore")]
+            log(f"{name} | {b} | " + " | ".join(
+                f"{c:.3f}" if isinstance(c, float) else str(c)
+                for c in cells + [out[b]["p50_ms"], idle]))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1452,10 +1758,18 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     libs = (scan.LIBRARY, ivf_probe.LIBRARY, pq_probe.LIBRARY)
-    # one nvcc per source, all started together
-    with ThreadPoolExecutor(len(libs)) as pool:
+    # one nvcc per source, all started together, beside the g++ build of
+    # the native host runtime
+    with ThreadPoolExecutor(len(libs) + 1) as pool:
+        host = pool.submit(build_native)
         list(pool.map(lambda lib: lib.load(), libs))
+        native_build = host.result()
     log(f"kernels built in {time.perf_counter() - wall0:.1f} s")
+    log(f"native host runtime (tpuvdb_torch/native, g++ -O3): compiled "
+        f"{json.dumps(native_build['build_s'])} s, loaded in "
+        f"{native_build['load_s']:.2f} s; g++ -fopt-info-vec on the rescore "
+        f"dot loops (lines {native_build['dot_loop_lines']}): "
+        + " | ".join(native_build["vectorizer"]))
     for lib in libs:
         for line in lib.build_log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
@@ -1470,7 +1784,8 @@ def main() -> int:
     if launches <= 0:
         raise AssertionError("the engine's search never launched the "
                              "scan kernel")
-    phase_durability(tt)
+    durable = {backend: phase_durability(tt, backend)
+               for backend in ("ram", "mmap")}
 
     ivf_kern = phase_ivf_kernel(ivf_probe)
     ivf_probe.LAUNCHES_EXPANDED = ivf_probe.LAUNCHES_COMPACT = 0
@@ -1521,6 +1836,22 @@ def main() -> int:
         f"int8 {launches_compact_i8} (b1,024 int8 index search), pq "
         f"{launches_pq} (ivf pq engine's searches); the flat int8 engine "
         f"launches no hand-written kernel")
+    log_stage_table({
+        "flat f32": eng, "ivf f32": ivf_out, "flat int8": flat8,
+        "ivf int8": ivf8, "ivf int8 (int8 mirrors)": ivf8["int8_mirrors"],
+        "ivf pq": pq_out})
+    log("host rescore, native against numpy (b256 candidates of a real "
+        "search): " + json.dumps({
+            name: {k: r[k] for k in ("rows", "bytes", "mirror_dtype",
+                                     "rescore_exact_native_s",
+                                     "rescore_exact_numpy_s",
+                                     "top10_id_mismatches")}
+            for name, r in (("flat int8", flat8["rescore"]),
+                            ("ivf int8", ivf8["rescore"]),
+                            ("ivf int8 (int8 mirrors)",
+                             ivf8["int8_mirrors"]["rescore"]),
+                            ("ivf pq", pq_out["rescore"]))}))
+    log("durability " + json.dumps(durable))
     log(f"total wall {time.perf_counter() - wall0:.1f} s")
 
     m = kern["main"]

@@ -9,9 +9,13 @@
   against exact, and at k = 100, 256 and 600 (past what the scan's 512
   buckets serve at recall_target 0.95) returns min(k, live) hits at recall
   >= 0.95, as the reference's approx_max_k does.
-* Configurations of later slices raise NotImplementedError, and device=None
-  means CUDA.
+* Configurations of later slices (a mesh, search coalescing) raise
+  NotImplementedError; the native doc store and mmap mirrors ("mmap", and
+  "auto" with a data_dir) run and serve the keys of the python doc store
+  on RAM mirrors; device=None means CUDA.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -243,9 +247,33 @@ def test_default_mode_keeps_recall_at_large_k(rng, k):
             assert len(set(hits) & {keys[i] for i in t}) / k >= 0.95
 
 
+def _runs_as_python_ram(tmp_path, kw):
+    """An engine of configuration `kw` with a data_dir serves the same keys
+    and distances as one with the python doc store on RAM mirrors, fed the
+    same rows; returns it."""
+    if kw.get("index_type") == "ivf":
+        kw = dict(kw, ivf_nlist=8, ivf_kmeans_iters=5, ivf_delta_max=64)
+    rng = np.random.default_rng(3)
+    data = rng.standard_normal((300, DIM)).astype(np.float32)
+    keys = [f"k{i}" for i in range(300)]
+    got = []
+    for sub, cfg in (("a", kw), ("b", dict(kw, docstore_backend="python",
+                                           mirror_backend="ram"))):
+        eng = VectorDBEngine(_cfg(DBConfig, **cfg),
+                             data_dir=str(tmp_path / sub), device="cpu")
+        assert eng.put_rows(keys, data).success
+        eng.delete("k3")
+        got.append((eng, *eng.search_batch(data[:8], 10)))
+    (eng, d, k), (_, d_ref, k_ref) = got
+    assert k == k_ref and "k3" not in sum(k, [])
+    np.testing.assert_allclose(d, d_ref, rtol=1e-5, atol=1e-4)
+    return eng
+
+
 @pytest.mark.parametrize("kw", [
-    # IVF-PQ runs now (tests/test_torch_engine_ivf_pq.py); it still waits
-    # where it is combined with a configuration of a later slice
+    # IVF-PQ runs (tests/test_torch_engine_ivf_pq.py); search coalescing
+    # still waits, alone or beside it. The native doc store and mmap
+    # mirrors run since the native runtime was ported.
     {"index_type": "ivf", "ivf_pq_subq": 8, "search_coalesce": True},
     {"index_type": "ivf", "ivf_pq_subq": 8, "ivf_pq_bits": 4,
      "docstore_backend": "native"},
@@ -253,19 +281,29 @@ def test_default_mode_keeps_recall_at_large_k(rng, k):
     {"docstore_backend": "native"},
     {"mirror_backend": "mmap"},
 ])
-def test_waiting_configurations_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        VectorDBEngine(_cfg(DBConfig, **kw), device="cpu")
+def test_waiting_configurations_raise(kw, tmp_path):
+    if kw.get("search_coalesce"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            VectorDBEngine(_cfg(DBConfig, **kw), device="cpu")
+        return
+    info = _runs_as_python_ram(tmp_path, kw).info()
+    assert info["docstore_backend"] == "native"
+    assert info["mirror_backend"] == kw.get("mirror_backend", "ram")
 
 
 def test_mesh_and_mmap_auto_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         VectorDBEngine(_cfg(DBConfig), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="mmap"):
-        VectorDBEngine(_cfg(DBConfig, mirror_backend="auto"),
-                       data_dir=str(tmp_path), device="cpu")
+    # "auto" mirrors are mmap files exactly when there is a data_dir
+    eng = _runs_as_python_ram(tmp_path, {"mirror_backend": "auto"})
+    assert eng.info()["mirror_backend"] == "mmap"
+    assert os.listdir(tmp_path / "a" / "mirrors")
     eng = VectorDBEngine(_cfg(DBConfig, mirror_backend="auto"), device="cpu")
-    assert eng.docstore.backend == "python"  # "auto" resolves to python
+    info = eng.info()
+    assert info["mirror_backend"] == "ram"
+    # "auto" resolves to the native runtime (the library builds here)
+    assert (info["docstore_backend"], info["rescore_backend"],
+            info["fastlist"]) == ("native", "native", True)
 
 
 def test_device_none_means_cuda():

@@ -392,11 +392,27 @@ def test_ivf_delta_row_on_device_comes_back_once(rng):
 @pytest.mark.parametrize("kw", [
     {"ivf_pq_subq": 8, "search_coalesce": True},
     {"ivf_pq_subq": 4, "ivf_opq": True, "mirror_backend": "mmap"}])
-def test_ivf_waiting_configurations_raise(kw):
-    """IVF-PQ and OPQ run (tests/test_torch_engine_ivf_pq.py); what still
-    waits is a later slice's configuration beside them."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine(**kw)
+def test_ivf_waiting_configurations_raise(kw, tmp_path):
+    """IVF-PQ and OPQ run (tests/test_torch_engine_ivf_pq.py); search
+    coalescing still waits beside them, and OPQ on mmap mirrors serves the
+    keys of RAM mirrors."""
+    if kw.get("search_coalesce"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            engine(**kw)
+    else:
+        rng = np.random.default_rng(5)
+        data = rng.standard_normal((300, DIM)).astype(np.float32)
+        keys = [f"k{i}" for i in range(300)]
+        got = []
+        for sub, backend in (("mmap", "mmap"), ("ram", "ram")):
+            eng = engine(data_dir=str(tmp_path / sub),
+                         **dict(kw, mirror_backend=backend))
+            assert eng.put_rows(keys, data).success
+            got.append(eng.search_batch(data[:8], 10))
+            assert eng.info()["mirror_backend"] == backend
+        assert got[0][1] == got[1][1]
+        np.testing.assert_allclose(got[0][0], got[1][0], rtol=1e-5,
+                                   atol=1e-4)
     still = {k: v for k, v in kw.items() if k.startswith("ivf_")}
     assert engine(**still)._ivf is None  # constructs; no index before data
     with pytest.raises(NotImplementedError, match="multi-GPU"):

@@ -37,7 +37,7 @@ assert not leaked, leaked
 _MUST_WALK = ("tpuvdb_torch.kernels.pq", "tpuvdb_torch.kernels.pq_probe",
               "tpuvdb_torch.kernels.ivf_probe", "tpuvdb_torch.kernels.quant",
               "tpuvdb_torch.index.ivf", "tpuvdb_torch.store.checkpoint",
-              "tpuvdb_torch.engine.engine")
+              "tpuvdb_torch.engine.engine", "tpuvdb_torch.native")
 
 
 def _sources():
@@ -59,6 +59,18 @@ def test_port_imports_without_jax_or_tpuvdb():
     assert n_modules >= 20  # every subpackage and module was walked
     walked = set(lines[1].split())
     assert not [m for m in _MUST_WALK if m not in walked]
+
+
+def test_importing_every_module_builds_nothing(tmp_path):
+    """The native library builds at first use, never at import: walking
+    every module leaves its build directory uncreated."""
+    build = tmp_path / "native-build"
+    env = dict(os.environ, PYTHONPATH=ROOT,
+               TPUVDB_TORCH_NATIVE_BUILD=str(build))
+    res = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert not build.exists()
 
 
 def test_no_source_imports_jax_or_tpuvdb():

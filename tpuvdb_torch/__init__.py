@@ -5,8 +5,10 @@ layout and public names so each part finds its counterpart:
 
   core/      config, wire types, errors       (copies of tpuvdb.core)
   utils/     logging, MD5 routing, tracing    (copies; tracing on torch.profiler)
-  store/     WAL, doc store, checkpoints      (host-only copies, python backends;
-                                               on-disk formats byte-compatible)
+  store/     WAL, doc store, checkpoints      (host-only copies; on-disk formats
+                                               byte-compatible)
+  native/    the native host runtime: C++ doc store, group-commit WAL writer,
+             mmap vector file, fused exact rescore (g++ at first use)
   index/     host mirrors, device exact index and IVF index (CUDA tensors)
   kernels/   distance/top-k and k-means torch ops, and the hand-written CUDA
              kernels: csrc/scan.cu (tpuvdb.kernels.pallas_scan) and

@@ -81,13 +81,17 @@ class DBConfig:
 
     # -- index selection --
     index_type: str = "flat"       # "flat" | "ivf"
-    docstore_backend: str = "auto" # "python" | "native" | "auto"; the port
-                                   # resolves "auto" to "python"
+    # "python" dict | "native" C++ KV (tpuvdb_torch/native; raises with the
+    # compiler's output when it does not build) | "auto" = native when the
+    # library builds, python otherwise (the reference's meaning)
+    docstore_backend: str = "auto"
 
     # -- host mirror storage --
     mirror_dtype: str = "float32"  # "float32" | "int8" (quantized mirror)
-    mirror_backend: str = "ram"    # "ram" | "mmap" | "auto" (mmap when
-                                   # data_dir is set; not ported yet)
+    # "ram" = numpy arrays; "mmap" = native mmap'd vector files under
+    # data_dir/mirrors, so host RSS is the touched pages and checkpoints
+    # hardlink instead of copying; "auto" = mmap when data_dir is set
+    mirror_backend: str = "ram"
 
     # -- IVF --
     ivf_nlist: int = 1024

@@ -40,12 +40,22 @@ exact distance. Its warm state adds the trained codebooks, the OPQ rotation
 and the calibration; with `ivf_checkpoint_packed` a checkpoint also holds
 the packed device index (`ivf_packed.npz`), and a restart uploads it and
 appends only the WAL tail (`_restore_ivf_packed`) instead of encoding every
-row again. The rescores are the reference's numpy forms; its native fused
-branches come with the native runtime.
+row again.
+
+Host runtime (tpuvdb_torch/native, the reference's C++ library built with
+g++ at first use). The default configuration runs the reference's default
+host path: the native doc store (`docstore_backend="auto"`: native when
+the library builds) with key resolution in one FFI crossing, the native
+group-commit WAL writer, and the fused native exact rescore
+(`ShardMirror.rescore_into`) on the lossy tiers; the numpy rescore forms
+serve only an engine whose library did not build. `mirror_backend="mmap"`,
+or `"auto"` with a `data_dir`, keeps the mirrors in mmap'd files under
+`data_dir/mirrors`: checkpoints hardlink them, a restore adopts the
+checkpoint's links, and compaction unlinks the files it swapped out.
+`info()` names what each part took.
 
 Configurations the port does not run yet raise NotImplementedError naming
-the ROADMAP.md item that brings them: a mesh, search coalescing, the native
-doc store and mmap mirrors.
+the ROADMAP.md item that brings them: a mesh and search coalescing.
 
 Snapshot rule. The reference's scatters donate the buffers a concurrent
 search holds, and that search retries on the "donated" error. The port's
@@ -72,6 +82,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from tpuvdb_torch import native
 from tpuvdb_torch.core import errors
 from tpuvdb_torch.core.config import DBConfig
 from tpuvdb_torch.core.types import (
@@ -108,7 +119,7 @@ def _sorted_top(d: np.ndarray, rows: np.ndarray, top: Optional[int]):
             np.take_along_axis(rows, order, 1))
 
 
-def _check_supported(cfg: DBConfig, data_dir: Optional[str], mesh) -> None:
+def _check_supported(cfg: DBConfig, mesh) -> None:
     """Raise NotImplementedError for the configurations that later slices
     of the port bring (ROADMAP.md queue 1)."""
     waiting = []
@@ -117,11 +128,6 @@ def _check_supported(cfg: DBConfig, data_dir: Optional[str], mesh) -> None:
                        "included)")
     if cfg.search_coalesce:
         waiting.append("search_coalesce=True (item 10, service)")
-    if cfg.docstore_backend == "native":
-        waiting.append("docstore_backend='native' (item 12, native runtime)")
-    if (cfg.mirror_backend == "mmap"
-            or (cfg.mirror_backend == "auto" and data_dir is not None)):
-        waiting.append("mmap mirrors (item 12, native runtime and mmap)")
     if waiting:
         raise NotImplementedError(
             "not ported yet (see ROADMAP.md queue 1): " + "; ".join(waiting))
@@ -138,13 +144,25 @@ class VectorDBEngine:
         self.config = config or DBConfig()
         if data_dir is None:
             data_dir = self.config.data_dir  # None = in-memory
-        _check_supported(self.config, data_dir, mesh)
+        _check_supported(self.config, mesh)
         self.device = resolve_device(device)
         self.data_dir = data_dir
         self._lock = threading.RLock()
 
         cfg = self.config
-        self.docstore = DocStore()
+        self.docstore = DocStore(backend=cfg.docstore_backend)
+        # the fused exact rescore: native when the library builds (the
+        # reference's rule; an explicit native doc store has built it)
+        self.rescore_backend = ("native" if native.rescore_available()
+                                else "numpy")
+        # mmap mirrors keep their vector files under data_dir/mirrors;
+        # "auto" turns them on exactly when the engine is durable anyway
+        mmap_on = (cfg.mirror_backend == "mmap"
+                   or (cfg.mirror_backend == "auto" and data_dir is not None))
+        if mmap_on and data_dir is None:
+            raise ValueError("mirror_backend='mmap' requires a data_dir")
+        self._mirror_dir = (os.path.join(data_dir, "mirrors")
+                            if mmap_on else None)
         self.mirrors: List[ShardMirror] = [
             self._new_mirror(i) for i in range(cfg.shard_count)
         ]
@@ -230,7 +248,7 @@ class VectorDBEngine:
             if self.wal is None and os.path.isdir(
                     os.path.join(data_dir, "wal")):
                 self._wal_floor = WriteAheadLog(
-                    os.path.join(data_dir, "wal")).last_seq
+                    os.path.join(data_dir, "wal"), backend="python").last_seq
             self._recover()
             logger.info("engine opened: %d docs, data_dir=%s, dtype=%s, "
                         "device=%s", len(self.docstore), data_dir,
@@ -240,9 +258,25 @@ class VectorDBEngine:
         cfg = self.config
         return ShardMirror(cfg.vector_dim, cfg.shard_capacity,
                            init_cap=cfg.mirror_init_cap, block=128,
-                           dtype=cfg.mirror_dtype)
+                           dtype=cfg.mirror_dtype,
+                           path=(os.path.join(self._mirror_dir,
+                                              f"shard_{shard}")
+                                 if self._mirror_dir else None))
 
     # --------------------------------------------------------------- recovery
+
+    def _gc_mirror_files(self):
+        """Unlink orphaned mirror generations (a crash between a compaction
+        swap and its unlink, or a restore replacing the initial empty
+        files). Checkpoint hardlinks live in the checkpoint directories and
+        keep their inodes."""
+        if self._mirror_dir is None or not os.path.isdir(self._mirror_dir):
+            return
+        live = {os.path.basename(p)
+                for m in self.mirrors for p in m.file_paths.values()}
+        for name in os.listdir(self._mirror_dir):
+            if name not in live:
+                os.unlink(os.path.join(self._mirror_dir, name))
 
     def _recover(self):
         """Checkpoint restore + WAL tail replay. The checkpoint records the
@@ -251,11 +285,15 @@ class VectorDBEngine:
         restored = self.ckpts.load_latest(self.config,
                                           mirror_factory=self._new_mirror)
         if restored is not None:
+            initial = self.mirrors
             self.docstore, self.mirrors, wal_pos = restored
+            for m in initial:  # replaced before first use: drop their files
+                m.unlink_files()
             if len(self.mirrors) != self.config.shard_count:
                 raise errors.CheckpointError(
                     f"checkpoint has {len(self.mirrors)} shards, "
                     f"config wants {self.config.shard_count}")
+        self._gc_mirror_files()
         if self.config.index_type == "ivf":
             self._ivf_warm = self.ckpts.load_ivf_warm()
             if self._ivf_warm is not None:
@@ -374,6 +412,12 @@ class VectorDBEngine:
             applied = 0
             wal_records = []
             journal = self._compact_journal
+            # columnar fast path on the native doc store: metadata-free,
+            # timestamp-free, nothing to journal or log, one FFI crossing
+            # a shard (durable and metadata ingest take the loop below)
+            fast = (metadatas is None and timestamps is None
+                    and journal is None
+                    and (replay_mode or self.wal is None))
             for s in range(self.config.shard_count):
                 idx = np.flatnonzero(shard_ids == s)
                 if not len(idx):
@@ -382,6 +426,18 @@ class VectorDBEngine:
                 first = mirror.alloc(len(idx))
                 mirror.write_batch(first, vecs[idx])
                 idx_list = idx.tolist()
+                res = (self.docstore.put_rows_bulk(
+                    [keys[i] for i in idx_list], s, first) if fast else None)
+                if res is not None:
+                    prev_sh, prev_sl = res
+                    self._staged_updates.extend(
+                        (s, first + j) for j in range(len(idx_list)))
+                    for t in np.flatnonzero(prev_sh >= 0).tolist():
+                        p = (int(prev_sh[t]), int(prev_sl[t]))
+                        self.mirrors[p[0]].mark_deleted(p[1])
+                        self._staged_deletes.append(p)
+                    applied += len(idx)
+                    continue
                 entries = []
                 for j, i in enumerate(idx_list):
                     md = metadatas[i] if metadatas is not None else empty_md
@@ -1123,8 +1179,9 @@ class VectorDBEngine:
                         q32, rows, np.asarray(dists, np.float32),
                         rescore_err, k, layout, mirrors, top=top_w)
                 else:
-                    dists, rows = self._rescore_exact(q32, rows, layout,
-                                                      mirrors, top=top_w)
+                    dists, rows = self._rescore_exact(
+                        q32, rows, layout, mirrors, top=top_w,
+                        native=self.rescore_backend == "native")
         with self._lock:
             # a rescored search validates slot identity only: the device
             # epoch was certified before the rescore, and an IVF append
@@ -1179,15 +1236,27 @@ class VectorDBEngine:
 
     @staticmethod
     def _rescore_exact(queries: np.ndarray, rows: np.ndarray, layout,
-                       mirrors: list, top: Optional[int] = None):
+                       mirrors: list, top: Optional[int] = None,
+                       native: bool = False):
         """Re-rank device candidates by exact f32 distance to the mirrors'
-        rows (dequantized for int8 mirrors): int8 scanning trades score
+        rows (dequantized for int8 mirrors): lossy scanning trades score
         precision for device memory, and this epilogue restores the exact
         ordering over the overfetched candidates. Lock-free against the
-        given snapshot of the mirror list. GEMM form, |q|^2 - 2 q.v + |v|^2
-        batched per query, so no (Q, F, d) difference array exists."""
+        given snapshot of the mirror list.
+
+        native=True runs the fused native epilogue (`rescore_into`): each
+        candidate row streams through registers once and the mirror's
+        precomputed ||v||^2 is reused, with no (n, d) f32 transient. The
+        numpy form gathers the rows as f32 and takes the GEMM form
+        |q|^2 - 2 q.v + |v|^2 batched per query, so no (Q, F, d)
+        difference array exists."""
         q = np.ascontiguousarray(np.atleast_2d(queries), np.float32)
         qn, f = rows.shape
+        if native:
+            d = VectorDBEngine._exact_masked(
+                q, rows, np.ones((qn, f), bool), layout, mirrors,
+                native=True)
+            return _sorted_top(d, rows, top)
         flat = rows.ravel()
         ok = flat >= 0
         qsq = np.einsum("qd,qd->q", q, q).astype(np.float32)
@@ -1225,7 +1294,8 @@ class VectorDBEngine:
         w0 = min(f, max(4 * k, 32))
         mask = np.zeros((qn, f), bool)
         mask[:, :w0] = True
-        d = self._exact_masked(q, rows, mask, layout, mirrors)
+        native = self.rescore_backend == "native"
+        d = self._exact_masked(q, rows, mask, layout, mirrors, native=native)
         kk = min(k - 1, w0 - 1)
         dk = np.partition(d[:, :w0], kk, axis=1)[:, kk]     # (Q,) kth exact
         # d_exact = d_adc - ||e||^2 - 2 (q - x) . e with e the candidate's
@@ -1242,7 +1312,8 @@ class VectorDBEngine:
               - 2.0 * np.sqrt(np.maximum(adc_f, 0.0)) * (err * z_over_sqrtd))
         mask2 = (~mask) & (rows >= 0) & (lb < dk[:, None])
         if mask2.any():
-            d2 = self._exact_masked(q, rows, mask2, layout, mirrors)
+            d2 = self._exact_masked(q, rows, mask2, layout, mirrors,
+                                    native=native)
             d = np.where(mask2, d2, d)
         done = (mask | mask2) & (rows >= 0)
         # unrescored candidates keep their ADC estimate, floored at D_k
@@ -1258,9 +1329,10 @@ class VectorDBEngine:
 
     @staticmethod
     def _exact_masked(q: np.ndarray, rows: np.ndarray, mask: np.ndarray,
-                      layout, mirrors) -> np.ndarray:
+                      layout, mirrors, native: bool = False) -> np.ndarray:
         """Exact f32 distances at the masked candidate positions only
-        (np.inf elsewhere), from the mirrors' rows."""
+        (np.inf elsewhere), from the mirrors' rows: the fused native
+        epilogue with native=True, a numpy gather otherwise."""
         qn, f = rows.shape
         flat = rows.ravel()
         sel = mask.ravel() & (flat >= 0)
@@ -1271,6 +1343,12 @@ class VectorDBEngine:
         shards = flat[sel] // layout.phys_cap
         slots = flat[sel] % layout.phys_cap
         pos = np.flatnonzero(sel)
+        if native:
+            for s in range(len(mirrors)):
+                m = shards == s
+                if m.any():
+                    mirrors[s].rescore_into(q, qsq, f, slots[m], pos[m], out)
+            return out.reshape(qn, f)
         vecs = np.zeros((len(pos), q.shape[1]), np.float32)
         for s in range(len(mirrors)):
             m = shards == s
@@ -1380,9 +1458,12 @@ class VectorDBEngine:
         if not online:
             with self._flush_lock, self._lock:
                 snap = self.docstore.export_snapshot()
+                old_mirrors = self.mirrors
                 new_mirrors, new_docstore = self._rebuild_dense(
-                    snap, self.mirrors)
+                    snap, old_mirrors)
                 self._swap_compacted(new_mirrors, new_docstore)
+            for m in old_mirrors:  # mappings stay valid for live views
+                m.unlink_files()
             return
         with self._lock:
             if self._compact_journal is not None:
@@ -1414,15 +1495,19 @@ class VectorDBEngine:
                         self.mirrors[e.shard].mark_deleted(e.slot)
                         self._staged_deletes.append((e.shard, e.slot))
             self._mut_count = mut0
+        for m in old_mirrors:  # unlink the swapped-out vector files (the
+            m.unlink_files()   # mappings stay valid for any live snapshot)
 
     def _rebuild_dense(self, snap, old_mirrors):
         """Columnar dense rebuild from an export_snapshot(): one gather and
-        one write per shard in the stored dtype, then the doc store."""
-        keys, shards, slots, tss, mds = DocStore.snapshot_columns(snap)
+        one write per shard in the stored dtype (bit-exact for int8), then
+        the doc store: a packed native snapshot goes back through one FFI
+        crossing with the remapped slots, entries through put_many."""
+        shards, slots = DocStore.snapshot_shard_slots(snap)
         new_mirrors = [self._new_mirror(i)
                        for i in range(self.config.shard_count)]
-        new_docstore = DocStore()
-        n = len(keys)
+        new_docstore = DocStore(backend=self.config.docstore_backend)
+        n = len(shards)
         new_slots = np.empty(n, np.int64)
         for s in range(self.config.shard_count):
             idx = np.flatnonzero(shards == s)
@@ -1432,8 +1517,11 @@ class VectorDBEngine:
             first = new_mirrors[s].alloc(idx.size)
             new_mirrors[s].write_raw_batch(first, vec, scale, sq)
             new_slots[idx] = first + np.arange(idx.size, dtype=np.int64)
+        if new_docstore.load_packed_remapped(snap, new_slots):
+            return new_mirrors, new_docstore
+        keys, shards_c, _, tss, mds = DocStore.snapshot_columns(snap)
         new_docstore.put_many([
-            DocEntry(key=keys[i], shard=int(shards[i]),
+            DocEntry(key=keys[i], shard=int(shards_c[i]),
                      slot=int(new_slots[i]), metadata=mds[i],
                      timestamp=int(tss[i]))
             for i in range(n)
@@ -1469,8 +1557,15 @@ class VectorDBEngine:
             with self._lock:
                 wal_pos = (self.wal.last_seq if self.wal is not None
                            else self._wal_floor)
-                doc_rows = [(e.key, e.shard, e.slot, e.metadata, e.timestamp)
-                            for e in self.docstore.entries()]
+                doc_blob = doc_rows = None
+                if self.docstore.backend == "native":
+                    # the C++ table serialized to memory under the lock
+                    # (memcpy speed); the disk write happens off-lock
+                    doc_blob = self.docstore.snapshot_native_mem()
+                else:
+                    doc_rows = [(e.key, e.shard, e.slot, e.metadata,
+                                 e.timestamp)
+                                for e in self.docstore.entries()]
                 # views + a small validity copy: rows [:n) are immutable,
                 # so the off-lock writer below reads them safely
                 shard_snaps = [m.checkpoint_snapshot() for m in self.mirrors]
@@ -1498,6 +1593,14 @@ class VectorDBEngine:
                 self._puts_since_ckpt = 0
             packed_written = self._write_ivf_packed(
                 tmp, packed_clean_src, packed_cap, cap_epoch)
+            if doc_blob is not None:
+                try:
+                    with open(os.path.join(tmp, "docstore.kv"), "wb") as f:
+                        f.write(doc_blob.view())
+                        f.flush()
+                        os.fsync(f.fileno())
+                finally:
+                    doc_blob.release()
             path = self.ckpts.finish(tmp, self.config, doc_rows, shard_snaps,
                                      wal_pos, dim=self.config.vector_dim,
                                      ivf_warm=ivf_warm)
@@ -1585,6 +1688,14 @@ class VectorDBEngine:
                 "staged": len(self._staged_updates) + len(self._staged_deletes),
                 "stats": dict(self.stats),
                 "latency": self.timers.snapshot(),
+                # the host runtime each part took ("auto" resolved)
+                "docstore_backend": self.docstore.backend,
+                "wal_backend": (self.wal.backend if self.wal is not None
+                                else None),
+                "rescore_backend": self.rescore_backend,
+                "fastlist": self.docstore.backend == "native",
+                "mirror_backend": ("mmap" if self._mirror_dir is not None
+                                   else "ram"),
             }
 
     def close(self):

@@ -1,4 +1,4 @@
-"""Shard memory layout: the port's copy of tpuvdb.index.layout, RAM mirrors.
+"""Shard memory layout: the port's copy of tpuvdb.index.layout.
 
 Host side: one `ShardMirror` per logical shard — a growable (capacity, dim)
 row store plus a validity mask and an append-only slot allocator. The
@@ -10,7 +10,13 @@ phys_cap + slot), so device rows map 1:1 between the two packages.
 
 dtype="int8" mirrors store quantized rows with a per-row dequant scale and
 the squared norm of the DEQUANTIZED row; `vector_at`/`rows_f32` dequantize
-on read. Disk-backed (mmap) mirrors are not ported yet.
+on read.
+
+path=... keeps the rows in mmap'd vector files (the native VectorFile,
+tpuvdb_torch/native) preallocated sparse at full capacity, named and laid
+out as the reference's: growth is a watermark bump, host RSS is the touched
+pages, and checkpoints hardlink the files instead of copying them.
+`rescore_into` runs the native fused exact rescore over the stored rows.
 
 Slot rows are append-only and immutable once written (overwrite = fresh
 slot + soft delete), which makes zero-copy checkpoint views consistent.
@@ -21,7 +27,10 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Tuple
+import os
+import shutil
+import uuid
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -43,6 +52,31 @@ def quantize_block(vecs: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray
     return q, scales, sq
 
 
+class _VecFile:
+    """One mmap'd row store on the native VectorFile. Never explicitly
+    unmapped: an off-lock checkpoint writer may hold a view after the
+    owning mirror was swapped away, so the mapping goes when the last
+    reference does (unlinking the path while mapped is safe on POSIX)."""
+
+    def __init__(self, path: str, rows: int, dtype, cols: int):
+        from tpuvdb_torch import native
+
+        self.path = path
+        self.rows = rows
+        self._native = native.NativeVectorFile(
+            path, rows, cols * np.dtype(dtype).itemsize)
+        self.arr = self._native.as_array(dtype, cols)
+
+    def flush(self):
+        if not self._native.flush():
+            raise OSError(f"msync failed: {self.path}")
+
+    def __del__(self):
+        native = getattr(self, "_native", None)
+        if native is not None:
+            native.close()
+
+
 class ShardMirror:
     def __init__(
         self,
@@ -51,21 +85,87 @@ class ShardMirror:
         init_cap: int = 16384,
         block: int = 128,
         dtype: str = "float32",
+        path: Optional[str] = None,
     ):
+        """path=None keeps rows in RAM; otherwise rows live in mmap files
+        `{path}_g<uuid>.{vec,scale,sq}` preallocated (sparse) at full
+        capacity, so growth never copies and checkpoints hardlink."""
         self.dim = dim
         self.capacity = capacity  # logical max slots
         self.block = block
         self.dtype = dtype
         self.quantized = dtype == "int8"
         self._qdtype = np.int8 if self.quantized else np.float32
+        self.path_prefix = path
+        self.file_paths: Dict[str, str] = {}
+        self._files: Dict[str, _VecFile] = {}
         init = min(_round_up(init_cap, block), _round_up(capacity, block))
-        self._vec = np.zeros((init, dim), dtype=self._qdtype)
-        self._scale = np.ones(init, np.float32) if self.quantized else None
-        self._sq = np.zeros(init, np.float32)
+        if path is None:
+            self._vec = np.zeros((init, dim), dtype=self._qdtype)
+            self._scale = np.ones(init, np.float32) if self.quantized else None
+            self._sq = np.zeros(init, np.float32)
+            self.valid = np.zeros(init, dtype=bool)
+        else:
+            self._open_files(link_from=None)
+            # validity stays in RAM (1 byte a row), sized as the files
+            self.valid = np.zeros(_round_up(capacity, block), dtype=bool)
         self._phys = init
-        self.valid = np.zeros(init, dtype=bool)
         self.next_slot = 0
         self.deleted = 0
+
+    # ------------------------------------------------------------- mmap files
+
+    @property
+    def mmap_backed(self) -> bool:
+        return self.path_prefix is not None
+
+    def _open_files(self, link_from: Optional[Dict[str, str]]):
+        """Create (or hardlink from a checkpoint) this mirror's files under
+        a fresh generation name and map them at full capacity. A hardlinked
+        restore shares the immutable [:n) prefix with the checkpoint;
+        appends touch rows past every snapshot's recorded watermark."""
+        os.makedirs(os.path.dirname(self.path_prefix), exist_ok=True)
+        full = _round_up(self.capacity, self.block)
+        base = f"{self.path_prefix}_g{uuid.uuid4().hex[:10]}"
+        parts = ("vec", "sq", "scale") if self.quantized else ("vec", "sq")
+        self.file_paths = {part: f"{base}.{part}" for part in parts}
+        if link_from:
+            for part, dst in self.file_paths.items():
+                src = link_from.get(part)
+                if src is None:
+                    raise errors.CheckpointError(
+                        f"checkpoint missing mirror file part {part!r}")
+                try:
+                    os.link(src, dst)
+                except OSError:  # another file system: copy
+                    shutil.copyfile(src, dst)
+        self._files = {
+            "vec": _VecFile(self.file_paths["vec"], full, self._qdtype,
+                            self.dim),
+            "sq": _VecFile(self.file_paths["sq"], full, np.float32, 1),
+        }
+        self._vec = self._files["vec"].arr
+        self._sq = self._files["sq"].arr.reshape(-1)
+        self._scale = None
+        if self.quantized:
+            self._files["scale"] = _VecFile(self.file_paths["scale"], full,
+                                            np.float32, 1)
+            self._scale = self._files["scale"].arr.reshape(-1)
+
+    def flush_files(self):
+        """msync the mmap files (no-op for RAM mirrors): called before a
+        checkpoint hardlinks them."""
+        for f in self._files.values():
+            f.flush()
+
+    def unlink_files(self):
+        """Remove this mirror's directory entries (compaction swapped it
+        out). The mapping stays valid for any live view until GC."""
+        for p in self.file_paths.values():
+            try:
+                os.unlink(p)
+            except FileNotFoundError:
+                pass
 
     # -------------------------------------------------------------- allocator
 
@@ -88,6 +188,10 @@ class ShardMirror:
         if new_cap < n:
             raise errors.CapacityExceeded(
                 f"shard full: {n} > capacity {self.capacity}")
+        if self.mmap_backed:
+            # the files are preallocated at full capacity
+            self._phys = new_cap
+            return
         v = np.zeros((new_cap, self.dim), dtype=self._qdtype)
         v[: self._phys] = self._vec
         sq = np.zeros(new_cap, np.float32)
@@ -159,6 +263,18 @@ class ShardMirror:
                     * np.asarray(self._scale[slots])[:, None])
         return np.asarray(self._vec[slots], np.float32)
 
+    def rescore_into(self, q: np.ndarray, qsq: np.ndarray, fetch_w: int,
+                     slots: np.ndarray, opos: np.ndarray, out: np.ndarray):
+        """Native fused exact rescore over this mirror's stored rows:
+        out[opos] = |q[opos // fetch_w] - stored row|^2, each int8/f32 row
+        read once and its precomputed ||v||^2 reused (no (n, d) f32
+        gather). The caller pre-fills out with +inf."""
+        from tpuvdb_torch import native
+
+        native.rescore_rows(q, qsq, fetch_w, self._vec,
+                            self._scale if self.quantized else None,
+                            self._sq, slots, opos, out)
+
     def rows_raw(self, slots: np.ndarray):
         """Bulk rows in the STORED dtype: (codes, scales|None, sq)."""
         return (self._vec[slots],
@@ -191,7 +307,8 @@ class ShardMirror:
         """Snapshot descriptor captured under the engine lock (views + a
         copy of the small validity prefix). Rows [:n) are immutable, so the
         views stay correct while the caller writes them with the lock
-        released."""
+        released; `store_ref` keeps an mmap mirror's mapping alive across a
+        concurrent compaction swap."""
         n = self.next_slot
         return {
             "dtype": self.dtype,
@@ -201,6 +318,8 @@ class ShardMirror:
             "vec": self._vec[:n],
             "scale": self._scale[:n] if self.quantized else None,
             "sq": self._sq[:n],
+            "mmap_paths": dict(self.file_paths) if self.mmap_backed else None,
+            "store_ref": self,
         }
 
     def load_raw(self, vec, scale, sq, valid, n: int, deleted: int):
@@ -223,6 +342,19 @@ class ShardMirror:
                 self._grow_to(n)
             self.write_batch(0, vecs[:n])
             self.valid[:n] = valid
+        self.next_slot = n
+        self.deleted = deleted
+
+    def adopt_checkpoint_files(self, link_from: Dict[str, str], n: int,
+                               deleted: int, valid) -> None:
+        """mmap -> mmap restore without copying: hardlink a checkpoint's
+        row files in as this mirror's backing store (same dtype and
+        geometry, checked by the caller)."""
+        self.unlink_files()  # the empty files __init__ created
+        self._open_files(link_from=link_from)
+        if n > self._phys:
+            self._grow_to(n)
+        self.valid[:n] = valid
         self.next_slot = n
         self.deleted = deleted
 

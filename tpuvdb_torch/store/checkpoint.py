@@ -2,9 +2,14 @@
 
 A checkpoint is `checkpoint_<ts>/` containing:
     config.json      — DBConfig used at save time
-    docstore.msgpack — key -> (shard, slot, metadata, ts)
-    shard_<i>.npz    — per-shard mirror metadata + inline raw-dtype rows,
-                       scales and sqnorms (format 2)
+    docstore.msgpack — key -> (shard, slot, metadata, ts)   [python backend]
+    docstore.kv      — the native KV's C++ binary snapshot  [native backend]
+    shard_<i>.npz    — per-shard mirror metadata (+ inline raw-dtype rows,
+                       scales and sqnorms for RAM mirrors; format 2)
+    shard_<i>.vec/.scale/.sq — HARDLINKS of an mmap mirror's vector files
+                       (slot rows are append-only and immutable, so linking
+                       the live files and recording next_slot is a
+                       crash-consistent snapshot without a copy)
     wal_pos.txt      — max WAL LSN covered by this checkpoint
     ivf_warm.npz     — IVF engines: trained centroids, the live-row count
                        and mutation count at training, the mutation count
@@ -21,9 +26,9 @@ A checkpoint is `checkpoint_<ts>/` containing:
                        (written last, so a torn checkpoint never restores)
 
 The layout is the reference's, so checkpoints restore across the two
-packages. Restore also reads what only the reference writes: a native
-`docstore.kv` snapshot, hardlinked mmap mirror files (`shard_<i>.vec/.sq/
-.scale`) and format-1 shards.
+packages, format-1 shards included. An mmap mirror of the same dtype and
+geometry adopts a checkpoint's linked files by hardlinking them back in;
+any other mirror reads them.
 
 Retention keeps the newest `max_checkpoints`.
 """
@@ -45,6 +50,38 @@ from tpuvdb_torch.core import errors
 from tpuvdb_torch.core.config import DBConfig
 from tpuvdb_torch.index.layout import ShardMirror
 from tpuvdb_torch.store.kv import DocStore
+
+
+def _link_or_copy(src: str, dst: str) -> bool:
+    """Hardlink src to dst (a copy across file systems); False when src is
+    gone."""
+    try:
+        os.link(src, dst)
+    except FileNotFoundError:
+        return False
+    except OSError:
+        try:
+            shutil.copyfile(src, dst)
+        except FileNotFoundError:
+            return False
+    return True
+
+
+def _link_mirror_files(tmp: str, i: int, snap: dict) -> Optional[dict]:
+    """Hardlink shard i's mmap files into the staging directory after an
+    msync; {part: file name}, or None when a concurrent compaction already
+    unlinked the live files. The snapshot's row views stay valid then
+    (store_ref pins the mapping), and the caller inlines the rows."""
+    snap["store_ref"].flush_files()
+    linked = {}
+    for part, src in snap["mmap_paths"].items():
+        dst = os.path.join(tmp, f"shard_{i}.{part}")
+        if not _link_or_copy(src, dst):
+            for name in linked.values():
+                os.unlink(os.path.join(tmp, name))
+            return None
+        linked[part] = os.path.basename(dst)
+    return linked
 
 
 def _fsync_path(p: str) -> None:
@@ -95,7 +132,7 @@ class CheckpointManager:
         self,
         tmp: str,
         config: DBConfig,
-        doc_rows: List[tuple],
+        doc_rows: Optional[List[tuple]],  # None: docstore.kv already in tmp
         shard_snaps: List[dict],          # ShardMirror.checkpoint_snapshot()
         wal_pos: int,
         dim: int,
@@ -103,21 +140,33 @@ class CheckpointManager:
                         #  [, pq_codebooks, pq_rotation, pq_err])
     ) -> str:
         """Write and commit the checkpoint from snapshot descriptors that
-        the caller captured under its lock; runs with the lock released."""
+        the caller captured under its lock; runs with the lock released.
+        mmap shards hardlink their vector files, RAM shards inline their
+        rows in the npz."""
         with open(os.path.join(tmp, "config.json"), "w") as f:
             f.write(config.to_json())
-        blob = msgpack.packb({"docs": doc_rows}, use_bin_type=True)
-        with open(os.path.join(tmp, "docstore.msgpack"), "wb") as f:
-            f.write(blob)
-            f.flush()
-            os.fsync(f.fileno())
+        if doc_rows is not None:
+            blob = msgpack.packb({"docs": doc_rows}, use_bin_type=True)
+            with open(os.path.join(tmp, "docstore.msgpack"), "wb") as f:
+                f.write(blob)
+                f.flush()
+                os.fsync(f.fileno())
         for i, s in enumerate(shard_snaps):
-            extra = {"vectors": s["vec"], "sqnorms": s["sq"]}
-            if s["scale"] is not None:
-                extra["scales"] = s["scale"]
-            np.savez(os.path.join(tmp, f"shard_{i}.npz"), **extra,
-                     fmt=2, dtype=s["dtype"], n=np.int64(s["n"]),
-                     deleted=np.int64(s["deleted"]), valid=s["valid"])
+            meta = dict(fmt=2, dtype=s["dtype"], n=np.int64(s["n"]),
+                        deleted=np.int64(s["deleted"]), valid=s["valid"])
+            linked = (_link_mirror_files(tmp, i, s)
+                      if s["mmap_paths"] is not None else None)
+            if linked is not None:
+                np.savez(os.path.join(tmp, f"shard_{i}.npz"),
+                         linked=json.dumps(linked),
+                         file_rows=np.int64(s["store_ref"].valid.shape[0]),
+                         **meta)
+            else:
+                extra = {"vectors": s["vec"], "sqnorms": s["sq"]}
+                if s["scale"] is not None:
+                    extra["scales"] = s["scale"]
+                np.savez(os.path.join(tmp, f"shard_{i}.npz"), **extra,
+                         **meta)
         with open(os.path.join(tmp, "wal_pos.txt"), "w") as f:
             f.write(str(int(wal_pos)))
         if ivf_warm is not None:
@@ -139,7 +188,8 @@ class CheckpointManager:
                      mut_at_ckpt=np.int64(mut_now), **extra)
         with open(os.path.join(tmp, "MANIFEST.json"), "w") as f:
             json.dump({"num_shards": len(shard_snaps), "dim": dim,
-                       "format": 2, "docstore": "msgpack",
+                       "format": 2,
+                       "docstore": "kv" if doc_rows is None else "msgpack",
                        "timestamp": int(os.path.basename(tmp)
                                         .split("_")[1].split(".")[0])}, f)
         _fsync_tree(tmp)
@@ -175,9 +225,11 @@ class CheckpointManager:
                 f"checkpoint dim {manifest['dim']} != configured {config.vector_dim}")
         kv_path = os.path.join(path, "docstore.kv")
         if manifest.get("docstore") == "kv" or os.path.exists(kv_path):
-            docstore = DocStore.load_native_file(kv_path)
+            docstore = DocStore.load_native_file(
+                kv_path, backend=config.docstore_backend)
         else:
-            docstore = DocStore.load(os.path.join(path, "docstore.msgpack"))
+            docstore = DocStore.load(os.path.join(path, "docstore.msgpack"),
+                                     backend=config.docstore_backend)
         if mirror_factory is None:
             def mirror_factory(i, _cfg=config):
                 return ShardMirror(dim=_cfg.vector_dim,
@@ -204,11 +256,17 @@ class CheckpointManager:
         valid = z["valid"]
         dtype = str(z["dtype"])
         if "linked" in z:
-            # the reference's mmap mirrors: rows live in hardlinked files
+            # mmap mirrors: rows live in hardlinked files
             linked = json.loads(str(z["linked"]))
             srcs = {part: os.path.join(path, name)
                     for part, name in linked.items()}
             file_rows = int(z["file_rows"])
+            if (dtype == m.dtype and m.mmap_backed
+                    and m.valid.shape[0] == file_rows):
+                # hardlink the files straight in: O(1) in corpus size
+                m.adopt_checkpoint_files(srcs, n, deleted, valid)
+                return
+            # another dtype, geometry or a RAM mirror: read the files
             qdtype = np.int8 if dtype == "int8" else np.float32
             vec = np.memmap(srcs["vec"], dtype=qdtype, mode="r",
                             shape=(file_rows, m.dim))[:n]

@@ -1,4 +1,4 @@
-"""Write-ahead log: the port's copy of tpuvdb.store.wal, python writer only.
+"""Write-ahead log: the port's copy of tpuvdb.store.wal.
 
 The segment format is byte-identical to the reference's, so a WAL written
 by either package replays in the other: msgpack segments (`wal_*.wal`)
@@ -9,6 +9,14 @@ a CRC mismatch mid-file raises WalCorruption.
 
 Append-only writes with optional fsync, a per-log lock, 10 MB rotation,
 7-day retention, last-op-per-key replay past a checkpoint's LSN.
+
+Two writers: a python file handle, or the native group-commit writer
+(tpuvdb_torch.native.NativeWalWriter: one C++ thread writes and fsyncs for
+every producer). backend="auto" takes the native writer when the library
+builds, "native" raises when it does not. Either way an append returns
+only once its bytes are written (and fsynced when `fsync` is on): the
+native writer waits for its ticket whether or not it fsyncs, so an
+acknowledged record is as durable as the python writer makes it.
 """
 
 from __future__ import annotations
@@ -42,9 +50,19 @@ class WriteAheadLog:
         retention_days: int = 7,
         fsync: bool = True,
         codec: str = "msgpack",
+        backend: str = "auto",
     ):
         if codec not in ("msgpack", "jsonl"):
             raise ValueError(f"unknown WAL codec: {codec}")
+        if backend not in ("python", "native", "auto"):
+            raise ValueError(f"unknown WAL backend: {backend!r}")
+        self._native = None
+        if backend != "python":
+            from tpuvdb_torch import native
+
+            if backend == "native" or native.available():
+                native.load()  # raises with the compiler's output
+                self._native = native
         self.wal_dir = wal_dir
         self.max_bytes = max_bytes
         self.retention_days = retention_days
@@ -58,6 +76,10 @@ class WriteAheadLog:
         # monotonic log sequence number; checkpoints record the last LSN they
         # cover so tail replay is exact even when client timestamps are stale
         self._next_seq = self._scan_last_seq() + 1
+
+    @property
+    def backend(self) -> str:
+        return "native" if self._native is not None else "python"
 
     def _seq_marker_path(self) -> str:
         return os.path.join(self.wal_dir, "last_seq")
@@ -106,7 +128,10 @@ class WriteAheadLog:
         while os.path.exists(path):  # two rotations within 1 ms
             i += 1
             path = os.path.join(self.wal_dir, f"wal_{ts}_{i}{self._ext()}")
-        self._fh = open(path, "ab", buffering=0)
+        if self._native is not None:
+            self._fh = self._native.NativeWalWriter(path, fsync=self.fsync)
+        else:
+            self._fh = open(path, "ab", buffering=0)
         self._cur_path = path
         self._cur_bytes = 0
 
@@ -172,9 +197,12 @@ class WriteAheadLog:
             self._write_locked(data)
 
     def _write_locked(self, data: bytes):
-        self._fh.write(data)
-        if self.fsync:
-            os.fsync(self._fh.fileno())
+        if self._native is not None:
+            self._fh.append_sync(data)  # group-commit write (+ fsync)
+        else:
+            self._fh.write(data)
+            if self.fsync:
+                os.fsync(self._fh.fileno())
         self._cur_bytes += len(data)
 
     def _rotate_locked(self):
