@@ -61,6 +61,54 @@ the native rescore, and, with a data_dir, the native WAL writer.
               mirrors, then mmap mirrors, where the checkpoint must
               hardlink the mirror files (same inode) and each reopen adopt
               them.
+  serve       The reference's server at real size, driven over real HTTP:
+              the engine phase's 1,000,000 seeded unit rows x 512 written
+              through the engine (one put_rows, WAL on) into a data_dir
+              with DBConfig(vector_dim=512, search_coalesce=True), the rest
+              at its defaults (4 shards, f32, "approx", RAM mirrors);
+              checkpoint, close, and a DBService reopened on it behind an
+              in-process DBServer (build, checkpoint and reopen seconds).
+              Load comes from client processes that import http.client,
+              json and numpy only (msgpack for the binary wire), so the
+              GIL and the card stay the server's. One client, 200
+              closed-loop /rpc/search k=10 on JSON: p50 / p90 beside the
+              server's service.search, service.batcher_wait and
+              search.device p50s and the engine phase's b1 p50; every
+              answer's keys equal a direct engine.search_batch of the same
+              queries outside near-ties, recall@10 >= 0.95 against an
+              exact scan. 16 client processes of closed-loop /rpc/search:
+              QPS over the window, p50 / p90, requests per scan launch.
+              8 client processes of /rpc/search_batch b32 on the binary
+              wire (JSON where msgpack does not import): QPS, p50 and the
+              coalescer's search_groups. One client of /rpc/search_batch
+              b256 on each wire: p50 beside the engine phase's b256 p50.
+              16 clients of 100 /rpc/put each (the BatchingWriter's group
+              commit, WAL on) while 16 search clients run: every
+              acknowledged key reads back equal through /rpc/get and is
+              the top-1 of /rpc/search on its own vector; then 100
+              /rpc/delete, gone from get and search. /rpc/profile from a
+              handler thread while another client searches: the
+              torch.profiler trace must name the scan kernel. The
+              batcher's fallbacks must be 0 and the service's engine on
+              the native runtime. Close and reopen: the acknowledged puts
+              are back, the deleted keys stay gone, count() equal. Where
+              click imports, `python3 -m tpuvdb_torch.api.cli serve
+              --data-dir D --port P` (64-d) as a subprocess answers
+              /healthz, a put and a search and exits 0 on SIGTERM with a
+              final checkpoint. The scan kernel's launch count, zeroed
+              before this phase, must be > 0 after it. Whether msgpack
+              and click import is printed.
+  federation  A FederatedCoordinator behind a DBServer over two node
+              services on the card, each with a data_dir and the config's
+              default replica_count 2; depth cut to 2,000 rows (from the
+              serve phase's 1M). 2,000 puts through the coordinator over
+              HTTP; each key is held by both nodes (direct /rpc/get on
+              each, vectors equal); coordinator searches hold recall@10
+              >= 0.95 against an exact scan. One node's server shut down:
+              the coordinator's gets (from the replica) and searches still
+              answer; 200 more puts. That node reopened from its data_dir
+              and synced through the coordinator's `sync` RPC: its gets
+              match all 2,200 keys.
   ivf kernel  Builds an IVFIndex (nlist 1,024, nprobe 64) over a clustered
               1,048,576 x 512 corpus with ~1% dead rows and holds both IVF
               probe kernels against their plain twins, f32 and bf16, at
@@ -202,6 +250,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -238,6 +287,22 @@ ENGINE_BATCHES = (1, 32, 256)
 SEARCH_REPS = 110  # p90 then has 11 samples beyond it
 RECALL_MIN = 0.95
 DURABLE_ROWS = 50_000
+
+SERVE_ROWS = 1_000_000
+SERVE_ONE_CLIENT = 200   # closed-loop /rpc/search of the single client
+SERVE_CLIENTS = 16       # search client processes
+SERVE_CLIENT_REQS = 60   # closed-loop /rpc/search of each
+SERVE_BATCH_CLIENTS = 8
+SERVE_BATCH = 32
+SERVE_BATCH_REQS = 40
+SERVE_B256_REQS = 15     # of each wire
+SERVE_PUT_CLIENTS = 16
+SERVE_PUTS = 100         # /rpc/put of each put client
+SERVE_MIXED_REQS = 30    # /rpc/search of each search client beside them
+SERVE_DELETES = 100
+FED_ROWS = 2_000         # federation depth, cut from the serve phase's 1M
+FED_DOWN_PUTS = 200      # puts while a node is down
+FED_QUERIES = 100
 
 IVF_N = 1 << 20
 IVF_D = 512
@@ -697,6 +762,622 @@ def phase_durability(tt, mirror_backend: str = "ram") -> dict:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"{label}: " + json.dumps(out))
+    return out
+
+
+# --------------------------------------------------------------- phase 3b
+
+# a load-generator process: http.client, json and numpy only (msgpack for
+# the binary wire); it never imports torch or the port, so the GIL and the
+# card stay the server's
+_CLIENT_SRC = r'''
+import http.client, json, sys, time
+import numpy as np
+
+cfg = json.loads(sys.argv[1])
+rng = np.random.default_rng(cfg["seed"])
+d, n, op = cfg["dim"], cfg["count"], cfg["op"]
+rows = cfg.get("batch", 1) * n
+x = rng.standard_normal((rows, d), dtype=np.float32)
+x /= np.linalg.norm(x, axis=1, keepdims=True)
+conn = http.client.HTTPConnection("127.0.0.1", cfg["port"], timeout=300)
+if cfg.get("binary"):
+    import msgpack
+
+    CT = "application/x-tpuvdb-bin"
+
+    def _default(o):
+        return msgpack.ExtType(1, msgpack.packb(
+            [o.dtype.str, list(o.shape), o.tobytes()], use_bin_type=True))
+
+    def _ext(code, data):
+        dt, shape, raw = msgpack.unpackb(data, raw=False)
+        return np.frombuffer(raw, dtype=np.dtype(dt)).reshape(shape)
+
+    def call(method, params):
+        conn.request("POST", "/rpc/" + method,
+                     msgpack.packb(params, use_bin_type=True,
+                                   default=_default),
+                     {"Content-Type": CT, "Accept": CT})
+        return msgpack.unpackb(conn.getresponse().read(), raw=False,
+                               ext_hook=_ext, strict_map_key=False)
+else:
+    def call(method, params):
+        conn.request("POST", "/rpc/" + method, json.dumps(params),
+                     {"Content-Type": "application/json"})
+        return json.loads(conn.getresponse().read())
+
+lat, out = [], []
+t0 = time.time()
+for i in range(n):
+    if op == "search":
+        p = {"query_vector": x[i].tolist(), "top_k": 10}
+    elif op == "search_batch":
+        b = cfg["batch"]
+        q = x[i * b:(i + 1) * b]
+        p = {"query_vectors": q if cfg.get("binary") else q.tolist(),
+             "top_k": 10}
+    else:
+        p = {"key": cfg["prefix"] + str(i), "vector": x[i].tolist()}
+    t = time.perf_counter()
+    r = call(op, p)
+    lat.append(time.perf_counter() - t)
+    if not r.get("success"):
+        raise SystemExit(f"{op} failed: {r.get('message')}")
+    if op == "put":
+        out.append(p["key"])
+    elif cfg.get("keep"):
+        sr = r["search_result"]
+        out.append([sr["keys"], [float(s) for s in sr["scores"]]])
+print(json.dumps({"lat": lat, "t0": t0, "t1": time.time(), "out": out}))
+'''
+
+
+def _unit_seeded(seed: int, n: int, d: int) -> np.ndarray:
+    """The rows a client process of seed `seed` generates."""
+    return _unit_rows(np.random.default_rng(seed), n, d)
+
+
+def _run_clients(port: int, specs: list) -> list:
+    """Start one client process per spec (all together) and return their
+    parsed outputs in order; any failing client fails the phase, and every
+    process is stopped before this returns."""
+    procs = []
+    try:
+        for spec in specs:
+            # output into files: a pipe left unread could stall a client
+            so, se = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+            procs.append((subprocess.Popen(
+                [sys.executable, "-c", _CLIENT_SRC,
+                 json.dumps(dict(spec, port=port))], stdout=so, stderr=se),
+                so, se))
+        outs = []
+        for p, so, se in procs:
+            p.wait(timeout=600)
+            so.seek(0)
+            se.seek(0)
+            if p.returncode != 0:
+                raise AssertionError(f"client failed (rc {p.returncode}): "
+                                     f"{se.read()[-2000:]}")
+            outs.append(json.loads(so.read().strip().splitlines()[-1]))
+        return outs
+    finally:
+        for p, so, se in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            so.close()
+            se.close()
+
+
+def _window(outs: list) -> dict:
+    """Latency percentiles over every request of the clients, and the
+    requests over the window from the first start to the last end."""
+    lat = np.concatenate([o["lat"] for o in outs]) * 1e3
+    span = max(o["t1"] for o in outs) - min(o["t0"] for o in outs)
+    return {"requests": int(lat.size), "window_s": span,
+            "qps": lat.size / span,
+            "p50_ms": float(np.percentile(lat, 50)),
+            "p90_ms": float(np.percentile(lat, 90))}
+
+
+def _server_p50s(svc) -> dict:
+    snap = svc.engine.timers.snapshot()
+    return {name: snap[name]["p50_ms"] for name in
+            ("service.search", "service.batcher_wait", "search.device")
+            if name in snap}
+
+
+def _open_service(cfg, data_dir):
+    from tpuvdb_torch.api.server import DBServer
+    from tpuvdb_torch.api.service import DBService
+
+    svc = DBService(cfg, data_dir=data_dir)
+    srv = DBServer(svc, port=0)
+    srv.start_background()
+    return svc, srv
+
+
+def _check_profile_trace(svc, srv, queries) -> dict:
+    """/rpc/profile from a handler thread while another client searches:
+    the torch.profiler trace must hold the scan kernels that the batcher's
+    thread launched."""
+    from tpuvdb_torch.api.client import DBClient
+
+    stop = threading.Event()
+
+    def load():
+        c = DBClient(srv.address, timeout=120)
+        i = 0
+        while not stop.is_set():
+            c.call("search", {"query_vector": queries[i % len(queries)]
+                              .tolist(), "top_k": 10})
+            i += 1
+        c.close()
+        return i
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_trace_", dir=ROOT)
+    try:
+        with ThreadPoolExecutor(1) as pool:
+            fut = pool.submit(load)
+            r = DBClient(srv.address, timeout=120).call(
+                "profile", {"log_dir": work, "seconds": 1.0})
+            stop.set()
+            searches = fut.result(timeout=120)
+        assert r["success"], r
+        with open(os.path.join(work, "trace.json")) as f:
+            trace = f.read()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    n_scan = trace.count("scan_kernel")
+    if n_scan == 0:
+        raise AssertionError("the /rpc/profile trace names no scan kernel")
+    return {"searches_meanwhile": searches, "scan_kernel_mentions": n_scan,
+            "trace_bytes": len(trace)}
+
+
+def phase_serve(tt, scan, engine_out: dict) -> dict:
+    """The reference's server at real size (see the module docstring)."""
+    from tpuvdb_torch.api.client import DBClient
+    from tpuvdb_torch.utils.tracing import StageTimer
+
+    import importlib.util as ilu
+
+    have = {m: ilu.find_spec(m) is not None for m in ("msgpack", "click")}
+    log(f"serve: msgpack imports: {have['msgpack']}, click imports: "
+        f"{have['click']}")
+    binary = have["msgpack"]
+    if not binary:
+        log("serve: msgpack does not import here: the b32 / b256 "
+            "search_batch windows run on the JSON wire")
+    rng = np.random.default_rng(0)               # the engine phase's rows
+    cfg = tt.DBConfig(vector_dim=512, search_coalesce=True)
+    d = cfg.vector_dim
+    data = _unit_rows(rng, SERVE_ROWS, d)
+    keys = [f"doc{i}" for i in range(SERVE_ROWS)]
+    out = {"rows": SERVE_ROWS, "msgpack": have["msgpack"],
+           "click": have["click"], "mirror_backend": cfg.mirror_backend}
+    work = tempfile.mkdtemp(prefix="chip_smoke_serve_", dir=ROOT)
+    try:
+        # build through the engine (WAL on), checkpoint, close. One
+        # put_rows call: each call past checkpoint_every_puts (2,000) or
+        # compact_every_puts (200,000) runs a checkpoint or a compaction of
+        # every mirror row, so chunks would cost one of each per chunk
+        t0 = time.perf_counter()
+        eng = tt.VectorDBEngine(cfg, data_dir=work)
+        assert eng.put_rows(keys, data).success
+        eng.flush()
+        torch.cuda.synchronize()
+        out["build_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eng.save_checkpoint()
+        out["checkpoint_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eng.close()
+        out["close_s"] = time.perf_counter() - t0
+        del eng
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        svc, srv = _open_service(cfg, work)
+        out["reopen_s"] = time.perf_counter() - t0
+        assert svc.engine.count() == SERVE_ROWS
+        check_native(svc.engine, "serve")
+        t0 = time.perf_counter()
+        svc.engine.search_batch(data[:1], 10)
+        torch.cuda.synchronize()
+        out["first_search_s"] = time.perf_counter() - t0
+        log(f"serve: {SERVE_ROWS} rows written through the engine (WAL on, "
+            f"one put_rows) in {out['build_s']:.3f} s, "
+            f"checkpoint {out['checkpoint_s']:.3f} s, close (another "
+            f"checkpoint) {out['close_s']:.3f} s, DBService reopen "
+            f"{out['reopen_s']:.3f} s, first search (index upload) "
+            f"{out['first_search_s']:.3f} s")
+        port = srv.port
+        launches0 = scan.LAUNCHES
+
+        # one client, JSON wire
+        svc.engine.timers = StageTimer()
+        seed = 101
+        o = _run_clients(port, [{"op": "search", "seed": seed, "dim": d,
+                                 "count": SERVE_ONE_CLIENT, "keep": True}])
+        one = _window(o)
+        one["server_p50_ms"] = _server_p50s(svc)
+        one["engine_b1_p50_ms"] = engine_out["b1"]["p50_ms"]
+        qs = _unit_seeded(seed, SERVE_ONE_CLIENT, d)
+        got_k = np.array([r[0] for r in o[0]["out"]], dtype=object)
+        got_d = np.array([r[1] for r in o[0]["out"]], np.float64)
+        dd, kk = svc.engine.search_batch(qs, 10)
+        want_k = np.array([[k for k in row if k is not None][:10]
+                           for row in kk], dtype=object)
+        want_d = np.asarray(dd, np.float64)[:, :10]
+        tol = RESCORE_RTOL * ((qs * qs).sum(1) + 1.0) + RESCORE_ATOL
+        apart, alld = _tie_mismatches(got_k, want_k, want_d, tol)
+        same = got_k == want_k
+        derr = float(np.abs(got_d - want_d)[same].max())
+        one.update(key_mismatches_apart_from_ties=apart,
+                   key_mismatches=alld, max_score_err=derr)
+        if apart or derr > float(tol.max()):
+            raise AssertionError(f"served answers differ from the engine's: "
+                                 f"{apart} ids apart from ties, score error "
+                                 f"{derr}")
+        truth = _exact_truth(data, qs)
+        one["recall_at_10"] = _recall(got_k.tolist(), truth, keys)
+        if one["recall_at_10"] < RECALL_MIN:
+            raise AssertionError(f"served recall@10 {one['recall_at_10']} "
+                                 f"< {RECALL_MIN}")
+        out["one_client"] = one
+        log("serve one client, /rpc/search k=10, JSON: " + json.dumps(one))
+
+        # 16 client processes, closed loop
+        svc.engine.timers = StageTimer()
+        l0 = scan.LAUNCHES
+        o = _run_clients(port, [{"op": "search", "seed": 200 + i, "dim": d,
+                                 "count": SERVE_CLIENT_REQS}
+                                for i in range(SERVE_CLIENTS)])
+        many = _window(o)
+        many["scan_launches"] = scan.LAUNCHES - l0
+        many["requests_per_scan_launch"] = (
+            many["requests"] / max(1, many["scan_launches"]))
+        many["server_p50_ms"] = _server_p50s(svc)
+        out["clients_16"] = many
+        log(f"serve {SERVE_CLIENTS} client processes, /rpc/search k=10: "
+            + json.dumps(many))
+
+        # 8 client processes, search_batch b32
+        svc.engine.timers = StageTimer()
+        g0 = dict(svc.engine.info()["search_groups"])
+        o = _run_clients(port, [{"op": "search_batch", "seed": 300 + i,
+                                 "dim": d, "batch": SERVE_BATCH,
+                                 "count": SERVE_BATCH_REQS,
+                                 "binary": binary}
+                                for i in range(SERVE_BATCH_CLIENTS)])
+        b32 = _window(o)
+        b32["wire"] = "binary" if binary else "json"
+        b32["qps_queries"] = b32["qps"] * SERVE_BATCH
+        g1 = svc.engine.info()["search_groups"]
+        b32["search_groups"] = {n: c - g0.get(n, 0) for n, c in g1.items()
+                                if c - g0.get(n, 0)}
+        out["b32_clients_8"] = b32
+        log(f"serve {SERVE_BATCH_CLIENTS} client processes, "
+            f"/rpc/search_batch b{SERVE_BATCH}: " + json.dumps(b32))
+
+        # one client, search_batch b256, on each wire there is
+        b256 = {"engine_b256_p50_ms": engine_out["b256"]["p50_ms"]}
+        for wire in (("json", "binary") if binary else ("json",)):
+            o = _run_clients(port, [{"op": "search_batch", "seed": 400,
+                                     "dim": d, "batch": 256,
+                                     "count": SERVE_B256_REQS,
+                                     "binary": wire == "binary"}])
+            b256[wire] = _window(o)
+            b256[wire]["over_engine_ms"] = (
+                b256[wire]["p50_ms"] - b256["engine_b256_p50_ms"])
+        out["b256_one_client"] = b256
+        log("serve one client, /rpc/search_batch b256: " + json.dumps(b256))
+
+        # writes while searching: 16 put clients beside 16 search clients
+        svc.engine.timers = StageTimer()
+        specs = [{"op": "put", "seed": 500 + i, "dim": d,
+                  "count": SERVE_PUTS, "prefix": f"w{i}_"}
+                 for i in range(SERVE_PUT_CLIENTS)]
+        specs += [{"op": "search", "seed": 600 + i, "dim": d,
+                   "count": SERVE_MIXED_REQS}
+                  for i in range(SERVE_CLIENTS)]
+        o = _run_clients(port, specs)
+        puts, searches = o[:SERVE_PUT_CLIENTS], o[SERVE_PUT_CLIENTS:]
+        mixed = {"puts": _window(puts), "searches": _window(searches),
+                 "server_p50_ms": _server_p50s(svc)}
+        acked = {}
+        for i, po in enumerate(puts):
+            vecs = _unit_seeded(500 + i, SERVE_PUTS, d)
+            for j, key in enumerate(po["out"]):
+                acked[key] = vecs[int(key.split("_")[1])]
+        assert len(acked) == SERVE_PUT_CLIENTS * SERVE_PUTS, len(acked)
+
+        c = DBClient(srv.address, timeout=120)  # a connection per thread
+
+        def check_key(item):
+            key, vec = item
+            g = c.call("get", {"key": key})
+            s = c.call("search", {"query_vector": vec.tolist(), "top_k": 1})
+            return (g["success"] and np.array_equal(
+                np.asarray(g["vector_data"]["vector"], np.float32), vec),
+                s["search_result"]["keys"])
+
+        with ThreadPoolExecutor(8) as pool:
+            res = list(pool.map(check_key, acked.items()))
+        bad = [k for (ok, top), k in zip(res, acked) if not ok]
+        not_top = [k for (ok, top), k in zip(res, acked) if top[0] != k]
+        if bad or not_top:
+            raise AssertionError(f"acknowledged puts: {len(bad)} do not read "
+                                 f"back, {len(not_top)} are not the top-1 of "
+                                 f"their own vector ({(bad + not_top)[:5]})")
+        mixed["acked_puts"] = len(acked)
+        out["writes_while_searching"] = mixed
+        log("serve writes while searching: " + json.dumps(mixed)
+            + f"; all {len(acked)} acknowledged puts read back equal and "
+            "are the top-1 of their own vector")
+
+        client = DBClient(srv.address, timeout=120)
+        victims = list(acked)[::len(acked) // SERVE_DELETES][:SERVE_DELETES]
+        for key in victims:
+            assert client.call("delete", {"key": key})["success"], key
+        for key in victims:
+            assert not client.call("get", {"key": key})["success"], key
+            top = client.call("search", {"query_vector": acked[key].tolist(),
+                                         "top_k": 10})["search_result"]
+            assert key not in top["keys"], key
+        for key in victims:
+            del acked[key]
+        log(f"serve: {len(victims)} /rpc/delete, each gone from get and "
+            "from the top-10 of its own vector")
+
+        out["profile"] = _check_profile_trace(svc, srv, qs)
+        log("serve /rpc/profile from a handler thread: "
+            + json.dumps(out["profile"]))
+        out["scan_launches"] = scan.LAUNCHES - launches0
+        out["batcher_fallbacks"] = svc.rpc_info({})["info"][
+            "batcher_fallbacks"]
+        if out["batcher_fallbacks"] != 0:
+            raise AssertionError(f"{out['batcher_fallbacks']} batcher "
+                                 "fallbacks")
+        check_native(svc.engine, "serve")
+
+        # restart: close and reopen the service
+        n = svc.engine.count()
+        t0 = time.perf_counter()
+        srv.shutdown()
+        svc.close()
+        out["restart_close_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        svc, srv = _open_service(cfg, work)
+        out["restart_reopen_s"] = time.perf_counter() - t0
+        client = DBClient(srv.address, timeout=120)
+        assert svc.engine.count() == n, (svc.engine.count(), n)
+        for key, vec in list(acked.items())[::4]:
+            g = client.call("get", {"key": key})
+            assert g["success"] and np.array_equal(
+                np.asarray(g["vector_data"]["vector"], np.float32), vec), key
+        for key in victims:
+            assert not client.call("get", {"key": key})["success"], key
+        top = client.call("search", {"query_vector": next(iter(
+            acked.values())).tolist(), "top_k": 1})["search_result"]
+        assert top["keys"] == [next(iter(acked))], top["keys"]
+        check_native(svc.engine, "serve after restart")
+        log(f"serve restart at {n} rows: close {out['restart_close_s']:.3f}"
+            f" s, reopen {out['restart_reopen_s']:.3f} s; count equal, "
+            "acknowledged puts back, deleted keys gone")
+        srv.shutdown()
+        svc.close()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    if have["click"]:
+        out["cli_serve"] = _check_cli_serve()
+    else:
+        log("serve: click does not import here: the `python3 -m "
+            "tpuvdb_torch.api.cli serve` subprocess check is left out")
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _check_cli_serve() -> dict:
+    """`python3 -m tpuvdb_torch.api.cli serve --data-dir D --port P` as a
+    subprocess (64-d): /healthz, a put, a search, and a clean exit on
+    SIGTERM."""
+    import http.client
+    import signal
+
+    from tpuvdb_torch.api.client import DBClient
+
+    port = _free_port()
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_", dir=ROOT)
+    env = dict(os.environ, TPUVDB_VECTOR_DIM="64")
+    logf = tempfile.TemporaryFile("w+")
+
+    def tail():
+        logf.seek(0)
+        return logf.read()[-3000:]
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tpuvdb_torch.api.cli", "serve", "--port",
+         str(port), "--data-dir", os.path.join(work, "db")], cwd=ROOT,
+        env=env, stdout=logf, stderr=subprocess.STDOUT)
+    try:
+        deadline = time.monotonic() + 180
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError("serve died: " + tail())
+            try:
+                conn = http.client.HTTPConnection("127.0.0.1", port,
+                                                  timeout=2)
+                conn.request("GET", "/healthz")
+                if conn.getresponse().status == 200:
+                    break
+            except (OSError, http.client.HTTPException):
+                pass
+            if time.monotonic() > deadline:
+                raise AssertionError("serve never answered /healthz")
+            time.sleep(0.2)
+        up_s = time.perf_counter() - t0
+        v = _unit_rows(np.random.default_rng(9), 1, 64)[0]
+        c = DBClient(f"127.0.0.1:{port}", timeout=120)
+        assert c.call("put", {"key": "cli", "vector": v.tolist()})["success"]
+        r = c.call("search", {"query_vector": v.tolist(), "top_k": 1})
+        assert r["success"] and r["search_result"]["keys"] == ["cli"], r
+        info = c.call("info", {})["info"]
+        assert info["device"].startswith("cuda"), info["device"]
+        c.close()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+        if rc != 0:
+            raise AssertionError(f"serve exited {rc} on SIGTERM: " + tail())
+        ckpts = os.listdir(os.path.join(work, "db", "checkpoints"))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        logf.close()
+        shutil.rmtree(work, ignore_errors=True)
+    if not ckpts:
+        raise AssertionError("serve left no checkpoint on SIGTERM")
+    res = {"healthy_after_s": up_s, "exit_code": rc}
+    log("serve subprocess (python3 -m tpuvdb_torch.api.cli serve): "
+        + json.dumps(res) + "; put, search, clean exit on SIGTERM with a "
+        "final checkpoint")
+    return res
+
+
+def phase_federation(tt) -> dict:
+    """A FederatedCoordinator behind a DBServer over two node services on
+    the card (see the module docstring)."""
+    from tpuvdb_torch.api.client import DBClient
+    from tpuvdb_torch.api.server import DBServer
+    from tpuvdb_torch.cluster.federation import FederatedCoordinator
+
+    d = 512
+    cfg = tt.DBConfig(vector_dim=d)
+    rng = np.random.default_rng(11)
+    data = _unit_rows(rng, FED_ROWS + FED_DOWN_PUTS, d)
+    keys = [f"f{i}" for i in range(len(data))]
+    queries = _unit_rows(rng, FED_QUERIES, d)
+    dirs = [tempfile.mkdtemp(prefix=f"chip_smoke_fed{i}_", dir=ROOT)
+            for i in range(2)]
+    nodes = [_open_service(cfg, w) for w in dirs]
+    coord = FederatedCoordinator(tt.DBConfig(vector_dim=d))
+    csrv = DBServer(coord, port=0)
+    csrv.start_background()
+    out = {"rows": FED_ROWS, "replica_count": cfg.replica_count}
+    try:
+        for i, (_, srv) in enumerate(nodes):
+            coord.register_node(f"n{i}", srv.address)
+
+        cc = DBClient(csrv.address, timeout=120)  # a connection per thread
+
+        def put(i):
+            r = cc.call("put", {"key": keys[i], "vector": data[i].tolist()})
+            assert r["success"], r
+
+        def wait_held(svc, n):
+            deadline = time.monotonic() + 120
+            while svc.engine.count() < n:
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"a node holds {svc.engine.count()}"
+                                         f" of {n} keys")
+                time.sleep(0.05)
+
+        def node_gets(srv, idx):
+            nc = DBClient(srv.address, timeout=120)
+
+            def one(i):
+                g = nc.call("get", {"key": keys[i]})
+                return g["success"] and np.array_equal(np.asarray(
+                    g["vector_data"]["vector"], np.float32), data[i])
+
+            with ThreadPoolExecutor(8) as pool:
+                return sum(pool.map(one, idx))
+
+        def coord_recall(rows):
+            truth = _exact_truth(data[:rows], queries)
+            c = DBClient(csrv.address, timeout=120)
+            got = [c.call("search", {"query_vector": q.tolist(), "top_k": 10})
+                   ["search_result"]["keys"] for q in queries]
+            return _recall(got, truth, keys)
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as pool:
+            list(pool.map(put, range(FED_ROWS)))
+        out["puts_s"] = time.perf_counter() - t0
+        for svc, _ in nodes:
+            wait_held(svc, FED_ROWS)
+        out["replicated_s"] = time.perf_counter() - t0
+        for i, (_, srv) in enumerate(nodes):
+            held = node_gets(srv, range(FED_ROWS))
+            if held != FED_ROWS:
+                raise AssertionError(f"node n{i} holds {held} of {FED_ROWS}")
+        out["recall_at_10"] = coord_recall(FED_ROWS)
+        if out["recall_at_10"] < RECALL_MIN:
+            raise AssertionError(f"federated recall {out['recall_at_10']}")
+        log(f"federation: {FED_ROWS} puts through the coordinator in "
+            f"{out['puts_s']:.3f} s, on both nodes after "
+            f"{out['replicated_s']:.3f} s (direct /rpc/get on each, vectors "
+            f"equal); coordinator recall@10 {out['recall_at_10']:.4f}")
+
+        # one node down: the replica answers
+        down_svc, down_srv = nodes[1]
+        down_srv.shutdown()
+        coord.registry.check_health_once()
+        assert not coord.registry.get_node("n1").online
+        c = DBClient(csrv.address, timeout=120)
+        for i in range(0, FED_ROWS, 10):
+            g = c.call("get", {"key": keys[i]})
+            assert g["success"] and np.array_equal(np.asarray(
+                g["vector_data"]["vector"], np.float32), data[i]), keys[i]
+        out["recall_at_10_one_down"] = coord_recall(FED_ROWS)
+        if out["recall_at_10_one_down"] < RECALL_MIN:
+            raise AssertionError("recall with a node down "
+                                 f"{out['recall_at_10_one_down']}")
+        with ThreadPoolExecutor(8) as pool:
+            list(pool.map(put, range(FED_ROWS, FED_ROWS + FED_DOWN_PUTS)))
+        log(f"federation, n1 down: every 10th key gets from the replica, "
+            f"recall@10 {out['recall_at_10_one_down']:.4f}; "
+            f"{FED_DOWN_PUTS} more puts")
+
+        # reopen n1 from its data_dir and sync it
+        down_svc.close()
+        t0 = time.perf_counter()
+        nodes[1] = _open_service(cfg, dirs[1])
+        out["node_reopen_s"] = time.perf_counter() - t0
+        coord.register_node("n1", nodes[1][1].address)
+        t0 = time.perf_counter()
+        r = c.call("sync", {"node_id": "n1"})
+        assert r["success"], r
+        out["sync_s"] = time.perf_counter() - t0
+        out["sync"] = r["message"]
+        total = FED_ROWS + FED_DOWN_PUTS
+        held = node_gets(nodes[1][1], range(total))
+        if held != total:
+            raise AssertionError(f"reopened n1 holds {held} of {total}")
+        check_native(nodes[1][0].engine, "federation node")
+        log(f"federation: n1 reopened from its data_dir in "
+            f"{out['node_reopen_s']:.3f} s, synced in {out['sync_s']:.3f} s "
+            f"({r['message']}); its gets match all {total} keys")
+    finally:
+        csrv.shutdown()
+        coord.close()
+        for svc, srv in nodes:
+            srv.shutdown()
+            svc.close()
+        for w in dirs:
+            shutil.rmtree(w, ignore_errors=True)
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1786,6 +2467,19 @@ def main() -> int:
                              "scan kernel")
     durable = {backend: phase_durability(tt, backend)
                for backend in ("ram", "mmap")}
+    t0 = time.perf_counter()
+    scan.LAUNCHES = 0
+    served = phase_serve(tt, scan, eng)
+    launches_serve = scan.LAUNCHES
+    served["phase_s"] = time.perf_counter() - t0
+    log("serve " + json.dumps(served))
+    if launches_serve <= 0:
+        raise AssertionError("the served searches never launched the scan "
+                             "kernel")
+    t0 = time.perf_counter()
+    federated = phase_federation(tt)
+    federated["phase_s"] = time.perf_counter() - t0
+    log("federation " + json.dumps(federated))
 
     ivf_kern = phase_ivf_kernel(ivf_probe)
     ivf_probe.LAUNCHES_EXPANDED = ivf_probe.LAUNCHES_COMPACT = 0
@@ -1829,7 +2523,8 @@ def main() -> int:
         {"float32": ivf_out["device_bytes"], "int8": ivf8["device_bytes"]})
     log("ivf pq engine " + json.dumps(pq_out))
     del data
-    log(f"launches: scan {launches} (flat engine phase), ivf expanded "
+    log(f"launches: scan {launches} (flat engine phase) and "
+        f"{launches_serve} (serve phase, HTTP), ivf expanded "
         f"{launches_expanded} (ivf engine phase), ivf compact "
         f"{launches_compact} (b1,024 index search), ivf expanded int8 "
         f"{launches_expanded_i8} (ivf int8 engine's searches), ivf compact "
@@ -1863,7 +2558,9 @@ def main() -> int:
         "route": "cuda",
         "source": "tpuvdb_torch/csrc/scan.cu",
         "replaces": "tpuvdb/kernels/pallas_scan.py:41",
-        "launches": launches,
+        "launches": launches + launches_serve,
+        "launches_by_path": {"flat engine": launches,
+                             "served (HTTP)": launches_serve},
         "max_abs_err": kern["max_abs_err"],
         "ms": m["ms"], "plain_ms": m["plain_ms"],
         "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],

@@ -271,9 +271,10 @@ def _runs_as_python_ram(tmp_path, kw):
 
 
 @pytest.mark.parametrize("kw", [
-    # IVF-PQ runs (tests/test_torch_engine_ivf_pq.py); search coalescing
-    # still waits, alone or beside it. The native doc store and mmap
-    # mirrors run since the native runtime was ported.
+    # IVF-PQ runs (tests/test_torch_engine_ivf_pq.py). The native doc store
+    # and mmap mirrors run since the native runtime was ported, search
+    # coalescing since the service was (alone or beside IVF-PQ); only the
+    # mesh still waits (test_mesh_and_mmap_auto_raise).
     {"index_type": "ivf", "ivf_pq_subq": 8, "search_coalesce": True},
     {"index_type": "ivf", "ivf_pq_subq": 8, "ivf_pq_bits": 4,
      "docstore_backend": "native"},
@@ -282,13 +283,14 @@ def _runs_as_python_ram(tmp_path, kw):
     {"mirror_backend": "mmap"},
 ])
 def test_waiting_configurations_raise(kw, tmp_path):
-    if kw.get("search_coalesce"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            VectorDBEngine(_cfg(DBConfig, **kw), device="cpu")
-        return
     info = _runs_as_python_ram(tmp_path, kw).info()
     assert info["docstore_backend"] == "native"
     assert info["mirror_backend"] == kw.get("mirror_backend", "ram")
+    # a coalesced engine's solo searches each form a group of one
+    if kw.get("search_coalesce"):
+        assert info["search_groups"] == {1: 1}
+    else:
+        assert info["search_groups"] is None
 
 
 def test_mesh_and_mmap_auto_raise(tmp_path):

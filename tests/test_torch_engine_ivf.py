@@ -394,25 +394,30 @@ def test_ivf_delta_row_on_device_comes_back_once(rng):
     {"ivf_pq_subq": 4, "ivf_opq": True, "mirror_backend": "mmap"}])
 def test_ivf_waiting_configurations_raise(kw, tmp_path):
     """IVF-PQ and OPQ run (tests/test_torch_engine_ivf_pq.py); search
-    coalescing still waits beside them, and OPQ on mmap mirrors serves the
-    keys of RAM mirrors."""
+    coalescing runs beside them (a solo search is a group of one and
+    answers as an uncoalesced engine does), and OPQ on mmap mirrors serves
+    the keys of RAM mirrors. Only the mesh still waits."""
+    rng = np.random.default_rng(5)
+    data = rng.standard_normal((300, DIM)).astype(np.float32)
+    keys = [f"k{i}" for i in range(300)]
     if kw.get("search_coalesce"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            engine(**kw)
+        runs = (("coalesced", kw),
+                ("direct", dict(kw, search_coalesce=False)))
     else:
-        rng = np.random.default_rng(5)
-        data = rng.standard_normal((300, DIM)).astype(np.float32)
-        keys = [f"k{i}" for i in range(300)]
-        got = []
-        for sub, backend in (("mmap", "mmap"), ("ram", "ram")):
-            eng = engine(data_dir=str(tmp_path / sub),
-                         **dict(kw, mirror_backend=backend))
-            assert eng.put_rows(keys, data).success
-            got.append(eng.search_batch(data[:8], 10))
-            assert eng.info()["mirror_backend"] == backend
-        assert got[0][1] == got[1][1]
-        np.testing.assert_allclose(got[0][0], got[1][0], rtol=1e-5,
-                                   atol=1e-4)
+        runs = (("mmap", dict(kw, mirror_backend="mmap")),
+                ("ram", dict(kw, mirror_backend="ram")))
+    got = []
+    for sub, cfg in runs:
+        eng = engine(data_dir=str(tmp_path / sub), **cfg)
+        assert eng.put_rows(keys, data).success
+        got.append(eng.search_batch(data[:8], 10))
+        info = eng.info()
+        assert info["mirror_backend"] == cfg.get("mirror_backend", "ram")
+        assert (info["search_groups"] == {1: 1}) == bool(
+            cfg.get("search_coalesce"))
+    assert got[0][1] == got[1][1]
+    np.testing.assert_allclose(got[0][0], got[1][0], rtol=1e-5,
+                               atol=1e-4)
     still = {k: v for k, v in kw.items() if k.startswith("ivf_")}
     assert engine(**still)._ivf is None  # constructs; no index before data
     with pytest.raises(NotImplementedError, match="multi-GPU"):

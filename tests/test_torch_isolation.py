@@ -37,7 +37,10 @@ assert not leaked, leaked
 _MUST_WALK = ("tpuvdb_torch.kernels.pq", "tpuvdb_torch.kernels.pq_probe",
               "tpuvdb_torch.kernels.ivf_probe", "tpuvdb_torch.kernels.quant",
               "tpuvdb_torch.index.ivf", "tpuvdb_torch.store.checkpoint",
-              "tpuvdb_torch.engine.engine", "tpuvdb_torch.native")
+              "tpuvdb_torch.engine.engine", "tpuvdb_torch.native",
+              "tpuvdb_torch.engine.coalesce", "tpuvdb_torch.core.wire",
+              "tpuvdb_torch.api.service", "tpuvdb_torch.api.cli",
+              "tpuvdb_torch.cluster.federation")
 
 
 def _sources():

@@ -13,7 +13,10 @@ layout and public names so each part finds its counterpart:
   kernels/   distance/top-k and k-means torch ops, and the hand-written CUDA
              kernels: csrc/scan.cu (tpuvdb.kernels.pallas_scan) and
              csrc/ivf_probe.cu (the f32/bf16 probes of pallas_ivf)
-  engine/    put/get/delete/search, flat and IVF indexes
+  engine/    put/get/delete/search, flat and IVF indexes, search coalescing
+  api/       service, HTTP server and client, CLI (`python -m
+             tpuvdb_torch.api.cli`), on the reference's wire (core/wire.py)
+  cluster/   membership and the federated coordinator
 
 It imports `torch`, never `jax`, and nothing of `tpuvdb`. Every entry point
 takes `device=None`, which means "cuda", and raises when CUDA is missing;

@@ -5,9 +5,8 @@ and `to_json`/`from_json` write the same JSON, so checkpoints written by
 either package restore in the other. The one change: `jnp_dtype` is
 replaced by `torch_dtype`.
 
-Fields for configurations the port does not run yet (mesh, search
-coalescing, native doc store, mmap mirrors) are kept so configs
-interchange; the engine raises NotImplementedError for them.
+Fields for configurations the port does not run yet (the mesh) are kept
+so configs interchange; the engine raises NotImplementedError for them.
 
 Env-var overrides use the prefix TPUVDB_, e.g. TPUVDB_VECTOR_DIM=128.
 """
@@ -68,9 +67,12 @@ class DBConfig:
     rescore_mode: str = "exact"    # "exact" | "device" | "none"
     flush_batch: int = 1024        # staged writes served by the host delta
                                    # scan before a search forces a flush
-    # group-commit coalescing of concurrent search_batch calls (not ported)
+    # group-commit coalescing of concurrent search_batch calls
+    # (engine/coalesce.py): batches arriving while a search is in flight
+    # stack into the next one. Off by default, as in the reference
     search_coalesce: bool = False
-    search_coalesce_max: int = 4096
+    search_coalesce_max: int = 4096  # max stacked queries per group
+    # concurrent stacked searches per group key: overlap against stacking
     search_coalesce_inflight: int = 4
     # "approx" and "pallas" both run the hand-written bucketed scan kernel
     # (kernels/scan.py) for k up to what its buckets serve at recall_target,

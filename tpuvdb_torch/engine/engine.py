@@ -54,8 +54,13 @@ or `"auto"` with a `data_dir`, keeps the mirrors in mmap'd files under
 checkpoint's links, and compaction unlinks the files it swapped out.
 `info()` names what each part took.
 
-Configurations the port does not run yet raise NotImplementedError naming
-the ROADMAP.md item that brings them: a mesh and search coalescing.
+With `search_coalesce`, concurrent `search_batch` calls group-commit
+(engine/coalesce.py): batches that arrive while a search is in flight
+share the next one, stacked at their own row count (the reference pads a
+stack to a power of two to bound XLA compiles; the port has none).
+
+A mesh does not run yet: it raises NotImplementedError naming the
+ROADMAP.md item that brings it (item 9).
 
 Snapshot rule. The reference's scatters donate the buffers a concurrent
 search holds, and that search retries on the "donated" error. The port's
@@ -122,15 +127,10 @@ def _sorted_top(d: np.ndarray, rows: np.ndarray, top: Optional[int]):
 def _check_supported(cfg: DBConfig, mesh) -> None:
     """Raise NotImplementedError for the configurations that later slices
     of the port bring (ROADMAP.md queue 1)."""
-    waiting = []
     if mesh is not None:
-        waiting.append("mesh (item 9, multi-GPU, the sharded IVF index "
-                       "included)")
-    if cfg.search_coalesce:
-        waiting.append("search_coalesce=True (item 10, service)")
-    if waiting:
         raise NotImplementedError(
-            "not ported yet (see ROADMAP.md queue 1): " + "; ".join(waiting))
+            "not ported yet (see ROADMAP.md queue 1): mesh (item 9, "
+            "multi-GPU, the sharded IVF index included)")
 
 
 class VectorDBEngine:
@@ -210,6 +210,15 @@ class VectorDBEngine:
         self._bg_flush_thread: Optional[threading.Thread] = None
 
         self.timers = StageTimer()
+        # group commit for concurrent searches (engine/coalesce.py)
+        self._search_coalescer = None
+        if cfg.search_coalesce:
+            from tpuvdb_torch.engine.coalesce import SearchCoalescer
+
+            self._search_coalescer = SearchCoalescer(
+                self._search_batch_direct,
+                max_rows=cfg.search_coalesce_max,
+                inflight=cfg.search_coalesce_inflight)
         # two epochs, as in the reference:
         #  _generation      device-result epoch: bumped by compaction and by
         #                   an IVF append (a search that snapshotted the
@@ -1015,9 +1024,39 @@ class VectorDBEngine:
     ) -> Tuple[np.ndarray, List[List[Optional[str]]]]:
         """Raw batched search: returns (dists (Q, fetch_k), keys
         list-of-lists). With overfetch=True, fetches extra candidates so
-        post-filters (metadata/threshold) can refill."""
+        post-filters (metadata/threshold) can refill. With search_coalesce,
+        concurrent callers share one direct search (engine/coalesce.py)."""
         q = np.atleast_2d(np.asarray(queries, np.float32))
+        if not q.flags.writeable:
+            # a decoded binary frame (core/wire.py) is read-only, and
+            # torch.from_numpy takes no read-only array
+            q = q.copy()
+        if self._search_coalescer is not None and q.shape[0] > 0:
+            return self._search_coalescer.search(q, k, overfetch)
         return self._search_batch_direct(q, k, overfetch)
+
+    def warm_search(self, k: int, batch: int, overfetch: bool = False,
+                    max_stack: Optional[int] = None) -> List[int]:
+        """Run one search of each batch size a serving workload will hit:
+        the batch itself and, with search_coalesce, the power-of-two ladder
+        of stacks above it up to min(search_coalesce_max, max_stack), the
+        reference's ladder. The port compiles nothing per shape: this loads
+        the kernel libraries and primes the caching allocator. Returns the
+        sizes run."""
+        dim = self.config.vector_dim
+        sizes = [batch]
+        if self._search_coalescer is not None:
+            cap = self.config.search_coalesce_max
+            if max_stack is not None:
+                cap = min(cap, max_stack)
+            s = 1 << batch.bit_length()   # next power of two above batch
+            while s <= cap:
+                sizes.append(s)
+                s <<= 1
+        for s in sizes:
+            self._search_batch_direct(
+                np.zeros((s, dim), np.float32), k, overfetch)
+        return sizes
 
     def _search_batch_direct(
         self, queries: np.ndarray, k: int, overfetch: bool = False
@@ -1688,6 +1727,9 @@ class VectorDBEngine:
                 "staged": len(self._staged_updates) + len(self._staged_deletes),
                 "stats": dict(self.stats),
                 "latency": self.timers.snapshot(),
+                # group commit: {batches-per-group: count}
+                "search_groups": (dict(self._search_coalescer.group_sizes)
+                                  if self._search_coalescer else None),
                 # the host runtime each part took ("auto" resolved)
                 "docstore_backend": self.docstore.backend,
                 "wal_backend": (self.wal.backend if self.wal is not None
