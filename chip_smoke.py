@@ -224,6 +224,32 @@ the native rescore, and, with a data_dir, the native WAL writer.
               The PQ launches are zeroed before the engine's searches and
               must be > 0 after them.
 
+  mesh        Every mesh path on MESH_SLOTS = 4 slots of the one card
+              (`create_mesh(devices=["cuda:0"] * 4)`: each slot holds its
+              own tensors and runs its own launches, as over four cards).
+              Flat, over the engine phase's 1,000,000 rows x 512 (262,144
+              a slot): a single-device "exact" engine's keys at b1, b32
+              and b256 against a 4-slot "exact" engine's and, on a 2x2
+              `create_mesh_2d` (4.3 GB: two copies), at b256 and b255 (the
+              pad), ids equal outside near-ties (the serve phase's
+              tolerance); then DBConfig(vector_dim=512) ("approx") on 4
+              slots: b1 / b32 / b256 latency and QPS, b256 under
+              torch.profiler, recall@10 >= 0.95 against the exact engine,
+              and the scan's launches (zeroed before, > 0 after:
+              `launches_by_path` "mesh"). IVF: the ivf engine phase's
+              configuration (nlist 1,024 // 4 = 256 a shard, nprobe 64)
+              over its first MESH_IVF_ROWS rows on 4 slots, f32, int8 and
+              64-byte PQ: build time, b1 / b256, recall@10 >= 0.95 (PQ
+              under the exact rescore), the probe launches of each (> 0),
+              the write checks with a delta-overflow append (the PQ one
+              through the per-row centroid encode), and a 50,000-row f32
+              restart in which k-means is made to fail (held to recall:
+              the warm table's cells are bisected again, as in the
+              reference). NCCL: `initialize_multihost` at world size 1
+              and a `sharded_search` over the process mesh equal to the
+              in-process one, then `shutdown_multihost`. Last the dry run
+              `dryrun_multichip(4, devices=["cuda:0"] * 4)`, each path
+              against its numpy oracle. The phase's seconds are printed.
   rescore     On the flat int8, IVF int8 (f32 and int8 mirrors) and IVF-PQ
               engines: the candidate rows of one real b256 search go through
               the native and the numpy forms of the exact re-rank on the
@@ -331,6 +357,11 @@ PQ_ENGINE_BYTES = 64     # ivf_pq_subq of the engine phase (d = 512)
 PQ_REPS = 40             # closed-loop searches per batch size
 PQ_SIDE_REPS = 10        # b256 searches of the 4-bit and OPQ engines
 PQ_WINDOWS = (64, 128, 256, 512)  # rescore windows tried, in order
+MESH_SLOTS = 4           # slots of the one card (a device may repeat)
+MESH_ODD_BATCH = 255     # pads to the replica groups
+MESH_REPS = 40           # closed-loop searches of each IVF mesh batch
+MESH_IVF_ROWS = 1_000_000  # IVF / IVF-PQ depth on the mesh
+NCCL_ROWS = 1 << 18      # the corpus of the NCCL process-mesh check
 SMEM_BYTES_PER_CLOCK = 128  # an SM's shared memory: 32 banks x 4 bytes
 LUT_ENTRY_BYTES = 2         # the table holds bf16
 F32_LANES_PER_CLOCK = 128   # an SM's f32 additions a clock
@@ -1692,12 +1723,13 @@ def phase_ivf_index_compact(eng, queries, truth, keys, ivf_probe) -> dict:
     return {"nprobe": nprobe, "recall_at_10": recall}
 
 
-def phase_ivf_writes(eng, data, queries) -> None:
+def phase_ivf_writes(eng, data, queries, label: str = "ivf engine") -> None:
     """Overwrite, delete and get, before and after flush, then a delta
     overflow that drains into the index by append."""
     from tpuvdb_torch.core.types import VectorData
 
     rng = np.random.default_rng(5)
+    rows0 = eng.count()
     probe = data[7] + 0.3 * rng.standard_normal(IVF_D).astype(np.float32)
     assert eng.put(VectorData(key="r5", vector=probe.tolist())).success
     _, k1 = eng.search_batch(queries[1:2], 10)
@@ -1723,28 +1755,30 @@ def phase_ivf_writes(eng, data, queries) -> None:
     appended = eng.stats.get("ivf_appends", 0) - appends0
     assert appended >= n_new and eng.info()["ivf_delta"] == 0, appended
     assert kn[0][0] == "n123", kn[0][:3]
-    assert eng.count() == IVF_ENGINE_ROWS - 1 + n_new
-    log(f"ivf engine overwrite/delete/get visible before and after flush; "
+    assert eng.count() == rows0 - 1 + n_new
+    log(f"{label} overwrite/delete/get visible before and after flush; "
         f"delta overflow appended {appended} rows in place: ok")
 
 
 def phase_ivf_restart(tt, label: str = "ivf", packed: bool = False,
-                      **kw) -> dict:
+                      mesh=None, **kw) -> dict:
     """A 50,000-row data_dir restart: the warm centroids are reused (no
     k-means) and the keys come back identical. With `packed` (an IVF-PQ
     engine) the restart must take the checkpoint's packed file: no codebook
-    training, no build at all, ivf_packed_restores == 1."""
+    training, no build at all, ivf_packed_restores == 1. With `mesh` both
+    engines run on it, and no shard trains."""
     import tpuvdb_torch.index.ivf as ivf_mod
     import tpuvdb_torch.kernels.pq as pq_mod
+    import tpuvdb_torch.mesh.sharded_ivf as sivf_mod
 
     cfg = _ivf_config(tt, checkpoint_every_puts=10 ** 9, **kw)
     data, queries = clustered_corpus(IVF_RESTART_ROWS, IVF_D, seed=9)
     keys = [f"w{i}" for i in range(IVF_RESTART_ROWS)]
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT)
-    real = (ivf_mod.kmeans, pq_mod.train_pq, pq_mod.train_opq,
-            ivf_mod.IVFIndex.build_streaming)
+    real = (ivf_mod.kmeans, sivf_mod.kmeans, pq_mod.train_pq,
+            pq_mod.train_opq, ivf_mod.IVFIndex.build_streaming)
     try:
-        eng = tt.VectorDBEngine(cfg, data_dir=work)
+        eng = tt.VectorDBEngine(cfg, data_dir=work, mesh=mesh)
         check_native(eng, f"{label} restart")
         assert eng.put_rows(keys, data).success
         eng.flush()
@@ -1761,30 +1795,44 @@ def phase_ivf_restart(tt, label: str = "ivf", packed: bool = False,
         def no_build(*a, **k):
             raise AssertionError("a full build ran on a packed restart")
 
-        ivf_mod.kmeans = pq_mod.train_pq = pq_mod.train_opq = no_training
+        ivf_mod.kmeans = sivf_mod.kmeans = no_training
+        pq_mod.train_pq = pq_mod.train_opq = no_training
         if packed:
             ivf_mod.IVFIndex.build_streaming = classmethod(no_build)
         t0 = time.perf_counter()
-        eng = tt.VectorDBEngine(cfg, data_dir=work)
+        eng = tt.VectorDBEngine(cfg, data_dir=work, mesh=mesh)
         got = eng.search_batch(queries[:32], 10)
         restart_s = time.perf_counter() - t0
         check_native(eng, f"{label} restart")
-        assert np.array_equal(eng._ivf.centroids_np(), cents)
-        assert got[1] == want[1], "keys differ after the warm restart"
-        assert np.array_equal(got[0], want[0])
+        same = sum(g == w for g, w in zip(got[1], want[1]))
+        if mesh is None:
+            assert np.array_equal(eng._ivf.centroids_np(), cents)
+            assert got[1] == want[1], "keys differ after the warm restart"
+            assert np.array_equal(got[0], want[0])
+        else:
+            # a mesh build bisects the warm table's cells again against
+            # its own pooled median (the reference's rule), so its cells
+            # may move: held to recall, not to identity
+            recall = _recall(got[1], _exact_truth(data, queries[:32]), keys)
+            log(f"{label} restart: recall@10 {recall:.4f}, {same} of 32 "
+                f"queries with the keys of before")
+            if recall < RECALL_MIN:
+                raise AssertionError(f"{label} restart recall {recall}")
         restores = eng.stats.get("ivf_packed_restores", 0)
         assert restores == int(packed), restores
         how = ("packed file uploaded (no training, no build, "
                "ivf_packed_restores 1)" if packed
                else "warm centroids reused (no k-means)")
         log(f"{label} restart: {IVF_RESTART_ROWS} rows, {how}, reopen + "
-            f"first search {restart_s:.3f} s, identical results")
+            f"first search {restart_s:.3f} s, "
+            + ("identical results" if mesh is None
+               else f"{same} of 32 queries with identical keys"))
         eng.close()
         return {"rows": IVF_RESTART_ROWS, "restart_s": restart_s,
-                "ivf_packed_restores": restores}
+                "ivf_packed_restores": restores, "same_keys_of_32": same}
     finally:
-        (ivf_mod.kmeans, pq_mod.train_pq, pq_mod.train_opq,
-         ivf_mod.IVFIndex.build_streaming) = real
+        (ivf_mod.kmeans, sivf_mod.kmeans, pq_mod.train_pq,
+         pq_mod.train_opq, ivf_mod.IVFIndex.build_streaming) = real
         shutil.rmtree(work, ignore_errors=True)
 
 
@@ -2384,6 +2432,250 @@ def phase_ivf_pq(tt, pq_probe, data, queries, truth, keys, sm_clocks,
     return out, launches
 
 
+# ----------------------------------------------------------------- the mesh
+
+
+def _mesh(shape=None):
+    """MESH_SLOTS slots of the one card: a 1-D mesh, or a 2-D (repl,
+    shards) one of that shape."""
+    from tpuvdb_torch.mesh import create_mesh
+    from tpuvdb_torch.mesh.replicated import create_mesh_2d
+
+    devs = ["cuda:0"] * MESH_SLOTS
+    if shape is None:
+        return create_mesh(devices=devs)
+    return create_mesh_2d(*shape, devices=devs)
+
+
+def _flat_engine(tt, data, keys, label: str, mesh=None, **kw):
+    """A flat DBConfig(vector_dim=512) engine over the rows: (engine,
+    put_rows + flush seconds)."""
+    eng = tt.VectorDBEngine(tt.DBConfig(vector_dim=data.shape[1], **kw),
+                            mesh=mesh)
+    check_native(eng, label)
+    t0 = time.perf_counter()
+    assert eng.put_rows(keys, data).success
+    eng.flush()
+    torch.cuda.synchronize()
+    return eng, time.perf_counter() - t0
+
+
+def _same_keys(label: str, got, want, queries) -> dict:
+    """The mesh's (dists, keys) against the single-device engine's: ids
+    equal outside near-ties (the scan tolerance of the serve phase),
+    distances within it."""
+    got_k = np.array([row[:10] for row in got[1]], dtype=object)
+    want_k = np.array([row[:10] for row in want[1]], dtype=object)
+    want_d = np.asarray(want[0], np.float64)[:, :10]
+    tol = RESCORE_RTOL * ((queries * queries).sum(1) + 1.0) + RESCORE_ATOL
+    apart, alld = _tie_mismatches(got_k, want_k, want_d, tol)
+    same = got_k == want_k
+    derr = float(np.abs(np.asarray(got[0], np.float64)[:, :10]
+                        - want_d)[same].max())
+    res = {"queries": len(queries), "key_mismatches_apart_from_ties": apart,
+           "key_mismatches": alld, "max_score_err": derr}
+    if apart or derr > float(tol.max()):
+        raise AssertionError(f"{label}: keys differ from the single-device "
+                             f"engine's: {res}")
+    return res
+
+
+def phase_mesh_flat(tt, scan) -> tuple:
+    """The flat engine on the mesh over the engine phase's 1,000,000 rows:
+    "exact" keys on 4 slots and on a 2x2 mesh against the single-device
+    engine's, then the default ("approx") engine on 4 slots: latency,
+    recall, the scan's launches. Returns (out, scan launches)."""
+    rng = np.random.default_rng(0)   # the engine phase's rows and queries
+    data = _unit_rows(rng, ENGINE_ROWS, SCAN_D)
+    keys = [f"doc{i}" for i in range(ENGINE_ROWS)]
+    queries = _unit_rows(rng, max(ENGINE_BATCHES), SCAN_D)
+    odd = MESH_ODD_BATCH
+    ref, ref_s = _flat_engine(tt, data, keys, "single-device exact engine",
+                              search_mode="exact")
+    want = {b: ref.search_batch(queries[:b], 10)
+            for b in ENGINE_BATCHES + (odd,)}
+    out = {"rows": ENGINE_ROWS, "single_device_exact_build_s": ref_s,
+           "single_device_bytes": ref.info()["device_bytes"]}
+    ref.close()
+    del ref
+    torch.cuda.empty_cache()
+    for label, shape, batches in (
+            ("sharded", None, ENGINE_BATCHES),
+            ("replicated 2x2", (2, 2), (max(ENGINE_BATCHES), odd))):
+        eng, build_s = _flat_engine(tt, data, keys, f"mesh {label}",
+                                    mesh=_mesh(shape), search_mode="exact")
+        res = {"build_s": build_s, "device_bytes": eng.info()["device_bytes"]}
+        for b in batches:
+            res[f"keys_b{b}"] = _same_keys(f"mesh {label} b{b}",
+                                           eng.search_batch(queries[:b], 10),
+                                           want[b], queries[:b])
+        if shape is not None:
+            _timed_searches(eng, f"mesh {label} exact", queries, (256,), res,
+                            reps=MESH_REPS)
+        log(f"mesh flat {label} exact: {json.dumps(res)}")
+        out[f"{label.split()[0]}_exact"] = res
+        eng.close()
+        del eng
+        torch.cuda.empty_cache()
+
+    scan.LAUNCHES = 0
+    eng, build_s = _flat_engine(tt, data, keys, "mesh flat", mesh=_mesh())
+    res = {"build_s": build_s, "device_bytes": eng.info()["device_bytes"]}
+    _timed_searches(eng, "mesh flat", queries, ENGINE_BATCHES, res)
+    res["b256_device"] = _device_share(eng, queries, "mesh flat")
+    _, got = eng.search_batch(queries, 10)
+    hit = sum(len(set(g[:10]) & set(w[:10]))
+              for g, w in zip(got, want[max(ENGINE_BATCHES)][1]))
+    res["recall_at_10"] = hit / (10 * len(queries))
+    launches = scan.LAUNCHES
+    log(f"mesh flat (approx, {MESH_SLOTS} slots) recall@10 vs the exact "
+        f"engine: {res['recall_at_10']:.4f}; scan launches {launches}")
+    if res["recall_at_10"] < RECALL_MIN:
+        raise AssertionError(f"mesh flat recall@10 {res['recall_at_10']}")
+    if launches <= 0:
+        raise AssertionError("the mesh's flat search never launched the "
+                             "scan kernel")
+    out["sharded_approx"] = res
+    eng.close()
+    del eng, data
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def _mesh_ivf_engine(tt, data, queries, truth, keys, label: str, **kw):
+    """An IVF engine of the ivf engine phase's configuration on the
+    4-slot mesh: build, timed b1 / b256, recall@10 >= 0.95 (IVF-PQ under
+    the exact rescore), the write checks with an append. Returns (engine,
+    out)."""
+    eng = tt.VectorDBEngine(_ivf_config(tt, **kw), mesh=_mesh())
+    check_native(eng, label)
+    t0 = time.perf_counter()
+    assert eng.put_rows(keys, data).success
+    eng.flush()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ivf = eng._ivf
+    st = ivf.stats()
+    assert type(ivf).__name__ == "ShardedIVFIndex", type(ivf)
+    out = {"build_s": build_s, "rows": len(keys),
+           "nlist_per_shard": int(ivf.centroids.shape[1]),
+           "device_bytes": ivf.nbytes(), "stats": dataclasses.asdict(st)}
+    log(f"{label} build: {len(keys)} rows on {MESH_SLOTS} slots in "
+        f"{build_s:.3f} s (per-shard k-means, assignment, bisection, "
+        f"packing, upload); {json.dumps(out['stats'])}")
+    _timed_searches(eng, label, queries, (1, 256), out, reps=MESH_REPS)
+    if kw.get("ivf_pq_subq"):
+        out.update(_pq_recall(eng, queries, truth, keys, label))
+        # the rest of the phase serves at the window that reaches the
+        # recall (the mesh's codebooks train on pre-bisection residuals,
+        # as the reference's do, and calibrate no adaptive bound)
+        eng.config.ivf_pq_rescore_overfetch = out["window"]
+    else:
+        _, got = eng.search_batch(queries[:256], 10)
+        out["recall_at_10"] = _recall(got, truth[:256], keys)
+        log(f"{label} recall@10 (b256 vs exact): {out['recall_at_10']:.4f}")
+        if out["recall_at_10"] < RECALL_MIN:
+            raise AssertionError(f"{label} recall@10 {out['recall_at_10']}")
+    return eng, out
+
+
+def phase_mesh_ivf(tt, ivf_probe, pq_probe, data, queries, truth,
+                   keys) -> tuple:
+    """IVF f32, int8 and IVF-PQ (64 bytes) engines on the 4-slot mesh over
+    the first MESH_IVF_ROWS of the ivf engine phase's rows, and a warm
+    restart of the f32 one. Returns (out, launches by kernel)."""
+    if MESH_IVF_ROWS < len(keys):
+        data, keys = data[:MESH_IVF_ROWS], keys[:MESH_IVF_ROWS]
+        truth = _exact_truth(data, queries)
+    out, launches = {}, {}
+    for label, kw, counter in (
+            ("mesh ivf", {}, "LAUNCHES_EXPANDED"),
+            ("mesh ivf int8", {"storage_dtype": "int8"},
+             "LAUNCHES_EXPANDED_INT8"),
+            ("mesh ivf pq", {"ivf_pq_subq": PQ_ENGINE_BYTES}, "LAUNCHES_PQ")):
+        mod = pq_probe if counter == "LAUNCHES_PQ" else ivf_probe
+        setattr(mod, counter, 0)
+        eng, res = _mesh_ivf_engine(tt, data, queries, truth, keys, label,
+                                    **kw)
+        launches[label] = getattr(mod, counter)
+        if launches[label] <= 0:
+            raise AssertionError(f"{label}: no launch of the probe kernel "
+                                 f"({counter})")
+        phase_ivf_writes(eng, data, queries, label)
+        out[label.replace("mesh ", "").replace(" ", "_")] = res
+        eng.close()
+        del eng
+        torch.cuda.empty_cache()
+    out["ivf"]["restart"] = phase_ivf_restart(tt, "mesh ivf", mesh=_mesh())
+    log(f"mesh ivf probe launches: {json.dumps(launches)}")
+    return out, launches
+
+
+def phase_mesh_nccl(tt) -> dict:
+    """initialize_multihost on NCCL at world size 1, a sharded_search over
+    the process mesh made after it equal to the in-process mesh's, then
+    shutdown_multihost."""
+    import torch.distributed as dist
+
+    from tpuvdb_torch.cluster.bootstrap import (initialize_multihost,
+                                                shutdown_multihost)
+    from tpuvdb_torch.mesh import create_mesh, sharded_search
+    from tpuvdb_torch.mesh.sharded import shard_rows
+
+    rng = np.random.default_rng(11)
+    corpus = _unit_rows(rng, NCCL_ROWS, SCAN_D)
+    q = _unit_rows(rng, 64, SCAN_D)
+    sq = (corpus * corpus).sum(1)
+    valid = np.ones(len(corpus), bool)
+    local = _mesh()
+    want = sharded_search(q, *(shard_rows(local, a)
+                               for a in (corpus, sq, valid)),
+                          k=10, block_size=8192, mesh=local)
+    torch.cuda.set_device(0)
+    t0 = time.perf_counter()
+    info = initialize_multihost(coordinator_address=f"127.0.0.1:"
+                                f"{_free_port()}", num_processes=1,
+                                process_id=0)
+    try:
+        init_s = time.perf_counter() - t0
+        backend = dist.get_backend()
+        mesh = create_mesh(devices=["cuda:0"] * MESH_SLOTS)
+        assert backend == "nccl" and mesh.distributed, (backend, mesh)
+        got = sharded_search(q, *(shard_rows(mesh, a)
+                                  for a in (corpus, sq, valid)),
+                             k=10, block_size=8192, mesh=mesh)
+        same = (torch.equal(got[1], want[1]) and torch.equal(got[0], want[0]))
+    finally:
+        shutdown_multihost()
+    res = {"backend": backend, "topology": info, "init_s": init_s,
+           "rows": NCCL_ROWS, "equal_to_in_process": same}
+    log(f"mesh across processes: {json.dumps(res)}")
+    if not same:
+        raise AssertionError("the NCCL process mesh's search differs from "
+                             "the in-process mesh's")
+    return res
+
+
+def phase_mesh(tt, scan, ivf_probe, pq_probe, ivf_data) -> tuple:
+    """Every mesh path on MESH_SLOTS slots of the card. Returns (out,
+    launches by kernel name)."""
+    t0 = time.perf_counter()
+    flat, scan_launches = phase_mesh_flat(tt, scan)
+    ivf, probe_launches = phase_mesh_ivf(tt, ivf_probe, pq_probe, *ivf_data)
+    from tpuvdb_torch.mesh.dryrun import dryrun_multichip
+
+    out = {"slots": ["cuda:0"] * MESH_SLOTS, "flat": flat, "ivf": ivf,
+           "nccl": phase_mesh_nccl(tt),
+           "dryrun": dryrun_multichip(MESH_SLOTS,
+                                      devices=["cuda:0"] * MESH_SLOTS)}
+    log(f"mesh dry run ({MESH_SLOTS} slots): {json.dumps(out['dryrun'])}")
+    out["phase_s"] = time.perf_counter() - t0
+    return out, {"scan_candidates": scan_launches,
+                 "ivf_candidates": probe_launches["mesh ivf"],
+                 "ivf_candidates_int8": probe_launches["mesh ivf int8"],
+                 "pq_candidates": probe_launches["mesh ivf pq"]}
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -2522,6 +2814,10 @@ def main() -> int:
         tt, pq_probe, data, queries, truth, keys, sm_clocks,
         {"float32": ivf_out["device_bytes"], "int8": ivf8["device_bytes"]})
     log("ivf pq engine " + json.dumps(pq_out))
+    mesh_out, mesh_launches = phase_mesh(tt, scan, ivf_probe, pq_probe,
+                                         (data, queries, truth, keys))
+    log("mesh " + json.dumps(mesh_out))
+    log(f"mesh phase {mesh_out['phase_s']:.1f} s")
     del data
     log(f"launches: scan {launches} (flat engine phase) and "
         f"{launches_serve} (serve phase, HTTP), ivf expanded "
@@ -2529,12 +2825,17 @@ def main() -> int:
         f"{launches_compact} (b1,024 index search), ivf expanded int8 "
         f"{launches_expanded_i8} (ivf int8 engine's searches), ivf compact "
         f"int8 {launches_compact_i8} (b1,024 int8 index search), pq "
-        f"{launches_pq} (ivf pq engine's searches); the flat int8 engine "
-        f"launches no hand-written kernel")
+        f"{launches_pq} (ivf pq engine's searches); on the mesh "
+        f"{json.dumps(mesh_launches)}; the flat int8 engine launches no "
+        f"hand-written kernel")
     log_stage_table({
         "flat f32": eng, "ivf f32": ivf_out, "flat int8": flat8,
         "ivf int8": ivf8, "ivf int8 (int8 mirrors)": ivf8["int8_mirrors"],
-        "ivf pq": pq_out})
+        "ivf pq": pq_out, "mesh flat f32": mesh_out["flat"]["sharded_approx"],
+        "mesh flat f32 2x2 exact": mesh_out["flat"]["replicated_exact"],
+        "mesh ivf f32": mesh_out["ivf"]["ivf"],
+        "mesh ivf int8": mesh_out["ivf"]["ivf_int8"],
+        "mesh ivf pq": mesh_out["ivf"]["ivf_pq"]})
     log("host rescore, native against numpy (b256 candidates of a real "
         "search): " + json.dumps({
             name: {k: r[k] for k in ("rows", "bytes", "mirror_dtype",
@@ -2558,9 +2859,11 @@ def main() -> int:
         "route": "cuda",
         "source": "tpuvdb_torch/csrc/scan.cu",
         "replaces": "tpuvdb/kernels/pallas_scan.py:41",
-        "launches": launches + launches_serve,
+        "launches": launches + launches_serve
+        + mesh_launches["scan_candidates"],
         "launches_by_path": {"flat engine": launches,
-                             "served (HTTP)": launches_serve},
+                             "served (HTTP)": launches_serve,
+                             "mesh": mesh_launches["scan_candidates"]},
         "max_abs_err": kern["max_abs_err"],
         "ms": m["ms"], "plain_ms": m["plain_ms"],
         "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
@@ -2571,7 +2874,9 @@ def main() -> int:
         "route": "cuda",
         "source": "tpuvdb_torch/csrc/ivf_probe.cu",
         "replaces": "tpuvdb/kernels/pallas_ivf.py:172",
-        "launches": launches_expanded,
+        "launches": launches_expanded + mesh_launches["ivf_candidates"],
+        "launches_by_path": {"ivf engine": launches_expanded,
+                             "mesh": mesh_launches["ivf_candidates"]},
         "max_abs_err": ivf_kern["err_expanded"],
         "ms": e["ms"], "plain_ms": e["plain_ms"],
         "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
@@ -2593,7 +2898,10 @@ def main() -> int:
         "route": "cuda",
         "source": "tpuvdb_torch/csrc/ivf_probe.cu",
         "replaces": "tpuvdb/kernels/pallas_ivf.py:230",
-        "launches": launches_expanded_i8,
+        "launches": launches_expanded_i8
+        + mesh_launches["ivf_candidates_int8"],
+        "launches_by_path": {"ivf int8 engine": launches_expanded_i8,
+                             "mesh": mesh_launches["ivf_candidates_int8"]},
         "max_abs_err": ivf_kern["err_expanded_int8"],
         "ms": e8["ms"], "plain_ms": e8["plain_ms"],
         "bound_ms": e8["bound_ms"], "bound_by": e8["bound_by"],
@@ -2617,7 +2925,9 @@ def main() -> int:
         "route": "cuda",
         "source": "tpuvdb_torch/csrc/pq_probe.cu",
         "replaces": "tpuvdb/kernels/pallas_pq.py:53",
-        "launches": launches_pq,
+        "launches": launches_pq + mesh_launches["pq_candidates"],
+        "launches_by_path": {"ivf pq engine": launches_pq,
+                             "mesh": mesh_launches["pq_candidates"]},
         "max_abs_err": max(pq_kern["max_abs_err"],
                            pq_out["kernel_engine_shape"]["max_abs_err"]),
         "ms": pq_kern["main"]["ms"], "plain_ms": pq_kern["main"]["plain_ms"],

@@ -21,6 +21,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 from click.testing import CliRunner
 
 from tpuvdb import native as jax_native
@@ -372,13 +373,34 @@ def test_poisoned_batcher_falls_back_and_is_visible(rng):
     (["bench"], "item 13"),
     (["text-search", "a cat"], "item 11"),
     (["ingest-images", "."], "item 11"),
-    (["serve", "--device", "cpu", "--replicas", "2", "--port", "0"],
-     "item 9"),
 ])
 def test_waiting_commands_name_their_item(args, item):
     r = CliRunner().invoke(cli, args)
     assert r.exit_code != 0
     assert item in r.output and "ROADMAP.md" in r.output
+
+
+def test_serve_mesh_is_the_references(monkeypatch):
+    """`serve` opens the reference's mesh: --replicas R over the cards
+    where R divides them, all cards on one axis otherwise, none with one
+    card, on the CPU or with --no-mesh. The cards are eight CPU slots
+    here (create_mesh's own default needs CUDA)."""
+    from tpuvdb_torch.api import cli as cli_mod
+    from tpuvdb_torch.mesh import mesh as mesh_mod
+    from tpuvdb_torch.mesh import replicated
+
+    monkeypatch.setattr(mesh_mod, "device_count", lambda: 8)
+    for mod in (mesh_mod, replicated):
+        monkeypatch.setattr(mod, "mesh_devices",
+                            lambda devices=None: [torch.device("cpu")] * 8)
+    for args, shape in (((True, 2), {"repl": 2, "shards": 4}),
+                        ((True, 3), {"shards": 8}),
+                        ((True, 1), {"shards": 8})):
+        assert cli_mod.serve_mesh(*args, "cuda").shape == shape
+    assert cli_mod.serve_mesh(False, 2, "cuda") is None
+    assert cli_mod.serve_mesh(True, 2, "cpu") is None
+    monkeypatch.setattr(mesh_mod, "device_count", lambda: 1)
+    assert cli_mod.serve_mesh(True, 1, "cuda") is None
 
 
 def test_text_search_and_put_image_name_item_11(tmp_path):

@@ -9,10 +9,10 @@
   against exact, and at k = 100, 256 and 600 (past what the scan's 512
   buckets serve at recall_target 0.95) returns min(k, live) hits at recall
   >= 0.95, as the reference's approx_max_k does.
-* Configurations of later slices (a mesh, search coalescing) raise
-  NotImplementedError; the native doc store and mmap mirrors ("mmap", and
-  "auto" with a data_dir) run and serve the keys of the python doc store
-  on RAM mirrors; device=None means CUDA.
+* A mesh and search coalescing run (their own tests:
+  test_torch_engine_mesh.py, test_torch_coalesce.py); the native doc store
+  and mmap mirrors ("mmap", and "auto" with a data_dir) run and serve the
+  keys of the python doc store on RAM mirrors; device=None means CUDA.
 """
 
 import os
@@ -28,6 +28,7 @@ from tpuvdb.engine.engine import VectorDBEngine as JaxEngine
 from tpuvdb_torch import DBConfig, VectorDBEngine
 from tpuvdb_torch.core.types import SearchRequest, VectorData
 from tpuvdb_torch.kernels.distance import numpy_oracle
+from tpuvdb_torch.mesh import create_mesh
 
 DIM = 16
 
@@ -294,8 +295,22 @@ def test_waiting_configurations_raise(kw, tmp_path):
 
 
 def test_mesh_and_mmap_auto_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        VectorDBEngine(_cfg(DBConfig), mesh=object(), device="cpu")
+    # a mesh runs (tests/test_torch_engine_mesh.py): four CPU slots serve
+    # the keys of the single-device engine; a mesh of another device type
+    # than the engine's raises
+    rng = np.random.default_rng(4)
+    data = rng.standard_normal((300, DIM)).astype(np.float32)
+    keys = [f"k{i}" for i in range(300)]
+    got = []
+    for mesh in (None, create_mesh(devices=["cpu"] * 4)):
+        eng = VectorDBEngine(_cfg(DBConfig), mesh=mesh, device="cpu")
+        assert eng.put_rows(keys, data).success
+        got.append(eng.search_batch(data[:8], 10))
+    assert got[0][1] == got[1][1]
+    np.testing.assert_allclose(got[0][0], got[1][0], rtol=1e-5, atol=1e-4)
+    with pytest.raises(ValueError, match="mesh slot 0 is on meta"):
+        VectorDBEngine(_cfg(DBConfig), mesh=create_mesh(devices=["meta"]),
+                       device="cpu")
     # "auto" mirrors are mmap files exactly when there is a data_dir
     eng = _runs_as_python_ram(tmp_path, {"mirror_backend": "auto"})
     assert eng.info()["mirror_backend"] == "mmap"

@@ -26,6 +26,7 @@ from tpuvdb.engine.engine import VectorDBEngine as JaxEngine
 from tpuvdb_torch import DBConfig, VectorDBEngine
 from tpuvdb_torch.core.types import SearchRequest, VectorData
 from tpuvdb_torch.kernels.distance import numpy_oracle
+from tpuvdb_torch.mesh import create_mesh
 
 DIM = 16
 
@@ -396,7 +397,9 @@ def test_ivf_waiting_configurations_raise(kw, tmp_path):
     """IVF-PQ and OPQ run (tests/test_torch_engine_ivf_pq.py); search
     coalescing runs beside them (a solo search is a group of one and
     answers as an uncoalesced engine does), and OPQ on mmap mirrors serves
-    the keys of RAM mirrors. Only the mesh still waits."""
+    the keys of RAM mirrors. The same configuration runs on a 4-slot mesh
+    (tests/test_torch_engine_mesh.py holds the mesh against the JAX
+    engine)."""
     rng = np.random.default_rng(5)
     data = rng.standard_normal((300, DIM)).astype(np.float32)
     keys = [f"k{i}" for i in range(300)]
@@ -420,5 +423,9 @@ def test_ivf_waiting_configurations_raise(kw, tmp_path):
                                atol=1e-4)
     still = {k: v for k, v in kw.items() if k.startswith("ivf_")}
     assert engine(**still)._ivf is None  # constructs; no index before data
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        VectorDBEngine(ivf_config(), mesh=object(), device="cpu")
+    eng = VectorDBEngine(ivf_config(**kw), data_dir=str(tmp_path / "mesh"),
+                         device="cpu", mesh=create_mesh(devices=["cpu"] * 4))
+    assert eng.put_rows(keys, data).success
+    _, got_keys = eng.search_batch(data[:8], 10)
+    assert type(eng._ivf).__name__ == "ShardedIVFIndex"
+    assert [k[0] for k in got_keys] == keys[:8]

@@ -40,7 +40,10 @@ _MUST_WALK = ("tpuvdb_torch.kernels.pq", "tpuvdb_torch.kernels.pq_probe",
               "tpuvdb_torch.engine.engine", "tpuvdb_torch.native",
               "tpuvdb_torch.engine.coalesce", "tpuvdb_torch.core.wire",
               "tpuvdb_torch.api.service", "tpuvdb_torch.api.cli",
-              "tpuvdb_torch.cluster.federation")
+              "tpuvdb_torch.cluster.federation",
+              "tpuvdb_torch.cluster.bootstrap", "tpuvdb_torch.mesh.mesh",
+              "tpuvdb_torch.mesh.sharded", "tpuvdb_torch.mesh.replicated",
+              "tpuvdb_torch.mesh.sharded_ivf", "tpuvdb_torch.mesh.dryrun")
 
 
 def _sources():

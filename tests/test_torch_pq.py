@@ -202,11 +202,32 @@ def test_residual_encode_matches_the_reference(rng, n_codes, rotated):
     np.testing.assert_array_equal(c2, got_c)
 
 
-def test_per_row_centroid_encode_waits_for_the_mesh(rng):
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tpq.encode_pq_residual_chunked(
-            np.zeros((4, 8), np.float32), None, np.zeros((4, 8), np.float32),
-            np.zeros((2, 256, 4), np.float32), device="cpu")
+@pytest.mark.parametrize("rotated", [False, True])
+def test_per_row_centroid_encode_waits_for_the_mesh(rng, rotated):
+    """The per-row centroid form (assign=None), which the mesh's PQ build
+    and append use: row i coded against centroids[i]. It equals the
+    assignment form on the same rows bit for bit, and the reference's own
+    per-row form up to exact ties."""
+    n, d, m, nlist = 1200, 32, 8, 16
+    x = _clustered(rng, n, d)
+    cents = x[rng.choice(n, nlist, replace=False)]
+    assign = rng.integers(0, nlist, n)
+    res = x - cents[assign]
+    rot = (np.linalg.qr(rng.standard_normal((d, d)))[0].astype(np.float32)
+           if rotated else None)
+    cb = jpq.train_pq(res if rot is None else res @ rot, m, iters=3, seed=2)
+    per_row = tpq.encode_pq_residual_chunked(
+        x, None, cents[assign], cb, chunk=300, rotation=rot, device="cpu")
+    by_cell = tpq.encode_pq_residual_chunked(
+        x, assign, cents, cb, chunk=300, rotation=rot, device="cpu")
+    np.testing.assert_array_equal(per_row[0], by_cell[0])
+    np.testing.assert_array_equal(per_row[1], by_cell[1])
+    want_c, want_sq = jpq.encode_pq_residual_chunked(
+        x, None, cents[assign], cb, chunk=256, rotation=rot)
+    y = (res if rot is None else res @ rot).reshape(n, m, d // m)
+    _assert_codes_equal_up_to_ties(y, cb, per_row[0], want_c)
+    same = (per_row[0] == want_c).all(axis=1)
+    np.testing.assert_allclose(per_row[1][same], want_sq[same], rtol=1e-5)
 
 
 # --------------------------------------------------------------------- ADC

@@ -488,8 +488,9 @@ def test_a_newer_header_rebuilds_the_library(tmp_path, monkeypatch):
     assert not lib.up_to_date()
     os.unlink(paths["libk.so"])
     assert not lib.up_to_date()
-    for mod, headers in ((ivf_probe, ["probe_common.cuh", "hopper_mma.cuh"]),
-                         (pq_probe, ["probe_common.cuh"])):
+    for mod, headers in ((ivf_probe, ["probe_common.cuh", "hopper_mma.cuh",
+                                      "device_guard.cuh"]),
+                         (pq_probe, ["probe_common.cuh", "device_guard.cuh"])):
         assert [os.path.basename(h) for h in mod.LIBRARY.headers] == headers
         assert all(os.path.exists(h) for h in mod.LIBRARY.headers)
 

@@ -13,10 +13,14 @@ layout and public names so each part finds its counterpart:
   kernels/   distance/top-k and k-means torch ops, and the hand-written CUDA
              kernels: csrc/scan.cu (tpuvdb.kernels.pallas_scan) and
              csrc/ivf_probe.cu (the f32/bf16 probes of pallas_ivf)
-  engine/    put/get/delete/search, flat and IVF indexes, search coalescing
+  mesh/      slots of devices (a device may repeat): sharded and replicated
+             flat search, the sharded IVF index, a dry run of them all
+  engine/    put/get/delete/search, flat and IVF indexes (on a mesh too),
+             search coalescing
   api/       service, HTTP server and client, CLI (`python -m
              tpuvdb_torch.api.cli`), on the reference's wire (core/wire.py)
-  cluster/   membership and the federated coordinator
+  cluster/   membership, the federated coordinator, and the multi-process
+             bootstrap (torch.distributed: NCCL on cards, gloo on the CPU)
 
 It imports `torch`, never `jax`, and nothing of `tpuvdb`. Every entry point
 takes `device=None`, which means "cuda", and raises when CUDA is missing;

@@ -15,10 +15,11 @@ Two modes:
   * embedded: `--data-dir PATH` opens the engine in-process on --device.
 
 `serve` runs on --device (default cuda; "cpu" runs the plain PyTorch
-versions of the kernels). A mesh, `--mesh` over more than one visible
-card or `--replicas` above 1, waits for ROADMAP.md item 9; `bench` waits
-for item 13; `text-search` and `ingest-images` wait for item 11 (CLIP).
-Each fails naming its item.
+versions of the kernels) and, as the reference, shards over every visible
+card (`--mesh`, the default, with more than one card) or splits them into
+`--replicas` groups of a 2-D (repl, shards) mesh where the cards divide.
+`bench` waits for ROADMAP.md item 13; `text-search` and `ingest-images`
+wait for item 11 (CLIP). Each fails naming its item.
 """
 
 from __future__ import annotations
@@ -246,6 +247,26 @@ def checkpoint(ctx: Ctx):
     _echo_response(ctx.call("checkpoint", {}))
 
 
+def serve_mesh(mesh: bool, replicas: int, device: str):
+    """The mesh `serve` opens, as the reference's: with --mesh, a 2-D
+    (replicas, cards // replicas) mesh where replicas > 1 divide the
+    visible cards, else a 1-D mesh over them all; None with one card (or
+    on the CPU), where the reference opens none either."""
+    import torch
+
+    if not mesh or torch.device(device).type != "cuda":
+        return None
+    from tpuvdb_torch.mesh.mesh import create_mesh, device_count
+    from tpuvdb_torch.mesh.replicated import create_mesh_2d
+
+    ndev = device_count()
+    if replicas > 1 and ndev % replicas == 0:
+        return create_mesh_2d(replicas, ndev // replicas)
+    if ndev > 1:
+        return create_mesh()
+    return None
+
+
 @cli.command("serve")
 @click.option("--host", default="127.0.0.1", show_default=True)
 @click.option("--port", default=8081, show_default=True)
@@ -254,11 +275,11 @@ def checkpoint(ctx: Ctx):
 @click.option("--image-root", default=None,
               help="root dir for /static image serving")
 @click.option("--mesh/--no-mesh", default=True,
-              help="shard across all visible cards (more than one waits "
-                   "for ROADMAP.md item 9)")
+              help="shard across all visible cards")
 @click.option("--replicas", default=1, show_default=True,
-              help="replica groups on a 2-D (repl, shards) mesh (above 1 "
-                   "waits for ROADMAP.md item 9)")
+              help="replica groups on a 2-D (repl, shards) mesh: each group "
+                   "holds a full corpus copy and serves a slice of every "
+                   "query batch")
 @click.option("--device", "serve_device", default="cuda", show_default=True,
               help=_DEVICE_HELP)
 def serve(host, port, serve_data_dir, image_root, mesh, replicas,
@@ -266,18 +287,11 @@ def serve(host, port, serve_data_dir, image_root, mesh, replicas,
     """Start the database server (coordinator + data plane + HTTP API)."""
     import signal
 
-    import torch
-
     from tpuvdb_torch.api.server import DBServer
     from tpuvdb_torch.api.service import DBService
 
-    # with one card the reference opens no mesh either
-    cards = (torch.cuda.device_count()
-             if torch.device(serve_device).type == "cuda" else 1)
-    if replicas > 1 or (mesh and cards > 1):
-        _waits(f"serve --mesh over {cards} cards, --replicas {replicas}",
-               "item 9, multi-GPU")
     service = DBService(DBConfig(), data_dir=serve_data_dir,
+                        mesh=serve_mesh(mesh, replicas, serve_device),
                         image_root=image_root, device=serve_device)
     service.registry.start_health_loop()
     server = DBServer(service, host=host, port=port)

@@ -3,7 +3,8 @@ tpuvdb.api.service.
 
 One facade serves the coordinator surface (register_node, list_nodes, put,
 delete, get, search, ...) and the node-internal RPCs over the in-process
-engine, on `device` (None = cuda; pass "cpu" to run on the CPU). Both the
+engine, on `device` (None = cuda; pass "cpu" to run on the CPU) and, with
+`mesh`, over the mesh's slots (mesh/). Both the
 HTTP server and the embedded CLI mode dispatch through `handle()`, which
 turns any exception into a failed Response. The method names, parameters
 and response dicts are the reference's, so a client of either package
@@ -51,8 +52,9 @@ class DBService:
             replica_count=self.config.replica_count,
             health_interval_s=self.config.health_check_interval_s,
         )
-        # one always-online virtual node per shard (a mesh raises above)
-        self.registry.register_virtual_nodes(self.config.shard_count)
+        # one always-online virtual node per shard, or per mesh slot
+        n_virtual = mesh.size if mesh is not None else self.config.shard_count
+        self.registry.register_virtual_nodes(n_virtual)
         # long-running server: drain staged writes off the query path
         self.engine.start_background_flush()
         self._embedder = embedder

@@ -5,9 +5,6 @@ and `to_json`/`from_json` write the same JSON, so checkpoints written by
 either package restore in the other. The one change: `jnp_dtype` is
 replaced by `torch_dtype`.
 
-Fields for configurations the port does not run yet (the mesh) are kept
-so configs interchange; the engine raises NotImplementedError for them.
-
 Env-var overrides use the prefix TPUVDB_, e.g. TPUVDB_VECTOR_DIM=128.
 """
 
@@ -120,7 +117,7 @@ class DBConfig:
     # (ivf_packed.npz), so a restart uploads it instead of encoding anew
     ivf_checkpoint_packed: bool = True
 
-    # -- mesh (not ported yet) --
+    # -- mesh --
     mesh_shape: Optional[Tuple[int, ...]] = None
     mesh_axis: str = "shards"
 

@@ -98,6 +98,7 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "device_guard.cuh"  // DeviceGuard
 #include "hopper_mma.cuh"    // the tensor-core pipeline
 #include "probe_common.cuh"  // kRows, kMaxQT, entry_chunk, fold_key, decode
 
@@ -342,7 +343,8 @@ int launch(const float* q, void* qh, void* ql, const T* x, const float* rs,
            int d_pad, int d, int width, int w128, int n_chunks, int nlist,
            int n_seg, int splits, int ragged, int device,
            cudaStream_t stream) {
-  cudaError_t e = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t e = guard.status();
   if (e != cudaSuccess) return e;
   if (group * qt > cols || (walk != kTable && (group != 1 || cols != 8)))
     return cudaErrorInvalidValue;

@@ -82,6 +82,7 @@
 #include <cfloat>
 #include <cstdint>
 
+#include "device_guard.cuh"  // DeviceGuard
 #include "probe_common.cuh"  // kRows, kMaxQT, entry_chunk, fold_key, decode
 
 namespace {
@@ -275,7 +276,8 @@ int launch(const unsigned short* lut, const float* qc2,
            int nlist, int width, int n_chunks, int n_seg, int group,
            int teams, int splits, int entries_per_block, int vec, int device,
            cudaStream_t stream) {
-  cudaError_t e = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t e = guard.status();
   if (e != cudaSuccess) return e;
   const long long count = static_cast<long long>(tiles) * qt * kRows * n_seg;
   e = cudaMemsetAsync(keys, 0, count * sizeof(unsigned long long), stream);

@@ -53,6 +53,7 @@
 #include <cfloat>
 #include <cstdint>
 
+#include "device_guard.cuh"  // DeviceGuard
 #include "hopper_mma.cuh"
 
 namespace {
@@ -230,7 +231,8 @@ int launch(const float* q, void* qh, void* ql, const T* x, const float* sq,
            int* out_idx, int nq, int d_pad, int n, int d, int nb,
            int query_tile, int n_splits, int groups_per_split, int ragged,
            int device, cudaStream_t stream) {
-  cudaError_t e = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t e = guard.status();
   if (e != cudaSuccess) return e;
   if (nb % kBlockRows != 0) return cudaErrorInvalidValue;
   e = hop::prep_queries<T>(q, qh, ql, nq, d, d_pad, stream);

@@ -59,8 +59,14 @@ With `search_coalesce`, concurrent `search_batch` calls group-commit
 share the next one, stacked at their own row count (the reference pads a
 stack to a power of two to bound XLA compiles; the port has none).
 
-A mesh does not run yet: it raises NotImplementedError naming the
-ROADMAP.md item that brings it (item 9).
+With a mesh (`mesh/`: slots of devices, a device may repeat), the flat
+index splits its rows over the mesh's shard axis (`DBConfig.mesh_axis`)
+and a 2-D (repl, shards) mesh adds replica groups that split each batch;
+int8's "device" rescore runs inside each slot before the merge. IVF builds
+a `ShardedIVFIndex` (per-shard cells, `ivf_nlist // shards` each) on a 1-D
+or 2-D mesh, and its warm state is the (shards, nlist, d) centroid table;
+the packed IVF-PQ checkpoint is single-device only, as in the reference.
+The mesh's slots must be of the engine's device type.
 
 Snapshot rule. The reference's scatters donate the buffers a concurrent
 search holds, and that search retries on the "donated" error. The port's
@@ -101,6 +107,7 @@ from tpuvdb_torch.device import resolve_device
 from tpuvdb_torch.index.exact import DeviceExactIndex
 from tpuvdb_torch.index.ivf import IVFIndex, MirrorRowSource
 from tpuvdb_torch.index.layout import ShardMirror, StackedLayout
+from tpuvdb_torch.mesh.sharded_ivf import ShardedIVFIndex
 from tpuvdb_torch.store.checkpoint import CheckpointManager
 from tpuvdb_torch.store.kv import DocEntry, DocStore
 from tpuvdb_torch.store.wal import WriteAheadLog
@@ -124,13 +131,16 @@ def _sorted_top(d: np.ndarray, rows: np.ndarray, top: Optional[int]):
             np.take_along_axis(rows, order, 1))
 
 
-def _check_supported(cfg: DBConfig, mesh) -> None:
-    """Raise NotImplementedError for the configurations that later slices
-    of the port bring (ROADMAP.md queue 1)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "not ported yet (see ROADMAP.md queue 1): mesh (item 9, "
-            "multi-GPU, the sharded IVF index included)")
+def _check_mesh(mesh, device: torch.device) -> None:
+    """A mesh's slots run on the engine's device type: no slot moves to
+    the CPU under a CUDA engine, nor to a card under a CPU one."""
+    if mesh is None:
+        return
+    for s in mesh.local_slots():
+        dev = mesh.flat_devices()[s]
+        if dev.type != device.type:
+            raise ValueError(f"mesh slot {s} is on {dev}, the engine on "
+                             f"{device.type}")
 
 
 class VectorDBEngine:
@@ -144,8 +154,9 @@ class VectorDBEngine:
         self.config = config or DBConfig()
         if data_dir is None:
             data_dir = self.config.data_dir  # None = in-memory
-        _check_supported(self.config, mesh)
         self.device = resolve_device(device)
+        _check_mesh(mesh, self.device)
+        self.mesh = mesh
         self.data_dir = data_dir
         self._lock = threading.RLock()
 
@@ -615,8 +626,9 @@ class VectorDBEngine:
 
     def _rebuild_device_index(self):
         # "device" rescore lives inside the index's search (a fused
-        # dequantized re-rank); "exact" is applied by the search path on
-        # the host instead
+        # dequantized re-rank; on a mesh each slot rescores its own
+        # candidates before the merge); "exact" is applied by the search
+        # path on the host instead
         device_rescore = (self.config.rescore_mode == "device"
                           and self.config.rescore_overfetch > 0)
         self._index = DeviceExactIndex.build(
@@ -628,30 +640,79 @@ class VectorDBEngine:
             rescore_fetch=(self.config.rescore_overfetch * 2
                            if device_rescore else 0),
             device=self.device,
+            mesh=self.mesh,
+            mesh_axis=self.config.mesh_axis,
         )
         self._staged_updates.clear()
         self._staged_deletes.clear()
         self.stats["flushes"] += 1
 
-    def _consume_ivf_warm(self, live):
+    def _consume_ivf_warm(self, live, ndim: int = 2,
+                          lead: Optional[int] = None):
         """(warm_cents | None, trained_live, mut_at_train) for a rebuild.
         The checkpoint's warm state is consumed once, and accepted only
-        when its geometry matches, the live rows are within 2x of the
-        training-time count, and the mutations since training stay under
-        the training corpus size (delete N + insert N churn never moves
-        the live ratio, so the count alone cannot see it)."""
+        when its geometry matches what the build takes (`ndim` 2: one
+        (nlist, d) table; 3: a mesh's (lead = shards, nlist, d) tables),
+        the live rows are within 2x of the training-time count, and the
+        mutations since training stay under the training corpus size
+        (delete N + insert N churn never moves the live ratio, so the
+        count alone cannot see it)."""
         warm = self._ivf_warm
         self._ivf_warm = None
         if warm is None:
             return None, live, self._mut_count
         cents0, live0, mut0 = np.asarray(warm[0]), warm[1], warm[2]
-        geom_ok = (cents0.ndim == 2
-                   and cents0.shape[-1] == self.config.vector_dim)
+        geom_ok = (cents0.ndim == ndim
+                   and cents0.shape[-1] == self.config.vector_dim
+                   and (lead is None or cents0.shape[0] == lead))
         ratio_ok = live0 > 0 and 0.5 <= live / live0 <= 2.0
         churn_ok = (self._mut_count - mut0) <= max(live0, 1)
         if geom_ok and ratio_ok and churn_ok:
             return cents0, live0, mut0
         return None, live, self._mut_count
+
+    def _ivf_mesh_axes(self):
+        """(on the mesh?, replica axis | None) for an IVF rebuild: a 1-D
+        (shards,) or a 2-D (repl, shards) mesh; any other shape raises
+        rather than clustering on one device."""
+        mesh, axis = self.mesh, self.config.mesh_axis
+        if mesh is None or mesh.size == 1:
+            return False, None
+        axes = mesh.axis_names
+        if axis not in axes or len(axes) > 2:
+            raise ValueError(f"IVF needs a 1-D ({axis},) or 2-D "
+                             f"(repl, {axis}) mesh; got axes {axes}")
+        return True, next((a for a in axes if a != axis), None)
+
+    def _build_ivf_mesh(self, source, valid, live: int, ndev: int,
+                        repl_axis):
+        """The mesh branch of an IVF rebuild: per-shard cells over the
+        stacked f32 rows, `ivf_nlist // ndev` cells a shard, warm from a
+        checkpoint's (ndev, nlist, d) centroid table within the drift and
+        churn bounds (a table of another shard count retrains)."""
+        cfg = self.config
+        nlist = max(1, min(cfg.ivf_nlist // ndev or 1,
+                           max(1, live // (8 * ndev))))
+        warm_cents, trained_live, mut_train = self._consume_ivf_warm(
+            live, ndim=3, lead=ndev)
+        nprobe = (cfg.ivf_nprobe if warm_cents is not None
+                  else min(cfg.ivf_nprobe, nlist))
+        warm_cb, self._ivf_pq_warm = self._ivf_pq_warm, None
+        warm_rot, self._ivf_opq_warm = self._ivf_opq_warm, None
+        self._ivf_pq_err_warm = 0.0  # the mesh index calibrates none
+        self._ivf = ShardedIVFIndex.build(
+            source.stack_f32(), valid, self.mesh, axis=cfg.mesh_axis,
+            nlist=nlist, nprobe=nprobe, kmeans_iters=cfg.ivf_kmeans_iters,
+            dtype=cfg.torch_dtype(), recall_target=cfg.recall_target,
+            centroids=warm_cents, repl_axis=repl_axis,
+            pq_subq=cfg.ivf_pq_subq, pq_codebooks=warm_cb, opq=cfg.ivf_opq,
+            pq_rotation=warm_rot, pq_bits=cfg.ivf_pq_bits)
+        self._ivf.warm_append()
+        self._ivf_train_state = (self._ivf.centroids_np(), trained_live,
+                                 mut_train)
+        self._ivf_pq_state = self._ivf.pq_codebooks_np()
+        self._ivf_opq_state = self._ivf.pq_rotation_np()
+        self._ivf_pq_err = self._ivf.pq_err
 
     def _restore_ivf_packed(self, packed, source, valid, layout):
         """IVFIndex from the checkpoint's packed device state, reconciled
@@ -758,7 +819,10 @@ class VectorDBEngine:
             else:
                 needs_rebuild = True
         if needs_rebuild:
-            layout = StackedLayout.for_mirrors(self.mirrors, block=128)
+            use_mesh, repl_axis = self._ivf_mesh_axes()
+            ndev = self.mesh.shape[cfg.mesh_axis] if use_mesh else 1
+            layout = StackedLayout.for_mirrors(self.mirrors, block=128,
+                                               min_rows_multiple=ndev)
             source = MirrorRowSource(self.mirrors, layout)
             valid = source.valid_array()
             live = int(valid.sum())
@@ -771,6 +835,8 @@ class VectorDBEngine:
             packed, self._ivf_packed = self._ivf_packed, None
             if live == 0:
                 self._ivf = None
+            elif use_mesh:
+                self._build_ivf_mesh(source, valid, live, ndev, repl_axis)
             else:
                 nlist = max(1, min(cfg.ivf_nlist, live // 8 or 1))
                 # the first rebuild after recovery reuses the checkpointed
@@ -949,15 +1015,13 @@ class VectorDBEngine:
         if index is None:
             return []
         layout = index.layout
-        rows = torch.tensor([layout.row_of(s, sl) for s, sl in pairs],
-                            dtype=torch.int64, device=index.device)
-        mask = torch.zeros(layout.total_rows, dtype=torch.bool,
-                           device=index.device)
-        mask[rows] = True
+        rows = np.asarray([layout.row_of(s, sl) for s, sl in pairs],
+                          np.int64)
         # a quantized index runs its int8 scan without the fused re-rank
         # here, as the reference does
         dists, idx = index.search(query.reshape(1, -1), k,
-                                  valid=index.valid & mask, rescore=False)
+                                  valid=index.masked_valid(rows),
+                                  rescore=False)
         hits: List[SearchHit] = []
         for score, r in zip(dists[0], idx[0]):
             if r < 0 or (threshold > 0 and score > threshold):
@@ -1121,9 +1185,10 @@ class VectorDBEngine:
             layout = self._ivf_layout if ivf_mode else index.layout
             fetch_k = max(2 * k, k + 16) if overfetch else k
             # the host rescore runs for int8 unless disabled ("none") or
-            # the fused device re-rank is wired into this index (flat
-            # only): "device" on IVF falls back to the exact host path
-            # rather than serving raw int8 scores
+            # the fused device re-rank is wired into this index (flat,
+            # single-device or mesh: each slot re-ranks before the merge):
+            # "device" on IVF falls back to the exact host path rather
+            # than serving raw int8 scores
             fused_device = not ivf_mode and index.rescore_fetch > 0
             # PQ cells rank reconstructions: without the exact re-rank the
             # served order is the ADC order, so IVF-PQ always joins the
@@ -1616,8 +1681,10 @@ class VectorDBEngine:
                 # the lock (cheap), fetched and written off it below
                 packed_cap = packed_clean_src = None
                 cap_epoch = self._ivf_packed_epoch
+                # single-device IVF-PQ only: the mesh index has no packed
+                # form, as in the reference
                 if (self.config.ivf_checkpoint_packed
-                        and self._ivf is not None and self._ivf.pq
+                        and isinstance(self._ivf, IVFIndex) and self._ivf.pq
                         and self._ivf_layout is not None):
                     if (cap_epoch == self._ivf_packed_saved_epoch
                             and self._ivf_packed_path is not None

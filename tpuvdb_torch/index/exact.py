@@ -26,7 +26,16 @@ updates on the device (`quantize_rows`), as the reference does each. Search
 is the int8 scan, with an exact re-rank of `rescore_fetch` dequantized
 candidates fused in when that is > 0 (the engine's rescore_mode="device").
 
-Not ported yet: the mesh paths (ROADMAP.md, multi-GPU).
+With a mesh (`mesh/`), the row space splits over `mesh_axis`:
+slot s at position p of that axis holds rows [p * R, (p + 1) * R) in its
+own tensors on its own device, so `vectors`, `row_scales`, `sqnorms` and
+`valid` are lists over the mesh's flat slots (None at another process's
+slot); a 2-D (repl, shards) mesh holds each shard once per replica group.
+Updates route each row to the slots that own it (`row // R`), search is
+`mesh/sharded.sharded_search` (or `mesh/replicated.replicated_search`,
+the batch padded to a multiple of the replica groups and the pad cut off),
+and `nbytes()` sums the slots. A mesh of one slot takes the single-device
+path on that slot's device, as the reference's does.
 """
 
 from __future__ import annotations
@@ -38,10 +47,10 @@ import torch
 
 from tpuvdb_torch.device import resolve_device
 from tpuvdb_torch.index.layout import ShardMirror, StackedLayout
-from tpuvdb_torch.kernels.distance import l2sq_topk
-from tpuvdb_torch.kernels.quant import (l2sq_topk_int8,
-                                        l2sq_topk_int8_rescored,
-                                        quantize_rows, quantize_rows_np)
+from tpuvdb_torch.kernels.quant import quantize_rows, quantize_rows_np
+from tpuvdb_torch.mesh.mesh import Mesh
+from tpuvdb_torch.mesh.replicated import pad_to_groups, replicated_search
+from tpuvdb_torch.mesh.sharded import local_topk, sharded_search
 
 _DTYPES = (torch.float32, torch.bfloat16, torch.int8)
 _QUANTIZE_ROWS = 1 << 16  # f32 rows quantized at once at build
@@ -57,10 +66,15 @@ class DeviceExactIndex:
         recall_target: float = 0.95,
         rescore_fetch: int = 0,
         device=None,
+        mesh: Optional[Mesh] = None,
+        mesh_axis: str = "shards",
     ):
         if dtype not in _DTYPES:
             raise ValueError(f"storage dtype {dtype} not in {_DTYPES}")
-        self.device = resolve_device(device)
+        if mesh is not None and mesh.size == 1:
+            device, mesh = mesh.flat_devices()[0], None
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
         self.layout = layout
         self.dtype = dtype
         self.block_size = block_size
@@ -70,15 +84,83 @@ class DeviceExactIndex:
         # candidates into the search (kernels/quant.py)
         self.rescore_fetch = rescore_fetch
         self.quantized = dtype == torch.int8
-        n, d = layout.total_rows, layout.dim
-        self.vectors = torch.zeros((n, d), dtype=dtype, device=self.device)
-        # per-row dequant scales (int8 storage only)
-        self.row_scales = (torch.ones(n, dtype=torch.float32,
-                                      device=self.device)
-                           if self.quantized else None)
-        self.sqnorms = torch.zeros(n, dtype=torch.float32, device=self.device)
-        self.valid = torch.zeros(n, dtype=torch.bool, device=self.device)
+        n = layout.total_rows
+        if mesh is None:
+            self.device = resolve_device(device)
+            (self.vectors, self.row_scales, self.sqnorms,
+             self.valid) = self._alloc(n, self.device)
+        else:
+            nshards = mesh.shape[mesh_axis]
+            if n % nshards != 0:
+                raise ValueError(f"rows {n} not divisible by mesh size "
+                                 f"{nshards}")
+            self.rows_per_slot = n // nshards
+            self._grid = mesh.slot_grid(mesh_axis)
+            devs = mesh.flat_devices()
+            parts = [self._alloc(self.rows_per_slot, resolve_device(dev))
+                     if mesh.is_local(s) else (None,) * 4
+                     for s, dev in enumerate(devs)]
+            self.vectors, self.row_scales, self.sqnorms, self.valid = (
+                list(col) for col in zip(*parts))
+            if not self.quantized:
+                self.row_scales = None
+            # the merge device of the first replica group
+            self.device = devs[mesh.local_slots()[0]]
         self.version = 0  # bumped by every scatter
+
+    def _alloc(self, n: int, dev: torch.device):
+        """(vectors, row_scales | None, sqnorms, valid) of n empty rows."""
+        return (torch.zeros((n, self.layout.dim), dtype=self.dtype,
+                            device=dev),
+                # per-row dequant scales (int8 storage only)
+                torch.ones(n, dtype=torch.float32, device=dev)
+                if self.quantized else None,
+                torch.zeros(n, dtype=torch.float32, device=dev),
+                torch.zeros(n, dtype=torch.bool, device=dev))
+
+    def _part(self, name: str, slot: Optional[int]) -> torch.Tensor:
+        """Storage tensor `name` of one slot (slot None: the single
+        device's)."""
+        t = getattr(self, name)
+        return t if slot is None else t[slot]
+
+    def _owners(self, pos: int) -> list:
+        """This process's slots at shard position `pos` (every replica)."""
+        return [s for s in self._grid[:, pos].tolist()
+                if self.mesh.is_local(s)]
+
+    def _route(self, rows: np.ndarray):
+        """Split physical rows by owner: yields (positions in `rows`, the
+        rows local to the owners, the owning slots; None = the single
+        device)."""
+        if self.mesh is None:
+            yield np.arange(len(rows)), rows, [None]
+            return
+        per = self.rows_per_slot
+        pos = rows // per
+        for p in np.unique(pos).tolist():
+            sel = np.flatnonzero(pos == p)
+            yield sel, rows[sel] - p * per, self._owners(p)
+
+    def _place(self, r0: int, **arrays):
+        """Copy host rows [r0, r0 + n) of each named storage array into the
+        device storage (mesh: into every slot that owns a row)."""
+        n = len(next(iter(arrays.values())))
+        if n == 0:
+            return
+        if self.mesh is None:
+            spans = [(0, n, [None], r0)]
+        else:
+            per = self.rows_per_slot
+            spans = []
+            for p in range(r0 // per, (r0 + n - 1) // per + 1):
+                lo, hi = max(r0, p * per), min(r0 + n, (p + 1) * per)
+                spans.append((lo - r0, hi - r0, self._owners(p), lo - p * per))
+        for lo, hi, slots, off in spans:
+            for s in slots:
+                for name, a in arrays.items():
+                    self._part(name, s)[off:off + hi - lo] = (
+                        torch.from_numpy(np.ascontiguousarray(a[lo:hi])))
 
     # ------------------------------------------------------------------ build
 
@@ -92,16 +174,22 @@ class DeviceExactIndex:
         recall_target: float = 0.95,
         rescore_fetch: int = 0,
         device=None,
+        mesh: Optional[Mesh] = None,
+        mesh_axis: str = "shards",
     ) -> "DeviceExactIndex":
         """Upload the mirrors' written prefixes shard by shard (no stacked
         host copy of the corpus). sqnorms come from the mirrors, as the
         reference's `layout.stack` takes them. An int8 index takes int8
         mirrors' codes and scales as they are, and quantizes f32 rows per
-        row on the host, a block at a time."""
-        layout = StackedLayout.for_mirrors(mirrors, block=block_size)
+        row on the host, a block at a time. On a mesh the rows divide over
+        the shard axis (the layout rounds them to a multiple of it)."""
+        ndev = mesh.shape[mesh_axis] if mesh is not None else 1
+        layout = StackedLayout.for_mirrors(mirrors, block=block_size,
+                                           min_rows_multiple=ndev)
         idx = cls(layout, dtype=dtype, block_size=block_size,
                   search_mode=search_mode, recall_target=recall_target,
-                  rescore_fetch=rescore_fetch, device=device)
+                  rescore_fetch=rescore_fetch, device=device, mesh=mesh,
+                  mesh_axis=mesh_axis)
         raw = idx.quantized and all(m.quantized for m in mirrors)
         for s, m in enumerate(mirrors):
             if raw:
@@ -109,21 +197,15 @@ class DeviceExactIndex:
             else:
                 vec, sq, valid = m.prefix_f32()
             r0 = layout.row_of(s, 0)
-            r1 = r0 + vec.shape[0]
             if idx.quantized and not raw:
                 for lo in range(0, vec.shape[0], _QUANTIZE_ROWS):
                     qv, scale = quantize_rows_np(vec[lo:lo + _QUANTIZE_ROWS])
-                    b0, b1 = r0 + lo, r0 + lo + len(qv)
-                    idx.vectors[b0:b1] = torch.from_numpy(qv)
-                    idx.row_scales[b0:b1] = torch.from_numpy(scale)
+                    idx._place(r0 + lo, vectors=qv, row_scales=scale)
+            elif raw:
+                idx._place(r0, vectors=vec, row_scales=scale)
             else:
-                idx.vectors[r0:r1] = torch.from_numpy(
-                    np.ascontiguousarray(vec))
-                if raw:
-                    idx.row_scales[r0:r1] = torch.from_numpy(
-                        np.ascontiguousarray(scale))
-            idx.sqnorms[r0:r1] = torch.from_numpy(np.ascontiguousarray(sq))
-            idx.valid[r0:r1] = torch.from_numpy(np.ascontiguousarray(valid))
+                idx._place(r0, vectors=vec)
+            idx._place(r0, sqnorms=sq, valid=valid)
         return idx
 
     @classmethod
@@ -140,6 +222,8 @@ class DeviceExactIndex:
         rescore_fetch: int = 0,
         row_scales: Optional[np.ndarray] = None,  # (total_rows,) f32, int8
         device=None,
+        mesh: Optional[Mesh] = None,
+        mesh_axis: str = "shards",
     ) -> "DeviceExactIndex":
         """An index holding given arrays, e.g. a JAX index's
         (`np.asarray(jax_index.vectors)`, ...). dtype None keeps the
@@ -158,15 +242,15 @@ class DeviceExactIndex:
                              "row_scales, other dtypes take neither")
         idx = cls(layout, dtype=dtype, block_size=block_size,
                   search_mode=search_mode, recall_target=recall_target,
-                  rescore_fetch=rescore_fetch, device=device)
+                  rescore_fetch=rescore_fetch, device=device, mesh=mesh,
+                  mesh_axis=mesh_axis)
         if idx.quantized:
-            idx.vectors.copy_(torch.from_numpy(np.array(vectors)))
-            idx.row_scales.copy_(torch.from_numpy(
-                np.array(row_scales, np.float32)))
+            idx._place(0, vectors=vectors,
+                       row_scales=np.asarray(row_scales, np.float32))
         else:
-            idx.vectors.copy_(torch.from_numpy(vectors.astype(np.float32)))
-        idx.sqnorms.copy_(torch.from_numpy(np.array(sqnorms, np.float32)))
-        idx.valid.copy_(torch.from_numpy(np.array(valid, bool)))
+            idx._place(0, vectors=vectors.astype(np.float32))
+        idx._place(0, sqnorms=np.asarray(sqnorms, np.float32),
+                   valid=np.asarray(valid, bool))
         return idx
 
     def needs_rebuild(self, mirrors: List[ShardMirror]) -> bool:
@@ -188,61 +272,106 @@ class DeviceExactIndex:
     ):
         """Scatter a batch of slot writes in one go; out-of-range rows are
         dropped. sqnorms are recomputed from the f32 rows, as the
-        reference's scatter does; int8 storage quantizes the rows here."""
+        reference's scatter does; int8 storage quantizes the rows here. On
+        a mesh each row goes to the slots that own it."""
         keep = self._in_range(rows)
         if not keep.any():
             return
-        dev = self.device
-        r = torch.from_numpy(np.asarray(rows, np.int64)[keep]).to(dev)
-        v = torch.from_numpy(
-            np.ascontiguousarray(np.asarray(vecs, np.float32)[keep])).to(dev)
-        ok = torch.from_numpy(np.asarray(valid_vals, bool)[keep]).to(dev)
+        rows = np.asarray(rows, np.int64)[keep]
+        vecs = np.ascontiguousarray(np.asarray(vecs, np.float32)[keep])
+        valid_vals = np.asarray(valid_vals, bool)[keep]
         self.version += 1
-        if self.quantized:
-            qv, scales = quantize_rows(v)
-            self.vectors.index_copy_(0, r, qv)
-            self.row_scales.index_copy_(0, r, scales)
-        else:
-            self.vectors.index_copy_(0, r, v.to(self.dtype))
-        self.sqnorms.index_copy_(0, r, (v * v).sum(dim=-1))
-        self.valid.index_copy_(0, r, ok)
+        for sel, local, slots in self._route(rows):
+            for s in slots:
+                dev = self._part("valid", s).device
+                r = torch.from_numpy(local).to(dev)
+                v = torch.from_numpy(vecs[sel]).to(dev)
+                ok = torch.from_numpy(valid_vals[sel]).to(dev)
+                vectors = self._part("vectors", s)
+                if self.quantized:
+                    qv, scales = quantize_rows(v)
+                    vectors.index_copy_(0, r, qv)
+                    self._part("row_scales", s).index_copy_(0, r, scales)
+                else:
+                    vectors.index_copy_(0, r, v.to(self.dtype))
+                self._part("sqnorms", s).index_copy_(0, r,
+                                                     (v * v).sum(dim=-1))
+                self._part("valid", s).index_copy_(0, r, ok)
 
     def apply_deletes(self, rows: np.ndarray):
         keep = self._in_range(rows)
         if not keep.any():
             return
-        r = torch.from_numpy(np.asarray(rows, np.int64)[keep]).to(self.device)
         self.version += 1
-        self.valid.index_fill_(0, r, False)
+        for _, local, slots in self._route(np.asarray(rows, np.int64)[keep]):
+            for s in slots:
+                valid = self._part("valid", s)
+                valid.index_fill_(0, torch.from_numpy(local).to(valid.device),
+                                  False)
+
+    def masked_valid(self, rows: np.ndarray):
+        """`valid` restricted to the given physical rows (the filter
+        pushdown), in the form search(valid=...) takes."""
+        rows = np.asarray(rows, np.int64)
+        rows = rows[self._in_range(rows)]
+        masks = ([torch.zeros_like(self.valid)] if self.mesh is None
+                 else [None if v is None else torch.zeros_like(v)
+                       for v in self.valid])
+        for _, local, slots in self._route(rows):
+            for s in slots:
+                m = masks[0 if s is None else s]
+                m[torch.from_numpy(local).to(m.device)] = True
+        if self.mesh is None:
+            return self.valid & masks[0]
+        return [None if v is None else v & m
+                for v, m in zip(self.valid, masks)]
 
     # ----------------------------------------------------------------- search
 
     def search(self, queries: np.ndarray, k: int,
-               valid: torch.Tensor = None,
+               valid=None,
                rescore: bool = True) -> Tuple[np.ndarray, np.ndarray]:
-        """Top-k over all live rows (or over `valid`, a device bool mask
-        that replaces `self.valid`). Returns (dists, rows) as numpy, dists
-        ascending squared-L2; empty slots are +inf / -1. rescore=False
-        leaves out the re-rank that `rescore_fetch` fuses into an int8
-        search."""
-        q = torch.from_numpy(
-            np.ascontiguousarray(queries, np.float32)).to(self.device)
+        """Top-k over all live rows (or over `valid`, a mask from
+        masked_valid() that replaces `self.valid`). Returns (dists, rows)
+        as numpy, dists ascending squared-L2; empty slots are +inf / -1.
+        rescore=False leaves out the re-rank that `rescore_fetch` fuses
+        into an int8 search."""
         valid = self.valid if valid is None else valid
-        if self.quantized and self.rescore_fetch > 0 and rescore:
-            dist, rows = l2sq_topk_int8_rescored(
-                q, self.vectors, self.row_scales, self.sqnorms, valid, k=k,
-                fetch=max(self.rescore_fetch, k))
-        elif self.quantized:
-            dist, rows = l2sq_topk_int8(
-                q, self.vectors, self.row_scales, self.sqnorms, valid, k=k)
+        fetch = self.rescore_fetch if self.quantized and rescore else 0
+        q = np.ascontiguousarray(queries, np.float32)
+        if self.mesh is None:
+            dist, rows = local_topk(
+                torch.from_numpy(q).to(self.device), self.vectors,
+                self.sqnorms, valid, k, self.block_size, self.search_mode,
+                self.recall_target, scales=self.row_scales,
+                rescore_fetch=fetch)
+        elif len(self.mesh.axis_names) == 2:
+            # 2-D (repl, shards) mesh: the replica groups split the batch
+            repl_axis = next(a for a in self.mesh.axis_names
+                             if a != self.mesh_axis)
+            q, qn = pad_to_groups(q, self.mesh.shape[repl_axis])
+            dist, rows = replicated_search(
+                q, self.vectors, self.sqnorms, valid, k=k,
+                block_size=self.block_size, mesh=self.mesh,
+                repl_axis=repl_axis, shard_axis=self.mesh_axis,
+                mode=self.search_mode, recall_target=self.recall_target,
+                row_scales=self.row_scales, rescore_fetch=fetch)
+            dist, rows = dist[:qn], rows[:qn]
         else:
-            dist, rows = l2sq_topk(
-                q, self.vectors, self.sqnorms, valid,
-                k=k, block_size=self.block_size, mode=self.search_mode,
-                recall_target=self.recall_target)
+            dist, rows = sharded_search(
+                q, self.vectors, self.sqnorms, valid, k=k,
+                block_size=self.block_size, mesh=self.mesh,
+                axis=self.mesh_axis, mode=self.search_mode,
+                recall_target=self.recall_target,
+                row_scales=self.row_scales, rescore_fetch=fetch)
         return dist.cpu().numpy(), rows.cpu().numpy()
 
     def nbytes(self) -> int:
-        return (self.vectors.numel() * self.vectors.element_size()
-                + self.sqnorms.numel() * 4 + self.valid.numel()
-                + (self.row_scales.numel() * 4 if self.quantized else 0))
+        """Device bytes of the index (on a mesh: the sum over this
+        process's slots, every replica counted)."""
+        parts = [self.vectors, self.sqnorms, self.valid]
+        if self.quantized:
+            parts.append(self.row_scales)
+        tensors = (parts if self.mesh is None
+                   else [t for p in parts for t in p if t is not None])
+        return sum(t.numel() * t.element_size() for t in tensors)

@@ -59,7 +59,8 @@ with references to the tensors (no clone under the engine's lock) and
 `packed_fetch`, off the lock, copies them to the host and raises if
 `version` moved meanwhile: the caller then skips the packed file.
 
-Not ported yet: the mesh-sharded index.
+The mesh-sharded index (mesh/sharded_ivf.py) holds one IVFIndex a slot and
+calls its `probe`, the device half of `search`.
 """
 
 from __future__ import annotations
@@ -136,6 +137,14 @@ class MirrorRowSource:
             if n:
                 v[r0:r0 + n] = m.valid[:n]
         return v
+
+    def stack_f32(self) -> np.ndarray:
+        """The whole (n, d) f32 row space (unwritten rows zero): what a
+        mesh build takes, as the reference's `layout.stack`."""
+        out = np.zeros((self.n, self.dim), np.float32)
+        for r0, blk in self.iter_blocks_f32(262_144):
+            out[r0:r0 + len(blk)] = blk
+        return out
 
     def _split(self, phys_rows: np.ndarray):
         phys = np.asarray(phys_rows, np.int64)
@@ -904,6 +913,31 @@ class IVFIndex:
         smask[torch.from_numpy(s_hits).to(self.device)] = True
         return self.grouped_valid & gmask, self.spill_valid & smask
 
+    def probe(self, q: torch.Tensor, k: int, nprobe: Optional[int] = None,
+              valid_override=None, force_compact: bool = False):
+        """The probe of a query tensor on this index's device, no host
+        read: (dist, grouped id), each (Q, k) on the device; spill row j
+        has id N_g + j."""
+        nprobe = min(nprobe or self.nprobe, self.nlist)
+        gval, sval = (valid_override if valid_override is not None
+                      else (self.grouped_valid, self.spill_valid))
+        if self.pq:
+            if force_compact:
+                raise ValueError("the PQ probe has one form, the expanded "
+                                 "list: force_compact does not apply")
+            return pq_probe_search(
+                q, self.centroids, self.grouped, self.pq_codebooks,
+                self.grouped_sq, gval, self.spill, self.spill_cells,
+                self.spill_sq, sval, self.cell_offsets,
+                cell_pad=self.cell_pad, k=k, nprobe=nprobe,
+                rotation=self.pq_rotation)
+        return ivf_probe_search(
+            q, self.centroids, self.grouped, self.grouped_sq, gval,
+            self.cell_offsets, cell_pad=self.cell_pad, k=k,
+            nprobe=nprobe, spill=self.spill, spill_sq=self.spill_sq,
+            spill_valid=sval, force_compact=force_compact,
+            cell_scales=self.cell_scales, spill_scales=self.spill_scales)
+
     def search(
         self, queries: np.ndarray, k: int, nprobe: Optional[int] = None,
         valid_override=None, force_compact: bool = False,
@@ -914,29 +948,9 @@ class IVFIndex:
         The reference's `out_w` (a cut to the width the engine consumes,
         with bf16 distances for its relay) is not carried over: the port's
         engine asks for exactly that width, and distances stay f32."""
-        nprobe = min(nprobe or self.nprobe, self.nlist)
         q = torch.from_numpy(np.ascontiguousarray(queries, np.float32)).to(
             self.device)
-        gval, sval = (valid_override if valid_override is not None
-                      else (self.grouped_valid, self.spill_valid))
-        if self.pq:
-            if force_compact:
-                raise ValueError("the PQ probe has one form, the expanded "
-                                 "list: force_compact does not apply")
-            dist, gid = pq_probe_search(
-                q, self.centroids, self.grouped, self.pq_codebooks,
-                self.grouped_sq, gval, self.spill, self.spill_cells,
-                self.spill_sq, sval, self.cell_offsets,
-                cell_pad=self.cell_pad, k=k, nprobe=nprobe,
-                rotation=self.pq_rotation)
-        else:
-            dist, gid = ivf_probe_search(
-                q, self.centroids, self.grouped, self.grouped_sq, gval,
-                self.cell_offsets, cell_pad=self.cell_pad, k=k,
-                nprobe=nprobe, spill=self.spill, spill_sq=self.spill_sq,
-                spill_valid=sval, force_compact=force_compact,
-                cell_scales=self.cell_scales,
-                spill_scales=self.spill_scales)
+        dist, gid = self.probe(q, k, nprobe, valid_override, force_compact)
         gid = gid.cpu().numpy()
         dist = dist.cpu().numpy()
         # map grouped/spill ids back to physical rows

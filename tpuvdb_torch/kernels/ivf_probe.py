@@ -111,7 +111,8 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 
 LIBRARY = CudaLibrary("ivf_probe.cu", "libtpuvdb_ivf_probe.so", _bind,
-                      headers=("probe_common.cuh", "hopper_mma.cuh"))
+                      headers=("probe_common.cuh", "hopper_mma.cuh",
+                               "device_guard.cuh"))
 
 
 # ------------------------------------------------------------ plain twins

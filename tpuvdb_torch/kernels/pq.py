@@ -339,25 +339,30 @@ def encode_pq_residual_chunked(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Residual encode of host rows in chunks (the append path): numpy in
     and out; `centroids`, `codebooks` and `rotation` may already be tensors
-    on `device`. The reference's per-row centroid form (`assign=None`, a
-    mesh append) is not ported yet."""
-    if assign is None:
-        raise NotImplementedError(
-            "per-row centroids (assign=None) come with the mesh slice "
-            "(ROADMAP.md queue 1, item 9)")
-    dev = (centroids.device if isinstance(centroids, torch.Tensor)
-           else resolve_device(device))
+    (then the work runs on their device, else on `device`). assign=None means `centroids` is a per-row (m, d) array,
+    row i coded against centroids[i] (a mesh build or append: each row's
+    centroid comes from its own slot's table)."""
+    on = [a.device for a in (centroids, codebooks)
+          if isinstance(a, torch.Tensor)]
+    dev = on[0] if on else resolve_device(device)
     vecs = np.asarray(vecs, np.float32)
     m = vecs.shape[0]
-    cents, cb, rot = (_f32(a, dev) for a in (centroids, codebooks, rotation))
+    per_row = assign is None
+    cb, rot = _f32(codebooks, dev), _f32(rotation, dev)
+    cents = None if per_row else _f32(centroids, dev)
     codes = np.empty((m, pq_code_bytes(cb)), np.uint8)
     rsq = np.empty(m, np.float32)
     for lo in range(0, m, chunk):
         part = torch.from_numpy(
             np.ascontiguousarray(vecs[lo:lo + chunk])).to(dev)
-        a = torch.from_numpy(
-            np.asarray(assign[lo:lo + chunk], np.int64)).to(dev)
-        c, r = encode_residual(part, a, cents, cb, rot, block=chunk)
+        if per_row:  # the chunk's own centroid rows, in order
+            table = _f32(centroids[lo:lo + chunk], dev)
+            a = torch.arange(part.shape[0], device=dev)
+        else:
+            table = cents
+            a = torch.from_numpy(
+                np.asarray(assign[lo:lo + chunk], np.int64)).to(dev)
+        c, r = encode_residual(part, a, table, cb, rot, block=chunk)
         codes[lo:lo + chunk] = c.cpu().numpy()
         rsq[lo:lo + chunk] = r.cpu().numpy()
     return codes, rsq

@@ -74,7 +74,7 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 
 LIBRARY = CudaLibrary("pq_probe.cu", "libtpuvdb_pq_probe.so", _bind,
-                      headers=("probe_common.cuh",))
+                      headers=("probe_common.cuh", "device_guard.cuh"))
 
 
 def _geometry(name, lut, codes) -> Tuple[int, int]:

@@ -62,7 +62,7 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 
 LIBRARY = CudaLibrary("scan.cu", "libtpuvdb_scan.so", _bind,
-                      headers=("hopper_mma.cuh",))
+                      headers=("hopper_mma.cuh", "device_guard.cuh"))
 
 
 def _splits(nq: int, n: int, n_buckets: int, tile: int,
