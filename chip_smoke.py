@@ -109,6 +109,44 @@ the native rescore, and, with a data_dir, the native WAL writer.
               answer; 200 more puts. That node reopened from its data_dir
               and synced through the coordinator's `sync` RPC: its gets
               match all 2,200 keys.
+  clip        Text -> image search at full ViT-B/32 width (embed_dim 512,
+              seed 0; tpuvdb_torch/embed/clip.py, torch ops in f32, no
+              hand-written kernel). The towers' init time and device
+              bytes; the text tower's p50 at b1 / b8 / b64 and the image
+              tower's at b1 / b32 (CUDA events, 30 calls each, with the
+              TFLOP/s of their FLOP count); the card's unit embeddings of
+              2 texts and 2 pixel batches within 1e-4 of the same towers'
+              CPU forward (the seeded weights equal bit for bit). Then
+              the serve phase's 1,000,000 unit rows x 512 and 256 rows
+              embedded by the image tower (seeded pixels) in a
+              DBService(DBConfig(vector_dim=512)) behind a DBServer,
+              which loads its own embedder at the first /api/search
+              (timed apart). One client process of 100 closed-loop
+              /api/search k=10 over 8 captions: p50 / p90 and the
+              server's stage p50s; each caption's answer the same every
+              time and ascending; its keys and scores equal, apart from
+              near-ties, to the engine's own search of the vector this
+              script's text2vec gives, to the bucketed exact oracle of the
+              same device corpus (the scan's function: the best row of
+              each of the 512 buckets, then the top-10) and to the exact
+              oracle of it (with these seeds no two of a caption's top-10
+              share a bucket), each score its key's exact distance, and
+              recall@10 >= 0.95 against the exact oracle. Each image row is
+              the top-1 of its own vector at a score < 1e-3. The stages
+              of one text search (tokenize, text2vec, the engine's
+              search_hits, the service's text_search) in p50s. PNG files
+              (Pillow): 4 through put_image, 4 through `python3 -m
+              tpuvdb_torch.api.cli --coord-addr A ingest-images` (another
+              process embeds them on the card), `cli text-search` shows
+              the service's answer, and each file's own vector finds it
+              first. The scan kernel's launches, zeroed just before the
+              one-client /api/search window and read just after it, must
+              be one a request (`launches_by_path` "clip"). Last
+              bench/clip_e2e.py at its full shape (a width-768, 12-layer
+              text tower, 64 texts, 1,000,000 x 768 int8 rows of seed 0,
+              top-10): its JSON line and its stage split (tokenize,
+              tower, normalize, int8 scan + top-k); the top-k finite,
+              ascending, in range and equal to the stages run one by one.
   ivf kernel  Builds an IVFIndex (nlist 1,024, nprobe 64) over a clustered
               1,048,576 x 512 corpus with ~1% dead rows and holds both IVF
               probe kernels against their plain twins, f32 and bf16, at
@@ -127,8 +165,8 @@ the native rescore, and, with a data_dir, the native WAL writer.
               (tpuvdb/bench/engine_serving.py:158-165): DBConfig(vector_dim=
               512, index_type="ivf", ivf_nlist=1024, ivf_nprobe=64,
               ivf_kmeans_iters=6, ivf_train_sample=131072, wal_enabled=
-              False), 4 shards, f32, over 1,000,000 rows of a seeded copy of
-              tpuvdb/bench/datasets.py:55-72 (clustered, 1,024 clusters,
+              False), 4 shards, f32, over 1,000,000 rows of the port's
+              bench/datasets.py synthetic_corpus (clustered, 1,024 clusters,
               spread 0.4). Build time (put_rows + flush); b1, b8, b32 and
               b256 at k=10 (110 closed-loop searches each: p50, p90, QPS
               over the window); b256 under torch.profiler; recall@10 >= 0.95
@@ -357,6 +395,20 @@ PQ_ENGINE_BYTES = 64     # ivf_pq_subq of the engine phase (d = 512)
 PQ_REPS = 40             # closed-loop searches per batch size
 PQ_SIDE_REPS = 10        # b256 searches of the 4-bit and OPQ engines
 PQ_WINDOWS = (64, 128, 256, 512)  # rescore windows tried, in order
+CLIP_BATCHES_TEXT = (1, 8, 64)   # text tower batches timed
+CLIP_BATCHES_IMAGE = (1, 32)     # image tower batches timed
+CLIP_REPS = 30           # CUDA-event timings of each tower batch (p50)
+CLIP_IMAGES = 256        # corpus rows embedded by the image tower
+CLIP_PNGS = 8            # PNG files through put_image and ingest-images
+CLIP_ONE_CLIENT = 100    # closed-loop /api/search of the single client
+CLIP_STAGE_REPS = 50     # in-process text-search stage timings (p50)
+CLIP_ATOL = 1e-4         # card vs CPU forward, on unit embeddings
+CLIP_TEXTS = ("a photo of a cat", "a dog running in the park",
+              "a red bus on a city street", "two people on a beach",
+              "a bowl of fruit on a wooden table", "snow on the mountains",
+              "an old car parked by a house",
+              "a plate of food next to a glass of wine")
+E2E_N, E2E_DIM, E2E_BATCH, E2E_K = 1_000_000, 768, 64, 10  # clip_e2e
 MESH_SLOTS = 4           # slots of the one card (a device may repeat)
 MESH_ODD_BATCH = 255     # pads to the replica groups
 MESH_REPS = 40           # closed-loop searches of each IVF mesh batch
@@ -371,10 +423,23 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of fn() over reps launches, by CUDA events."""
+def cuda_ms(fn, reps: int, warmup: int = 2, median: bool = False) -> float:
+    """Device time of one fn() call by CUDA events, in ms: the mean over
+    reps back-to-back calls, or with `median` the median of reps windows
+    of one call each."""
     for _ in range(warmup):
         fn()
+    if median:
+        times = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return float(np.median(times))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -841,6 +906,20 @@ else:
 lat, out = [], []
 t0 = time.time()
 for i in range(n):
+    if op == "api_search":
+        texts = cfg["texts"]
+        t = time.perf_counter()
+        conn.request("POST", "/api/search",
+                     json.dumps({"text": texts[i % len(texts)], "topk": 10}),
+                     {"Content-Type": "application/json"})
+        r = json.loads(conn.getresponse().read())
+        lat.append(time.perf_counter() - t)
+        if "results" not in r:
+            raise SystemExit(f"api_search failed: {r}")
+        if cfg.get("keep"):
+            out.append([[h["key"] for h in r["results"]],
+                        [float(h["score"]) for h in r["results"]]])
+        continue
     if op == "search":
         p = {"query_vector": x[i].tolist(), "top_k": 10}
     elif op == "search_batch":
@@ -1412,22 +1491,365 @@ def phase_federation(tt) -> dict:
     return out
 
 
+# --------------------------------------------------------------- clip
+
+
+def tower_flops(tokens: int, width: int, layers: int) -> float:
+    """Operations (2 a multiply-add) of one sequence through a tower's
+    blocks: the qkv and out projections (4 W^2 a token), the MLP (8 W^2)
+    and the attention's two products (2 T^2 W)."""
+    return layers * (24.0 * tokens * width * width
+                     + 4.0 * tokens * tokens * width)
+
+
+def host_p50(fn, reps: int) -> float:
+    """Median host-clock time of one fn() call after a warm one, in ms."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t)
+    return float(np.median(times)) * 1e3
+
+
+def _clip_towers() -> tuple:
+    """The full-width ViT-B/32 embedder on the card (seed 0): init time
+    and device bytes, each tower's p50 at its batches, and its embeddings
+    of two texts and two pixel batches against the same towers' CPU
+    forward."""
+    from tpuvdb_torch.embed.clip import CLIPConfig, CLIPEmbedder, _l2n
+
+    cfg = CLIPConfig()
+    m0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    emb = CLIPEmbedder(cfg, seed=0)
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0,
+           "device_bytes": torch.cuda.memory_allocated() - m0,
+           "params": {name: sum(p.numel() for p in m.parameters())
+                      for name, m in (("text", emb.text_model),
+                                      ("image", emb.vision_model))}}
+    log(f"clip: ViT-B/32 towers (embed_dim {cfg.embed_dim}, seed 0) built "
+        f"on the card in {out['init_s']:.3f} s, {out['params']} "
+        f"parameters, {out['device_bytes']} device bytes")
+    s = cfg.image_size
+    rng = np.random.default_rng(0)
+    texts = [f"{CLIP_TEXTS[i % len(CLIP_TEXTS)]} {i}"
+             for i in range(max(CLIP_BATCHES_TEXT))]
+    tokens = torch.from_numpy(emb.tokenize(texts)).cuda().long()
+    pixels = torch.from_numpy(rng.standard_normal(
+        (max(CLIP_BATCHES_IMAGE), s, s, 3), dtype=np.float32)).cuda()
+    per = {"text": tower_flops(cfg.context_length, cfg.text_width,
+                               cfg.text_layers),
+           "image": tower_flops((s // cfg.patch_size) ** 2 + 1,
+                                cfg.vision_width, cfg.vision_layers)}
+    out["gflop_per_item"] = {k: v / 1e9 for k, v in per.items()}
+    for name, batches, fn in (
+            ("text", CLIP_BATCHES_TEXT,
+             lambda b: emb.text_features(tokens[:b])),
+            ("image", CLIP_BATCHES_IMAGE,
+             lambda b: emb.image_features(pixels[:b]))):
+        out[name] = {}
+        for b in batches:
+            ms = cuda_ms(lambda: fn(b), CLIP_REPS, warmup=3, median=True)
+            out[name][f"b{b}"] = {"p50_ms": ms,
+                                  "tflops": tflops(b * per[name], ms)}
+    log("clip tower p50s (CUDA events, f32): " + json.dumps(
+        {k: out[k] for k in ("text", "image", "gflop_per_item")}))
+
+    t0 = time.perf_counter()
+    cpu = CLIPEmbedder(cfg, seed=0, device="cpu")
+    out["cpu_init_s"] = time.perf_counter() - t0
+    same = all(torch.equal(a.cpu(), b) for m, c in (
+        (emb.text_model, cpu.text_model), (emb.vision_model, cpu.vision_model))
+        for a, b in zip(m.state_dict().values(), c.state_dict().values()))
+    if not same:
+        raise AssertionError("the seeded towers differ between the card "
+                             "and the CPU")
+    two = list(CLIP_TEXTS[:2])
+    errs = [np.abs(emb.text2vec_batch(two) - cpu.text2vec_batch(two)).max()]
+    for _ in range(2):
+        batch = rng.standard_normal((2, s, s, 3), dtype=np.float32)
+        errs.append(np.abs(_l2n(emb.image_features(batch).cpu().numpy())
+                           - _l2n(cpu.image_features(batch).numpy())).max())
+    out["card_vs_cpu_max_abs_err"] = float(max(errs))
+    del cpu
+    log(f"clip: card against the CPU forward of the same towers (2 texts, "
+        f"2 pixel batches of 2, unit embeddings): max |diff| "
+        f"{out['card_vs_cpu_max_abs_err']:.3e} (atol {CLIP_ATOL}); the "
+        f"seeded weights are equal bit for bit")
+    if out["card_vs_cpu_max_abs_err"] > CLIP_ATOL:
+        raise AssertionError("the card's embeddings differ from the CPU's "
+                             f"beyond {CLIP_ATOL}")
+    return emb, out
+
+
+def _clip_cli(args: list, timeout: float = 300) -> str:
+    """`python3 -m tpuvdb_torch.api.cli ARGS` from the checkout; its
+    output, or an error with it."""
+    proc = subprocess.run([sys.executable, "-m", "tpuvdb_torch.api.cli"]
+                          + args, cwd=ROOT, capture_output=True, text=True,
+                          timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"cli {args[:3]} exited {proc.returncode}: "
+                             f"{(proc.stdout + proc.stderr)[-3000:]}")
+    return proc.stdout
+
+
+def _clip_pngs(svc, srv, emb, work: str) -> dict:
+    """PNG files through the service's put_image and the CLI's
+    ingest-images (remote: the CLI process embeds them on the card), then
+    the CLI's text-search; each file's own vector finds it first."""
+    from PIL import Image
+
+    from tpuvdb_torch.api.client import DBClient
+
+    rng = np.random.default_rng(7)
+    dirs = [os.path.join(work, n) for n in ("put_image", "ingest_images")]
+    paths = []
+    for i in range(CLIP_PNGS):
+        d = dirs[i * 2 // CLIP_PNGS]
+        os.makedirs(d, exist_ok=True)
+        p = os.path.join(d, f"png_{i}.png")
+        Image.fromarray(rng.integers(0, 256, (200 + 24 * i, 300, 3),
+                                     np.uint8)).save(p)
+        paths.append(p)
+    out = {}
+    t0 = time.perf_counter()
+    for p in paths[:CLIP_PNGS // 2]:
+        r = svc.put_image(p, dataset="png")
+        assert r["success"], r
+    out["put_image_s"] = time.perf_counter() - t0
+    addr = ["--coord-addr", srv.address]
+    t0 = time.perf_counter()
+    text = _clip_cli(addr + ["ingest-images", dirs[1], "--dataset", "cli"])
+    out["cli_ingest_s"] = time.perf_counter() - t0
+    want = f"ingested {CLIP_PNGS - CLIP_PNGS // 2}/{CLIP_PNGS - CLIP_PNGS // 2}"
+    if want not in text:
+        raise AssertionError(f"cli ingest-images: {text[-500:]}")
+    t0 = time.perf_counter()
+    text = _clip_cli(addr + ["text-search", "-k", "5", CLIP_TEXTS[0]])
+    out["cli_text_search_s"] = time.perf_counter() - t0
+    shown = [line.split("|")[1].strip() for line in text.splitlines()[2:]
+             if "|" in line]
+    expect = [r["key"] for r in svc.text_search(CLIP_TEXTS[0], 5)["results"]]
+    if shown != expect:
+        raise AssertionError(f"cli text-search shows {shown}, the service "
+                             f"answers {expect}")
+    c = DBClient(srv.address, timeout=120)
+    worst = 0.0
+    for p in paths:
+        r = c.call("search", {"query_vector": emb.image2vec(p).tolist(),
+                              "top_k": 1})["search_result"]
+        if r["keys"] != [os.path.basename(p)]:
+            raise AssertionError(f"{p}: its own vector finds {r['keys']}")
+        worst = max(worst, r["scores"][0])
+    out["own_vector_max_score"] = worst
+    if worst >= 1e-3:
+        raise AssertionError(f"a PNG's own vector scores {worst}")
+    log("clip PNG files (Pillow): " + json.dumps(out) + f"; {CLIP_PNGS // 2} "
+        "through put_image, the rest through `cli ingest-images` (another "
+        "process embedding on the card), `cli text-search` shows the "
+        "service's answer, each file's own vector finds it first")
+    return out
+
+
+def phase_clip_e2e() -> dict:
+    """bench/clip_e2e.py at its full shape (see the module docstring)."""
+    from tpuvdb_torch.bench import clip_e2e
+
+    t0 = time.perf_counter()
+    r = clip_e2e.run(E2E_N, E2E_DIM, E2E_BATCH, E2E_K)
+    out = {k: r[k] for k in ("line", "stages_ms", "init_s", "corpus_s",
+                             "tower_params", "corpus_bytes")}
+    idx, dist = r["idx"], r["dist"]
+    if idx.shape != (E2E_BATCH, E2E_K) or not np.isfinite(dist).all():
+        raise AssertionError(f"clip_e2e: top-k of shape {idx.shape}, "
+                             "finite distances expected")
+    if ((idx < 0) | (idx >= E2E_N)).any() or (np.diff(dist, axis=1) < 0).any():
+        raise AssertionError("clip_e2e: rows out of range or not ascending")
+    if any(len(set(row)) != E2E_K for row in idx.tolist()):
+        raise AssertionError("clip_e2e: a row repeats in a top-k")
+    del r
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    log("clip_e2e JSON line: " + json.dumps(out["line"]))
+    log("clip_e2e stages, ms a batch of 64 (CUDA events; tokenize on the "
+        "host clock): " + json.dumps(out["stages_ms"]))
+    return out
+
+
+def phase_clip(tt, scan) -> dict:
+    """Text -> image search served on the card (see the module
+    docstring)."""
+    from tpuvdb_torch.api.client import DBClient
+    from tpuvdb_torch.api.server import DBServer
+    from tpuvdb_torch.api.service import DBService
+    from tpuvdb_torch.embed import clip
+    from tpuvdb_torch.embed.clip import _l2n
+    from tpuvdb_torch.kernels.distance import l2sq_topk
+    from tpuvdb_torch.utils.tracing import StageTimer
+
+    emb, out = _clip_towers()
+    d, s = emb.cfg.embed_dim, emb.cfg.image_size
+    cfg = tt.DBConfig(vector_dim=d)
+    assert cfg.search_mode == "approx" and cfg.storage_dtype == "float32"
+    data = _unit_rows(np.random.default_rng(0), SERVE_ROWS, d)
+    keys = [f"doc{i}" for i in range(SERVE_ROWS)]
+    svc = DBService(cfg)
+    srv = DBServer(svc, port=0)
+    srv.start_background()
+    work = tempfile.mkdtemp(prefix="chip_smoke_clip_", dir=ROOT)
+    try:
+        t0 = time.perf_counter()
+        assert svc.engine.put_rows(keys, data).success
+        del data
+        prng = np.random.default_rng(5)
+        img_vecs = np.concatenate([_l2n(emb.image_features(prng.standard_normal(
+            (32, s, s, 3), dtype=np.float32)).cpu().numpy())
+            for _ in range(CLIP_IMAGES // 32)])
+        img_keys = [f"clip_img{i}.png" for i in range(CLIP_IMAGES)]
+        assert svc.engine.put_rows(img_keys, img_vecs, [
+            {"file_path": f"/images/{k}", "dataset": "clip"}
+            for k in img_keys]).success
+        svc.engine.flush()
+        torch.cuda.synchronize()
+        out["build_s"] = time.perf_counter() - t0
+        check_native(svc.engine, "clip")
+        log(f"clip: {SERVE_ROWS} unit rows + {CLIP_IMAGES} rows embedded by "
+            f"the image tower behind a DBServer in {out['build_s']:.3f} s")
+
+        client = DBClient(srv.address, timeout=300)
+        t0 = time.perf_counter()
+        first = client.api_search(CLIP_TEXTS[0], 10)
+        out["first_api_search_s"] = time.perf_counter() - t0
+        assert len(first.get("results", [])) == 10, first
+        if svc.embedder is not clip.load_default_embedder(d):
+            raise AssertionError("the service did not load the default "
+                                 "embedder")
+        log(f"clip: first /api/search (loads the service's embedder) "
+            f"{out['first_api_search_s']:.3f} s")
+
+        svc.engine.timers = StageTimer()
+        scan.LAUNCHES = 0
+        o = _run_clients(srv.port, [{"op": "api_search", "seed": 0, "dim": d,
+                                     "count": CLIP_ONE_CLIENT, "keep": True,
+                                     "texts": list(CLIP_TEXTS)}])
+        out["scan_launches"] = scan.LAUNCHES
+        log(f"clip: scan launches over the one-client /api/search window: "
+            f"{out['scan_launches']} for {CLIP_ONE_CLIENT} requests")
+        if out["scan_launches"] != CLIP_ONE_CLIENT:
+            raise AssertionError(
+                f"{CLIP_ONE_CLIENT} /api/search requests launched the scan "
+                f"kernel {out['scan_launches']} times, one each expected")
+        one = _window(o)
+        one["server_p50_ms"] = _server_p50s(svc)
+        served = o[0]["out"]
+        nt = len(CLIP_TEXTS)
+        if any(r != served[i % nt] for i, r in enumerate(served)):
+            raise AssertionError("one text, different answers")
+        got_k = np.array([r[0] for r in served[:nt]], dtype=object)
+        got_d = np.array([r[1] for r in served[:nt]], np.float64)
+        if (np.diff(got_d, axis=1) < 0).any():
+            raise AssertionError("/api/search results are not ascending")
+
+        # the smoke's own text2vec, through the engine and the oracles over
+        # the same device corpus
+        qs = np.stack([emb.text2vec(t) for t in CLIP_TEXTS])
+        tol = RESCORE_RTOL * ((qs * qs).sum(1) + 1.0) + RESCORE_ATOL
+        idx = svc.engine._index
+        key_of = np.vectorize(lambda r: svc.engine.docstore.key_at(
+            *idx.layout.shard_slot_of(int(r))), otypes=[object])
+        q_t = torch.from_numpy(qs).cuda()
+        d_ex, r_ex = l2sq_topk(q_t, idx.vectors, idx.sqnorms, idx.valid, 10,
+                               mode="exact")
+        d_bk, r_bk = _plain_topk(scan, q_t, idx.vectors, idx.sqnorms,
+                                 idx.valid, 10)
+        d_ex, d_bk = (x.double().cpu().numpy() for x in (d_ex, d_bk))
+        k_ex, k_bk = key_of(r_ex.cpu().numpy()), key_of(r_bk.cpu().numpy())
+        dd, kk = svc.engine.search_batch(qs, 10)
+        k_en = np.array([row[:10] for row in kk], dtype=object)
+        checks = {}
+        for name, k_o, d_o in (("engine", k_en, np.asarray(dd, np.float64)),
+                               ("bucket_oracle", k_bk, d_bk),
+                               ("exact_oracle", k_ex, d_ex)):
+            apart, alld = _tie_mismatches(got_k, k_o, d_o[:, :10], tol)
+            same = got_k == k_o
+            checks[name] = {"key_mismatches_apart_from_ties": apart,
+                            "key_mismatches": alld,
+                            "max_score_err": float(
+                                np.abs(got_d - d_o[:, :10])[same].max())}
+        # every served score is its key's exact distance
+        ents = [[svc.engine.docstore.get(k) for k in r] for r in got_k]
+        rows = torch.tensor([[idx.layout.row_of(e.shard, e.slot) for e in r]
+                             for r in ents], device=q_t.device)
+        exact = ((idx.vectors[rows] - q_t[:, None]) ** 2).sum(-1)
+        checks["served_scores_vs_exact_max_err"] = float(
+            np.abs(exact.double().cpu().numpy() - got_d).max())
+        one["recall_at_10"] = float(np.mean(
+            [len(set(a) & set(b)) / 10 for a, b in zip(got_k, k_ex)]))
+        one["checks"] = checks
+        out["one_client"] = one
+        log("clip one client, /api/search k=10: " + json.dumps(one))
+        for name in ("engine", "bucket_oracle", "exact_oracle"):
+            c = checks[name]
+            if (c["key_mismatches_apart_from_ties"]
+                    or c["max_score_err"] > float(tol.max())):
+                raise AssertionError(f"/api/search against the {name}: {c}")
+        if checks["served_scores_vs_exact_max_err"] > float(tol.max()):
+            raise AssertionError("/api/search scores are not their keys' "
+                                 "exact distances")
+        if one["recall_at_10"] < RECALL_MIN:
+            raise AssertionError(f"/api/search recall@10 "
+                                 f"{one['recall_at_10']} < {RECALL_MIN}")
+
+        # an embedded image's own vector finds it first
+        r = client.call("search_batch", {"query_vectors": img_vecs.tolist(),
+                                         "top_k": 1})
+        assert r["success"], r
+        tops = [(res["keys"][0], res["scores"][0]) for res in r["results"]]
+        bad = [k for k, (got, _) in zip(img_keys, tops) if got != k]
+        out["image_own_vector_max_score"] = max(sc for _, sc in tops)
+        if bad or out["image_own_vector_max_score"] >= 1e-3:
+            raise AssertionError(f"image rows not first for their own "
+                                 f"vector: {bad[:5]}, max score "
+                                 f"{out['image_own_vector_max_score']}")
+        log(f"clip: each of the {CLIP_IMAGES} image rows is the top-1 of its "
+            f"own vector (max score "
+            f"{out['image_own_vector_max_score']:.3e})")
+
+        # where a text search's time goes, in process
+        t = CLIP_TEXTS[3]
+        q = emb.text2vec(t)
+        out["stages_p50_ms"] = {
+            "tokenize": host_p50(lambda: emb.tokenize([t]), CLIP_STAGE_REPS),
+            "text_tower_b1_device": out["text"]["b1"]["p50_ms"],
+            "text2vec": host_p50(lambda: emb.text2vec(t), CLIP_STAGE_REPS),
+            "engine_search_hits": host_p50(
+                lambda: svc.engine.search_hits(q, 10), CLIP_STAGE_REPS),
+            "service_text_search": host_p50(
+                lambda: svc.text_search(t, 10), CLIP_STAGE_REPS),
+            "client_api_search": one["p50_ms"],
+        }
+        log("clip text-search stages, p50 ms: "
+            + json.dumps(out["stages_p50_ms"]))
+        out["png"] = _clip_pngs(svc, srv, emb, work)
+        out["batcher_fallbacks"] = svc.rpc_info({})["info"][
+            "batcher_fallbacks"]
+        if out["batcher_fallbacks"]:
+            raise AssertionError(f"{out['batcher_fallbacks']} batcher "
+                                 "fallbacks")
+    finally:
+        srv.shutdown()
+        svc.close()
+        shutil.rmtree(work, ignore_errors=True)
+    del svc, emb
+    torch.cuda.empty_cache()
+    return out
+
+
 # --------------------------------------------------------------- phase 4
-
-
-def clustered_corpus(n: int, dim: int, seed: int = 0, n_clusters: int = 1024,
-                     spread: float = 0.4):
-    """(corpus (n, dim) f32, queries (1024, dim) f32): a seeded copy of
-    tpuvdb/bench/datasets.py synthetic_corpus(clustered=True)."""
-    rng = np.random.default_rng(seed)
-    centers = rng.standard_normal((n_clusters, dim)).astype(np.float32) * 3
-    assign = rng.integers(0, n_clusters, n)
-    corpus = centers[assign] + spread * rng.standard_normal(
-        (n, dim)).astype(np.float32)
-    qi = rng.choice(n, 1024, replace=n < 1024)
-    queries = corpus[qi] + 0.05 * rng.standard_normal(
-        (1024, dim)).astype(np.float32)
-    return corpus, queries
 
 
 def _plan_work(ivf_probe, plan, n_chunks: int, d: int, item: int,
@@ -1670,9 +2092,12 @@ def _exact_truth(data: np.ndarray, queries: np.ndarray) -> np.ndarray:
 
 
 def phase_ivf_engine(tt):
+    from tpuvdb_torch.bench.datasets import synthetic_corpus
+
     cfg = _ivf_config(tt)
     assert cfg.shard_count == 4 and cfg.storage_dtype == "float32"
-    data, queries = clustered_corpus(IVF_ENGINE_ROWS, IVF_D, seed=0)
+    data, queries = synthetic_corpus(IVF_ENGINE_ROWS, IVF_D, seed=0,
+                                     clustered=True)
     keys = [f"r{i}" for i in range(IVF_ENGINE_ROWS)]
     eng = tt.VectorDBEngine(cfg)
     t0 = time.perf_counter()
@@ -1770,9 +2195,11 @@ def phase_ivf_restart(tt, label: str = "ivf", packed: bool = False,
     import tpuvdb_torch.index.ivf as ivf_mod
     import tpuvdb_torch.kernels.pq as pq_mod
     import tpuvdb_torch.mesh.sharded_ivf as sivf_mod
+    from tpuvdb_torch.bench.datasets import synthetic_corpus
 
     cfg = _ivf_config(tt, checkpoint_every_puts=10 ** 9, **kw)
-    data, queries = clustered_corpus(IVF_RESTART_ROWS, IVF_D, seed=9)
+    data, queries = synthetic_corpus(IVF_RESTART_ROWS, IVF_D, seed=9,
+                                     clustered=True)
     keys = [f"w{i}" for i in range(IVF_RESTART_ROWS)]
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT)
     real = (ivf_mod.kmeans, sivf_mod.kmeans, pq_mod.train_pq,
@@ -2772,6 +3199,12 @@ def main() -> int:
     federated = phase_federation(tt)
     federated["phase_s"] = time.perf_counter() - t0
     log("federation " + json.dumps(federated))
+    t0 = time.perf_counter()
+    clipped = phase_clip(tt, scan)
+    launches_clip = clipped["scan_launches"]
+    clipped["e2e"] = phase_clip_e2e()
+    clipped["phase_s"] = time.perf_counter() - t0
+    log("clip " + json.dumps(clipped))
 
     ivf_kern = phase_ivf_kernel(ivf_probe)
     ivf_probe.LAUNCHES_EXPANDED = ivf_probe.LAUNCHES_COMPACT = 0
@@ -2819,8 +3252,9 @@ def main() -> int:
     log("mesh " + json.dumps(mesh_out))
     log(f"mesh phase {mesh_out['phase_s']:.1f} s")
     del data
-    log(f"launches: scan {launches} (flat engine phase) and "
-        f"{launches_serve} (serve phase, HTTP), ivf expanded "
+    log(f"launches: scan {launches} (flat engine phase), "
+        f"{launches_serve} (serve phase, HTTP) and {launches_clip} (clip "
+        f"phase, one client's /api/search), ivf expanded "
         f"{launches_expanded} (ivf engine phase), ivf compact "
         f"{launches_compact} (b1,024 index search), ivf expanded int8 "
         f"{launches_expanded_i8} (ivf int8 engine's searches), ivf compact "
@@ -2859,10 +3293,11 @@ def main() -> int:
         "route": "cuda",
         "source": "tpuvdb_torch/csrc/scan.cu",
         "replaces": "tpuvdb/kernels/pallas_scan.py:41",
-        "launches": launches + launches_serve
+        "launches": launches + launches_serve + launches_clip
         + mesh_launches["scan_candidates"],
         "launches_by_path": {"flat engine": launches,
                              "served (HTTP)": launches_serve,
+                             "clip": launches_clip,
                              "mesh": mesh_launches["scan_candidates"]},
         "max_abs_err": kern["max_abs_err"],
         "ms": m["ms"], "plain_ms": m["plain_ms"],

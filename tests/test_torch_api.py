@@ -9,8 +9,11 @@ misspelled field) and tests/test_routing.py, on device="cpu", and adds:
   + atol 1e-5);
 * the wires across packages: a JAX DBClient drives a port DBServer, and a
   port client a JAX server, on JSON and on the binary wire;
-* what waits for a later item fails naming it: /api/search and the
-  `text-search`, `ingest-images`, `bench` and multi-card `serve` commands.
+* text -> image search (CLIP, tpuvdb_torch/embed/): /api/search, the
+  service's text_search and put_image, and the CLI's `text-search` and
+  `ingest-images`, embedded and remote, with tiny seeded towers;
+* what waits for a later item fails naming it: `bench --suite scan` and
+  `--suite streaming`.
 
 The JAX service's native library is switched off (the reference's build
 races between test workers).
@@ -34,9 +37,15 @@ from tpuvdb_torch.api.client import DBClient
 from tpuvdb_torch.api.server import DBServer
 from tpuvdb_torch.api.service import DBService
 from tpuvdb_torch.core.config import DBConfig
+from tpuvdb_torch.embed import clip
 from tpuvdb_torch.utils.sharding_utils import get_shard_id
 
 CPU = ["--device", "cpu"]
+
+# tiny CLIP towers (tests/test_embed.py's sizes) for the text search paths
+TINY_CLIP = dict(vocab_size=512, text_width=64, text_layers=2, text_heads=2,
+                 context_length=16, image_size=64, patch_size=32,
+                 vision_width=64, vision_layers=2, vision_heads=2)
 
 
 @pytest.fixture(autouse=True)
@@ -48,6 +57,31 @@ def _no_reference_build(monkeypatch):
 def small_config(cls=DBConfig, **kw):
     return cls(**dict(dict(vector_dim=8, shard_count=4, shard_capacity=1024,
                            block_size=128), **kw))
+
+
+@pytest.fixture()
+def tiny_default_clip(monkeypatch):
+    """load_default_embedder builds tiny towers (a fresh set per test)."""
+    import functools
+
+    monkeypatch.setattr(clip, "CLIPConfig",
+                        functools.partial(clip.CLIPConfig, **TINY_CLIP))
+    monkeypatch.setattr(clip, "_defaults", {})
+
+
+def tiny_embedder(dim=8):
+    return clip.CLIPEmbedder(clip.CLIPConfig(embed_dim=dim, **TINY_CLIP),
+                             device="cpu")
+
+
+def save_images(d, rng, n):
+    from PIL import Image
+
+    os.makedirs(d, exist_ok=True)
+    for i in range(n):
+        Image.fromarray(rng.integers(0, 255, (72, 72, 3), np.uint8)).save(
+            os.path.join(d, f"pic_{i}.png"))
+    return [os.path.join(d, f"pic_{i}.png") for i in range(n)]
 
 
 @pytest.fixture()
@@ -137,16 +171,33 @@ def test_healthz_and_frontend(server):
     assert resp.status == 200 and "tpuvdb" in body
 
 
-def test_api_search_names_item_11(server):
+def test_api_search_names_item_11(server, rng, tmp_path):
+    """/api/search answers text -> image results through the service's
+    embedder (tiny towers here), ascending, with the file paths; without
+    text it answers 400. (The name dates from when the route waited for
+    the CLIP port; it now checks that the route answers.)"""
     import http.client
 
+    svc = server.service
+    svc._embedder = tiny_embedder()
+    for p in save_images(str(tmp_path), rng, 3):
+        assert svc.put_image(p, dataset="web")["success"]
     conn = http.client.HTTPConnection(server.host, server.port, timeout=30)
-    conn.request("POST", "/api/search", json.dumps({"text": "a cat"}),
+    conn.request("POST", "/api/search", json.dumps({"text": "a cat",
+                                                    "topk": 2}),
                  {"Content-Type": "application/json"})
     resp = conn.getresponse()
     body = json.loads(resp.read())
-    assert resp.status == 503
-    assert "NotImplementedError" in body["error"] and "item 11" in body["error"]
+    assert resp.status == 200, body
+    res = body["results"]
+    assert len(res) == 2 and res[0]["score"] <= res[1]["score"]
+    assert res[0]["file_path"].endswith(".png")
+    assert res[0]["metadata"]["dataset"] == "web"
+    assert body == svc.text_search("a cat", 2)
+    conn.request("POST", "/api/search", json.dumps({"topk": 2}),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    assert resp.status == 400 and b"missing text" in resp.read()
 
 
 def test_cli_embedded(tmp_data_dir, rng, monkeypatch):
@@ -275,6 +326,11 @@ def test_service_parity_with_jax(coalesce, rng):
     gives equal response dicts (search_mode "exact")."""
     kw = dict(search_mode="exact", search_coalesce=coalesce)
     jax_svc = JaxService(small_config(JaxConfig, **kw))
+    # the reference's background flush can score a row twice when its
+    # scatter lands just before a search's snapshot (a known reference
+    # defect, ROADMAP.md); the reference flushes on search without it.
+    # The port's service keeps its background flush.
+    jax_svc.engine.stop_background_flush()
     svc = DBService(small_config(**kw), device="cpu")
     try:
         for method, params in _request_sequence(rng):
@@ -371,8 +427,8 @@ def test_poisoned_batcher_falls_back_and_is_visible(rng):
 
 @pytest.mark.parametrize("args, item", [
     (["bench"], "item 13"),
-    (["text-search", "a cat"], "item 11"),
-    (["ingest-images", "."], "item 11"),
+    (["bench", "--suite", "scan"], "item 13"),
+    (["bench", "--suite", "streaming"], "item 13"),
 ])
 def test_waiting_commands_name_their_item(args, item):
     r = CliRunner().invoke(cli, args)
@@ -403,15 +459,65 @@ def test_serve_mesh_is_the_references(monkeypatch):
     assert cli_mod.serve_mesh(True, 1, "cuda") is None
 
 
-def test_text_search_and_put_image_name_item_11(tmp_path):
-    svc = DBService(small_config(), device="cpu")
+def test_text_search_and_put_image_name_item_11(tmp_path, rng,
+                                                tiny_default_clip):
+    """put_image and text_search run on the service's own embedder, loaded
+    at first use on its device (tiny towers here). One shard: each row
+    has a scan bucket of its own, so all three images come back. (The
+    name dates from when both waited for the CLIP port.)"""
+    svc = DBService(small_config(shard_count=1), device="cpu")
     try:
-        with pytest.raises(NotImplementedError, match="item 11"):
-            svc.text_search("a cat")
-        with pytest.raises(NotImplementedError, match="item 11"):
-            svc.put_image(str(tmp_path / "x.jpg"))
+        paths = save_images(str(tmp_path), rng, 3)
+        for p in paths:
+            assert svc.put_image(p)["success"]
+        assert svc.embedder is clip.load_default_embedder(8, device="cpu")
+        res = svc.text_search("a cat", 3)["results"]
+        assert sorted(r["key"] for r in res) == [os.path.basename(p)
+                                                 for p in paths]
+        assert [r["score"] for r in res] == sorted(r["score"] for r in res)
+        hit = svc.engine.search_hits(svc.embedder.image2vec(paths[1]), 1)[0]
+        assert hit.key == "pic_1.png" and hit.score < 1e-3
+        assert hit.metadata["file_path"] == paths[1]
     finally:
         svc.close()
+
+
+@pytest.mark.parametrize("mode", ["embedded", "remote"])
+def test_cli_ingest_images_and_text_search(mode, tmp_path, rng, monkeypatch,
+                                           tiny_default_clip):
+    """`ingest-images` then `text-search`: in-process with --data-dir, or
+    against a server (the CLI embeds the images, the server the text).
+    One shard, so both images have scan buckets of their own."""
+    monkeypatch.setenv("TPUVDB_VECTOR_DIM", "8")
+    monkeypatch.setenv("TPUVDB_SHARD_COUNT", "1")
+    paths = save_images(str(tmp_path / "imgs"), rng, 3)
+    (tmp_path / "imgs" / "notes.txt").write_text("not an image")
+    runner = CliRunner()
+    svc = srv = None
+    if mode == "embedded":
+        base = CPU + ["--data-dir", str(tmp_path / "db")]
+    else:
+        svc = DBService(small_config(shard_count=1), device="cpu")
+        srv = DBServer(svc, port=0)
+        srv.start_background()
+        base = CPU + ["--coord-addr", srv.address]
+    try:
+        r = runner.invoke(cli, base + ["ingest-images", str(tmp_path / "imgs"),
+                                       "--dataset", "cli", "--limit", "2"])
+        assert r.exit_code == 0, r.output
+        assert "ingested 2/2 images" in r.output
+        r = runner.invoke(cli, base + ["text-search", "-k", "2", "a cat"])
+        assert r.exit_code == 0, r.output
+        rows = [line for line in r.output.splitlines()
+                if "pic_" in line]
+        assert len(rows) == 2
+        assert {line.split("|")[1].strip() for line in rows} == {
+            "pic_0.png", "pic_1.png"}
+        assert paths[0] in r.output
+    finally:
+        if srv is not None:
+            srv.shutdown()
+            svc.close()
 
 
 def test_rpc_profile_writes_a_trace(server, tmp_path):

@@ -6,7 +6,8 @@ Mirrors tests/test_federation.py (routing, the parallel fan-out merge,
 replication, quorum writes, failover, rejoin and anti-entropy sync, stale
 routes, auto rebalance, a persisted registry, batched pushes; text search
 and put_image with a stub embedder, as there), and adds:
-* without an embedder, text search and put_image name ROADMAP item 11;
+* text search and put_image through real tiny CLIP towers at the
+  coordinator, and the coordinator's own embedder loaded on its device;
 * a mixed federation: a port coordinator over one JAX node and one port
   node replicates every put to both and answers gets and searches as an
   all-JAX federation does (search_mode "exact").
@@ -773,27 +774,72 @@ def test_push_shard_falls_back_per_record(cluster, rng, monkeypatch):
         svc.close()
 
 
-def test_text_search_and_put_image_name_item_11(cluster, tmp_path):
-    """Without an embedder the coordinator's text search and put_image wait
-    for the CLIP towers (ROADMAP item 11); /api/search answers 503."""
+def test_text_search_and_put_image_name_item_11(cluster, tmp_path, rng):
+    """The coordinator embeds with real (tiny, seeded) CLIP towers: an
+    image put through it lands on its shard's node and comes back first
+    for its own vector; text search scatter-gathers over the nodes, and
+    /api/search on the coordinator's server answers the same. (The name
+    dates from when both waited for the CLIP port.)"""
     import http.client as hc
     import json as _json
 
-    coord, _ = cluster
-    with pytest.raises(NotImplementedError, match="item 11"):
-        coord.text_search("a cat")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        coord.put_image(str(tmp_path / "cat.jpg"))
+    from PIL import Image
+
+    from tpuvdb_torch.embed.clip import CLIPConfig, CLIPEmbedder
+
+    coord, nodes = cluster
+    coord._embedder = CLIPEmbedder(CLIPConfig(
+        embed_dim=8, vocab_size=512, text_width=64, text_layers=2,
+        text_heads=2, context_length=16, image_size=64, patch_size=32,
+        vision_width=64, vision_layers=2, vision_heads=2), device="cpu")
+    paths = []
+    for i in range(3):
+        p = str(tmp_path / f"cat_{i}.png")
+        Image.fromarray(rng.integers(0, 255, (80, 80, 3), np.uint8)).save(p)
+        paths.append(p)
+        r = coord.put_image(p, dataset="fed")
+        assert r["success"], r
+    g = coord.get("cat_1.png")
+    assert g.success and g.vector_data.metadata["dataset"] == "fed"
+    own = coord.search(SearchRequest(
+        query_vector=coord.embedder.image2vec(paths[1]), top_k=1))
+    assert own.search_result.keys == ["cat_1.png"]
+    assert own.search_result.scores[0] < 1e-3
+
+    out = coord.text_search("a cat", topk=3)
+    assert out["results"], out
+    assert {r["key"] for r in out["results"]} <= {"cat_0.png", "cat_1.png",
+                                                  "cat_2.png"}
+    scores = [r["score"] for r in out["results"]]
+    assert scores == sorted(scores)
+    assert out["results"][0]["file_path"] in paths
     csrv = DBServer(coord, port=0)
     csrv.start_background()
     try:
         conn = hc.HTTPConnection(csrv.host, csrv.port, timeout=30)
-        conn.request("POST", "/api/search", _json.dumps({"text": "a cat"}),
+        conn.request("POST", "/api/search", _json.dumps({"text": "a cat",
+                                                         "topk": 3}),
                      {"Content-Type": "application/json"})
         resp = conn.getresponse()
-        assert resp.status == 503 and b"item 11" in resp.read()
+        assert resp.status == 200
+        assert _json.loads(resp.read()) == coord.text_search("a cat", 3)
     finally:
         csrv.shutdown()
+
+
+def test_coordinator_loads_its_embedder_on_its_device(monkeypatch):
+    from tpuvdb_torch.embed import clip
+
+    seen = []
+    monkeypatch.setattr(clip, "load_default_embedder",
+                        lambda dim, device=None: seen.append((dim, device))
+                        or "embedder")
+    coord = FederatedCoordinator(node_config(), device="cpu")
+    try:
+        assert coord.embedder == "embedder" and coord.embedder == "embedder"
+    finally:
+        coord.close()
+    assert seen == [(8, "cpu")]
 
 
 def _federation(coord_cls, node_services):

@@ -12,12 +12,13 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "tpuvdb_torch")
 
-_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|tpuvdb)(\.|\s|,|$)",
-                        re.MULTILINE)
+_FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(jax|flax|tpuvdb)(\.|\s|,|$)", re.MULTILINE)
 
 _PROBE = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any `import jax` now raises
+sys.modules["flax"] = None
 import tpuvdb_torch
 names = [m.name for m in pkgutil.walk_packages(tpuvdb_torch.__path__,
                                                "tpuvdb_torch.")]
@@ -26,8 +27,8 @@ for name in names:
 from tpuvdb_torch import VectorDBEngine, DBConfig
 leaked = sorted(m for m in sys.modules
                 if m == "tpuvdb" or m.startswith("tpuvdb.")
-                or m == "jax" and sys.modules[m] is not None
-                or m.startswith("jax."))
+                or m in ("jax", "flax") and sys.modules[m] is not None
+                or m.startswith(("jax.", "flax.")))
 print(len(names), leaked)
 print(" ".join(names))
 assert not leaked, leaked
@@ -43,7 +44,11 @@ _MUST_WALK = ("tpuvdb_torch.kernels.pq", "tpuvdb_torch.kernels.pq_probe",
               "tpuvdb_torch.cluster.federation",
               "tpuvdb_torch.cluster.bootstrap", "tpuvdb_torch.mesh.mesh",
               "tpuvdb_torch.mesh.sharded", "tpuvdb_torch.mesh.replicated",
-              "tpuvdb_torch.mesh.sharded_ivf", "tpuvdb_torch.mesh.dryrun")
+              "tpuvdb_torch.mesh.sharded_ivf", "tpuvdb_torch.mesh.dryrun",
+              "tpuvdb_torch.embed.bpe", "tpuvdb_torch.embed.clip",
+              "tpuvdb_torch.embed.client", "tpuvdb_torch.bench.harness",
+              "tpuvdb_torch.bench.recall", "tpuvdb_torch.bench.datasets",
+              "tpuvdb_torch.bench.clip_e2e")
 
 
 def _sources():
@@ -94,5 +99,6 @@ def test_forbidden_pattern_allows_the_port_itself():
     assert _FORBIDDEN.search("import tpuvdb.engine")
     assert _FORBIDDEN.search("  from tpuvdb.index import layout")
     assert _FORBIDDEN.search("import jax, numpy")
+    assert _FORBIDDEN.search("import flax.linen as nn")
     assert not _FORBIDDEN.search("from tpuvdb_torch.index import layout")
     assert not _FORBIDDEN.search("import tpuvdb_torch")

@@ -21,6 +21,10 @@ layout and public names so each part finds its counterpart:
              tpuvdb_torch.api.cli`), on the reference's wire (core/wire.py)
   cluster/   membership, the federated coordinator, and the multi-process
              bootstrap (torch.distributed: NCCL on cards, gloo on the CPU)
+  embed/     CLIP: the ViT-B/32 text and image towers (torch modules), the
+             BPE tokenizer, the remote ingest/search client
+  bench/     the timing harness, recall and corpora helpers, and the
+             text -> image benchmark (bench/clip_e2e.py)
 
 It imports `torch`, never `jax`, and nothing of `tpuvdb`. Every entry point
 takes `device=None`, which means "cuda", and raises when CUDA is missing;

@@ -18,8 +18,11 @@ Two modes:
 versions of the kernels) and, as the reference, shards over every visible
 card (`--mesh`, the default, with more than one card) or splits them into
 `--replicas` groups of a 2-D (repl, shards) mesh where the cards divide.
-`bench` waits for ROADMAP.md item 13; `text-search` and `ingest-images`
-wait for item 11 (CLIP). Each fails naming its item.
+`text-search` and `ingest-images` embed with the CLIP towers
+(embed/clip.py) on --device: in-process with --data-dir, else the server
+embeds the text and the CLI the images. `bench --suite clip` runs the
+text -> image benchmark (bench/clip_e2e.py); `--suite scan` and
+`--suite streaming` wait for ROADMAP.md item 13 and fail naming it.
 """
 
 from __future__ import annotations
@@ -81,14 +84,18 @@ class Ctx:
     def embedded(self) -> bool:
         return self.data_dir is not None
 
+    def service(self):
+        """The in-process service of embedded mode, opened at first use."""
+        if self._service is None:
+            from tpuvdb_torch.api.service import DBService
+
+            self._service = DBService(DBConfig(), data_dir=self.data_dir,
+                                      device=self.device)
+        return self._service
+
     def call(self, method: str, params: dict) -> dict:
         if self.embedded:
-            if self._service is None:
-                from tpuvdb_torch.api.service import DBService
-
-                self._service = DBService(DBConfig(), data_dir=self.data_dir,
-                                          device=self.device)
-            return self._service.handle(method, params)
+            return self.service().handle(method, params)
         if self._client is None:
             from tpuvdb_torch.api.client import DBClient
 
@@ -315,9 +322,32 @@ def serve(host, port, serve_data_dir, image_root, mesh, replicas,
 @click.argument("directory")
 @click.option("--dataset", default="default", show_default=True)
 @click.option("--limit", default=0, help="max images (0 = all)")
-def ingest_images(directory, dataset, limit):
-    """Embed and ingest a directory of images (waits for CLIP)."""
-    _waits("ingest-images", "item 11, CLIP")
+@click.pass_obj
+def ingest_images(ctx: Ctx, directory, dataset, limit):
+    """Embed and ingest a directory of images (the reference's
+    batch_put_images)."""
+    if ctx.embedded:
+        from tpuvdb_torch.embed.client import image_files
+
+        files = image_files(directory, limit)
+        svc = ctx.service()
+        ok = 0
+        with click.progressbar(files, label="ingesting") as bar:
+            for f in bar:
+                r = svc.put_image(f, dataset=dataset)
+                ok += bool(r.get("success"))
+        click.secho(f"ingested {ok}/{len(files)} images", fg="green")
+    else:
+        # remote: embed here, at the configured width, and ship the
+        # vectors to the server
+        from tpuvdb_torch.embed.client import VectorDBOperation
+
+        op = VectorDBOperation(ctx.coord_addr,
+                               vector_dim=DBConfig().vector_dim,
+                               device=ctx.device)
+        out = op.batch_put_images(directory, dataset=dataset, limit=limit)
+        click.secho(f"ingested {out['ingested']}/{out['total']} images",
+                    fg="green")
 
 
 @cli.command("export")
@@ -390,7 +420,8 @@ def import_(ctx: Ctx, in_path, batch):
               help="persist the node registry + shard map here so a "
                    "coordinator restart resumes routing without "
                    "re-registration")
-def coordinate(host, port, data_dir):
+@click.pass_obj
+def coordinate(ctx: Ctx, host, port, data_dir):
     """Start a federated coordinator (multi-host mode): routes puts by
     shard hash and fans searches out to registered `serve` nodes (of
     either package) in parallel."""
@@ -399,7 +430,9 @@ def coordinate(host, port, data_dir):
     from tpuvdb_torch.api.server import DBServer
     from tpuvdb_torch.cluster.federation import FederatedCoordinator
 
-    coord = FederatedCoordinator(DBConfig(data_dir=data_dir))
+    # text search embeds at the coordinator, on --device
+    coord = FederatedCoordinator(DBConfig(data_dir=data_dir),
+                                 device=ctx.device)
     coord.registry.start_health_loop()
     server = DBServer(coord, host=host, port=port)
     click.secho(f"tpuvdb_torch coordinator on http://{server.address}",
@@ -420,17 +453,36 @@ def coordinate(host, port, data_dir):
 @cli.command("bench")
 @click.option("--suite", type=click.Choice(["scan", "streaming", "clip"]),
               default="scan", show_default=True)
-def bench(suite):
-    """Run a benchmark suite (waits for the bench harness)."""
-    _waits(f"bench --suite {suite}", "item 13, tooling and benchmarks")
+@click.pass_obj
+def bench(ctx: Ctx, suite):
+    """Run a benchmark suite (prints one JSON line to stdout)."""
+    if suite != "clip":
+        _waits(f"bench --suite {suite}", "item 13, tooling and benchmarks")
+    from tpuvdb_torch.bench import clip_e2e
+
+    clip_e2e.main(device=ctx.device)
 
 
 @cli.command("text-search")
 @click.argument("text")
 @click.option("--top-k", "-k", default=5, show_default=True)
-def text_search(text, top_k):
-    """Text -> image search via the CLIP text tower (waits for CLIP)."""
-    _waits("text-search", "item 11, CLIP")
+@click.pass_obj
+def text_search(ctx: Ctx, text, top_k):
+    """Text -> image search via the CLIP text tower (the reference's
+    text_search)."""
+    if ctx.embedded:
+        out = ctx.service().text_search(text, top_k)
+    else:
+        from tpuvdb_torch.api.client import DBClient
+
+        out = DBClient(ctx.coord_addr).api_search(text, top_k)
+        if "error" in out:
+            raise click.ClickException(f"text-search: {out['error']}")
+    rows = [
+        [i + 1, r["key"], f"{r['score']:.6f}", r["file_path"]]
+        for i, r in enumerate(out.get("results", []))
+    ]
+    click.echo(_table(["rank", "key", "score", "file_path"], rows))
 
 
 def main():

@@ -6,9 +6,9 @@ One stdlib ThreadingHTTPServer serves, as the reference's does:
                          register_node/list_nodes/info/flush/compact/...),
                          JSON, or the binary wire (core/wire.py) when the
                          request's Content-Type / Accept names it
-  POST /api/search     — {"text": ..., "topk": N} -> image results; it
-                         answers 503 with the service's NotImplementedError
-                         until CLIP is ported (ROADMAP.md item 11)
+  POST /api/search     — {"text": ..., "topk": N} -> image results (text
+                         search through the service's CLIP embedder; 503
+                         with the error if embedding or search raises)
   GET  /static/<path>  — image/static file serving
   GET  /               — the search frontend (api/static/index.html)
   GET  /healthz        — liveness probe (used by cluster health checks)

@@ -10,10 +10,10 @@ turns any exception into a failed Response. The method names, parameters
 and response dicts are the reference's, so a client of either package
 talks to a server of either.
 
-The application layer's text and image search needs the CLIP towers,
-which are not ported yet (ROADMAP.md item 11): `embedder`, `text_search`
-and `put_image` raise NotImplementedError naming it. `rpc_profile` traces
-with torch.profiler (utils/tracing.device_trace).
+The application layer's text and image search (`text_search`,
+`put_image`) embeds with the CLIP towers (embed/clip.py), loaded at first
+use on the service's device unless an embedder is passed in.
+`rpc_profile` traces with torch.profiler (utils/tracing.device_trace).
 """
 
 from __future__ import annotations
@@ -25,7 +25,6 @@ from typing import Any, Dict, Optional
 import numpy as np
 
 from tpuvdb_torch.cluster.membership import NodeRegistry
-from tpuvdb_torch.core import errors
 from tpuvdb_torch.core.config import DBConfig
 from tpuvdb_torch.core.types import Response, SearchRequest, VectorData
 from tpuvdb_torch.engine.engine import VectorDBEngine
@@ -75,7 +74,10 @@ class DBService:
     @property
     def embedder(self):
         if self._embedder is None:
-            raise NotImplementedError(errors.CLIP_NOT_PORTED)
+            from tpuvdb_torch.embed.clip import load_default_embedder
+
+            self._embedder = load_default_embedder(self.config.vector_dim,
+                                                   device=self.engine.device)
         return self._embedder
 
     # ------------------------------------------------------------- dispatch
@@ -411,8 +413,8 @@ class DBService:
     # ------------------------------------------------- application layer
 
     def text_search(self, text: str, topk: int = 5) -> Dict[str, Any]:
-        """Text -> image search: {results: [{file_path, score}]}. Raises
-        NotImplementedError without an embedder (CLIP, ROADMAP item 11)."""
+        """Text -> image search (the reference's text_search and
+        /api/search): {results: [{key, file_path, score, metadata}]}."""
         qvec = self.embedder.text2vec(text)
         hits = self.engine.search_hits(qvec, topk)
         results = []
@@ -427,8 +429,7 @@ class DBService:
 
     def put_image(self, image_path: str, key: Optional[str] = None,
                   dataset: str = "default") -> Dict[str, Any]:
-        """Embed + ingest one image. Raises NotImplementedError without an
-        embedder (CLIP, ROADMAP item 11)."""
+        """Embed + ingest one image (the reference's put_image)."""
         vec = self.embedder.image2vec(image_path)
         key = key or os.path.basename(image_path)
         vd = VectorData(

@@ -15,9 +15,9 @@ RPC (`replica_count`), acknowledged after `write_acks` copies, and
 anti-entropy (`sync_all`, `sync_node`) re-places each shard's newest
 records on its current owners.
 
-Text and image search embed at the coordinator and need the CLIP towers,
-not ported yet (ROADMAP.md item 11): `embedder`, `text_search` and
-`put_image` raise NotImplementedError naming it.
+Text and image search embed at the coordinator with the CLIP towers
+(embed/clip.py), loaded at first use on its `device` (None = cuda) unless
+an embedder is passed in.
 """
 
 from __future__ import annotations
@@ -45,10 +45,11 @@ logger = get_logger("tpuvdb_torch.federation")
 
 class FederatedCoordinator:
     def __init__(self, config: Optional[DBConfig] = None,
-                 max_workers: int = 16, embedder=None):
+                 max_workers: int = 16, embedder=None, device=None):
         self.config = config or DBConfig()
-        # text/image embedding runs at the coordinator (item 11)
+        # text/image embedding runs at the coordinator, on `device`
         self._embedder = embedder
+        self.device = device
         import os as _os
 
         self.registry = NodeRegistry(
@@ -586,14 +587,17 @@ class FederatedCoordinator:
     @property
     def embedder(self):
         if self._embedder is None:
-            raise NotImplementedError(errors.CLIP_NOT_PORTED)
+            from tpuvdb_torch.embed.clip import load_default_embedder
+
+            self._embedder = load_default_embedder(self.config.vector_dim,
+                                                   device=self.device)
         return self._embedder
 
     def text_search(self, text: str, topk: int = 5) -> Dict[str, Any]:
         """Text -> image search against the federated cluster: embed at
         the coordinator, scatter-gather across data nodes, format like
-        DBService.text_search. Raises NotImplementedError without an
-        embedder (CLIP, ROADMAP item 11)."""
+        DBService.text_search, so /api/search and the web frontend work
+        the same under `coordinate`."""
         qvec = self.embedder.text2vec(text)
         r = self.search(SearchRequest(
             query_vector=[float(x) for x in qvec], top_k=topk))
@@ -614,8 +618,7 @@ class FederatedCoordinator:
     def put_image(self, image_path: str, key: Optional[str] = None,
                   dataset: str = "default") -> Dict[str, Any]:
         """Embed + ingest one image through the federation (routes to the
-        shard master + replicates). Raises NotImplementedError without an
-        embedder (CLIP, ROADMAP item 11)."""
+        shard master + replicates)."""
         import os as _os
 
         vec = self.embedder.image2vec(image_path)

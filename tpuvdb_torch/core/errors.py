@@ -8,11 +8,6 @@
 # tests/test_federation.py asserts the engine side still emits it.
 NOT_FOUND_PREFIX = "key not found"
 
-# what the service's and the federated coordinator's text / image search
-# raise until the CLIP towers are ported
-CLIP_NOT_PORTED = ("text and image embedding need the CLIP towers, not "
-                   "ported yet (see ROADMAP.md queue 1: item 11, CLIP)")
-
 
 class TpuVdbError(Exception):
     """Base class for all tpuvdb errors."""
