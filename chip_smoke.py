@@ -147,7 +147,29 @@ the native rescore, and, with a data_dir, the native WAL writer.
               top-10): its JSON line and its stage split (tokenize,
               tower, normalize, int8 scan + top-k); the top-k finite,
               ascending, in range and equal to the stages run one by one.
-  ivf kernel  Builds an IVFIndex (nlist 1,024, nprobe 64) over a clustered
+  bench       `cli bench --suite scan` in this process (cli.main with
+              standalone_mode=False, stdout captured; bench/scan.py): the
+              reference's seeded adversarial corpus, 1,000,000 x 128
+              (padded to 1,048,576), k = 10, its six paths (approx_bf16,
+              pallas_bf16 and pallas_bf16_b512 on the scan kernel; int8,
+              int8_b128 and int8_rescored as torch ops), then the flat bf16
+              engine at b512 and the IVF engine (nlist 1,024, nprobe 64) at
+              b8. Every stage line and the last line are parsed: the last
+              line has exactly the reference's keys, capacity_pq null;
+              recall@10 at least the reference's round-5 levels less 0.01
+              (pallas_bf16 0.9712, approx_bf16 0.9666, int8_rescored
+              0.9603), engine_recall_at_10 >= 0.95, the IVF keys present.
+              The scan's and the f32 probe's launches, zeroed just before
+              the suite and read just after, must be > 0
+              (`launches_by_path` "bench"). Then the scan kernel against
+              its plain twin on the same padded bf16 corpus at Q = 256 and
+              512, and the f32 probe against its twin on an IVFIndex over
+              the same rows (nlist 1,024, nprobe 64) at Q = 8, with the
+              checks of the kernel and ivf kernel phases, and their times.
+              Last `python -m tpuvdb_torch.api.cli --device cuda bench
+              --suite streaming` as a process (50,000 x 512, WAL on): exit
+              0, the reference's keys, a positive rate.
+  ivf kernelBuilds an IVFIndex (nlist 1,024, nprobe 64) over a clustered
               1,048,576 x 512 corpus with ~1% dead rows and holds both IVF
               probe kernels against their plain twins, f32 and bf16, at
               Q = 1, 8 and 256: the expanded form as the search picks it,
@@ -307,7 +329,9 @@ The last two lines of standard output are the card's name and power limit
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import shutil
@@ -409,6 +433,23 @@ CLIP_TEXTS = ("a photo of a cat", "a dog running in the park",
               "an old car parked by a house",
               "a plate of food next to a glass of wine")
 E2E_N, E2E_DIM, E2E_BATCH, E2E_K = 1_000_000, 768, 64, 10  # clip_e2e
+# bench phase: the recall@10 of the reference's round-5 run on the same
+# adversarial corpus (ROADMAP.md item 13), each floor 0.01 below it
+BENCH_ROUND5_RECALL = {"pallas_bf16": 0.9812, "approx_bf16": 0.9766,
+                       "int8_rescored": 0.9703}
+BENCH_RECALL_SLACK = 0.01
+BENCH_HOLD_QS = (256, 512)  # scan kernel vs plain at the bench's shape
+BENCH_PROBE_Q = 8           # the bench's IVF small batch
+BENCH_PATHS = ("approx_bf16", "int8", "int8_b128", "int8_rescored",
+               "pallas_bf16", "pallas_bf16_b512")
+BENCH_SCAN_KEYS = {"metric", "value", "unit", "vs_baseline", "recall_at_10",
+                   "best_path", "batch", "corpus", "dataset", "paths",
+                   "engine", "capacity_pq"}
+BENCH_IVF_KEYS = {"ivf_build_s", "ivf_p50_ms_per_query",
+                  "ivf_p95_ms_per_query", "ivf_batch"}
+BENCH_STREAMING_KEYS = {"metric", "value", "unit", "vs_baseline",
+                        "ingest_total", "dim", "concurrent_search_p50_ms",
+                        "recovery_s"}
 MESH_SLOTS = 4           # slots of the one card (a device may repeat)
 MESH_ODD_BATCH = 255     # pads to the replica groups
 MESH_REPS = 40           # closed-loop searches of each IVF mesh batch
@@ -1585,7 +1626,7 @@ def _clip_towers() -> tuple:
     return emb, out
 
 
-def _clip_cli(args: list, timeout: float = 300) -> str:
+def _cli(args: list, timeout: float = 300) -> str:
     """`python3 -m tpuvdb_torch.api.cli ARGS` from the checkout; its
     output, or an error with it."""
     proc = subprocess.run([sys.executable, "-m", "tpuvdb_torch.api.cli"]
@@ -1623,13 +1664,13 @@ def _clip_pngs(svc, srv, emb, work: str) -> dict:
     out["put_image_s"] = time.perf_counter() - t0
     addr = ["--coord-addr", srv.address]
     t0 = time.perf_counter()
-    text = _clip_cli(addr + ["ingest-images", dirs[1], "--dataset", "cli"])
+    text = _cli(addr + ["ingest-images", dirs[1], "--dataset", "cli"])
     out["cli_ingest_s"] = time.perf_counter() - t0
     want = f"ingested {CLIP_PNGS - CLIP_PNGS // 2}/{CLIP_PNGS - CLIP_PNGS // 2}"
     if want not in text:
         raise AssertionError(f"cli ingest-images: {text[-500:]}")
     t0 = time.perf_counter()
-    text = _clip_cli(addr + ["text-search", "-k", "5", CLIP_TEXTS[0]])
+    text = _cli(addr + ["text-search", "-k", "5", CLIP_TEXTS[0]])
     out["cli_text_search_s"] = time.perf_counter() - t0
     shown = [line.split("|")[1].strip() for line in text.splitlines()[2:]
              if "|" in line]
@@ -1846,6 +1887,181 @@ def phase_clip(tt, scan) -> dict:
         shutil.rmtree(work, ignore_errors=True)
     del svc, emb
     torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------- phase 3c
+
+
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def _bench_scan_suite(scan, ivf_probe) -> dict:
+    """`cli bench --suite scan` in this process, stdout captured, the
+    launch counts zeroed just before and read just after."""
+    from tpuvdb_torch.api import cli
+
+    buf = io.StringIO()
+    scan.LAUNCHES = 0
+    ivf_probe.LAUNCHES_EXPANDED = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.cli.main(["--device", "cuda", "bench", "--suite", "scan"],
+                     standalone_mode=False)
+    wall = time.perf_counter() - t0
+    launches = {"scan_candidates": scan.LAUNCHES,
+                "ivf_candidates": ivf_probe.LAUNCHES_EXPANDED}
+    lines = [json.loads(line) for line in buf.getvalue().splitlines()]
+    stages, last = lines[:-1], lines[-1]
+    for stage in stages:
+        log("bench stage " + json.dumps(stage))
+    log("bench scan JSON line: " + json.dumps(last))
+    names = [stage["stage"] for stage in stages]
+    if names != list(BENCH_PATHS) + ["engine", "ivf"]:
+        raise AssertionError(f"bench --suite scan: stage lines {names}")
+    if set(last) != BENCH_SCAN_KEYS:
+        raise AssertionError(f"bench --suite scan: last line keys "
+                             f"{sorted(last)}")
+    if last["capacity_pq"] is not None:
+        raise AssertionError("bench --suite scan: capacity_pq is not null")
+    if last["corpus"] != [1_000_000, 128]:
+        raise AssertionError(f"bench --suite scan: corpus {last['corpus']}")
+    for path, ref in BENCH_ROUND5_RECALL.items():
+        got = last["paths"][path]["recall_at_10"]
+        log(f"bench recall@10 {path}: {got} (the reference's round 5 on the "
+            f"same corpus: {ref}; floor {ref - BENCH_RECALL_SLACK:.4f})")
+        if got < ref - BENCH_RECALL_SLACK:
+            raise AssertionError(f"bench {path}: recall@10 {got} below "
+                                 f"{ref - BENCH_RECALL_SLACK:.4f}")
+    engine = last["engine"]
+    if not engine["engine_recall_at_10"] >= RECALL_MIN:
+        raise AssertionError(f"bench engine: recall@10 "
+                             f"{engine['engine_recall_at_10']}")
+    if not BENCH_IVF_KEYS <= set(engine):
+        raise AssertionError(f"bench engine: IVF keys missing from "
+                             f"{sorted(engine)}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"bench --suite scan never launched {name}")
+    return {"wall_s": wall, "stages": stages, "line": last,
+            "launches": launches}
+
+
+def _bench_hold_scan(scan, corpus_np, queries_np) -> dict:
+    """The scan kernel against its plain twin on the bench's padded bf16
+    corpus at Q = 256 and 512 (d = 128), and its times."""
+    from tpuvdb_torch.bench import scan as scan_bench
+
+    dev = torch.device("cuda")
+    padded, sq_np, valid_np = scan_bench.padded_arrays(corpus_np)
+    x = torch.from_numpy(padded).to(dev).to(torch.bfloat16)
+    s = torch.from_numpy(sq_np).to(dev)
+    v = torch.from_numpy(valid_np).to(dev)
+    m = torch.zeros(v.shape, device=dev).masked_fill_(~v, scan.NEG_INF)
+    queries = torch.from_numpy(queries_np).to(dev)
+    n_pad, d = x.shape
+    rows, err = [], 0.0
+    for nq in BENCH_HOLD_QS:
+        q = queries[:nq]
+        err = max(err, _hold(scan, f"bench bf16 Q={nq} N={n_pad} d={d}",
+                             q, x, s, m, v))
+        ms = cuda_ms(lambda: scan.scan_candidates(q, x, s, m, BUCKETS), 10)
+        plain_ms = cuda_ms(
+            lambda: scan.scan_candidates_plain(q, x, s, m, BUCKETS), 3, 1)
+        lib_ms = cuda_ms(lambda: _library_topk(q, x, s, 10), 3, 1)
+        work = scan_work(nq, n_pad, d, torch.bfloat16)
+        bound, by, route = _bound(work, torch.bfloat16)
+        row = {"dtype": "bfloat16", "Q": nq, "N": n_pad, "d": d, "ms": ms,
+               "tflops": tflops(work["ops"], ms), "plain_ms": plain_ms,
+               "library_ms": lib_ms, "bound_ms": bound, "bound_by": by,
+               "bound_route": route}
+        rows.append(row)
+        log("bench kernel timing " + json.dumps(row))
+    del x, s, v, m, queries
+    torch.cuda.empty_cache()
+    return {"rows": rows, "max_abs_err": err}
+
+
+def _bench_hold_probe(ivf_probe, corpus_np, queries_np) -> dict:
+    """The f32 IVF probe against its plain twin at the bench's IVF shape:
+    an IVFIndex over the same rows (nlist 1024, nprobe 64, 6 k-means
+    iterations on 131,072 rows), b8; and its times."""
+    from tpuvdb_torch.index.ivf import IVFIndex
+
+    dev = torch.device("cuda")
+    n, d = corpus_np.shape
+    t0 = time.perf_counter()
+    idx = IVFIndex.build(corpus_np, np.ones(n, bool), nlist=1024, nprobe=64,
+                         kmeans_iters=6, train_sample=131072)
+    torch.cuda.synchronize()
+    log(f"bench ivf index: {n} x {d} in {time.perf_counter() - t0:.1f} s, "
+        f"nlist {idx.nlist}, cell_pad {idx.cell_pad}")
+    mask = torch.zeros(idx.grouped_valid.shape, device=dev).masked_fill_(
+        ~idx.grouped_valid, ivf_probe.NEG_INF)
+    q = torch.from_numpy(queries_np[:BENCH_PROBE_Q]).to(dev)
+    plan = ivf_probe.probe_plan(q, idx.centroids, idx.cell_offsets,
+                                idx.cell_pad, 10, 64)
+    if plan.compact:
+        raise AssertionError("bench ivf: the b8 plan took the compact form")
+    name = f"bench expanded float32 Q={BENCH_PROBE_Q} nprobe=64 d={d}"
+    g, sq = idx.grouped, idx.grouped_sq
+    err = _hold_probe(ivf_probe, name, plan, g, sq, mask)
+    ms = cuda_ms(lambda: ivf_probe.plan_candidates(plan, g, sq, mask), 20)
+    plain_ms = cuda_ms(lambda: ivf_probe.plan_candidates(
+        plan, g, sq, mask, plain=True), 3, 1)
+    work = _plan_work(ivf_probe, plan, g.shape[0] // 128, d, g.element_size())
+    bound, by, route = _bound(work, torch.float32)
+    row = {"form": "expanded", "dtype": "float32", "Q": BENCH_PROBE_Q,
+           "nprobe": 64, "d": d, "ms": ms, "tflops": tflops(work["ops"], ms),
+           "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+           "bound_route": route, **work}
+    log("bench ivf kernel timing " + json.dumps(row))
+    del idx, g, sq, mask, plan
+    torch.cuda.empty_cache()
+    return {"row": row, "max_abs_err": err}
+
+
+def phase_bench(scan, ivf_probe) -> dict:
+    """`bench --suite scan` through the CLI in this process, the two
+    kernels it runs held against their plain twins at its shapes, then
+    `bench --suite streaming` as a CLI process (see the module
+    docstring)."""
+    from tpuvdb_torch.bench import scan as scan_bench
+
+    t0 = time.perf_counter()
+    out = {"scan": _bench_scan_suite(scan, ivf_probe)}
+    corpus_np, queries_np, _ = scan_bench.load_corpus(log=log)
+    out["hold_scan"] = _bench_hold_scan(scan, corpus_np, queries_np)
+    out["hold_probe"] = _bench_hold_probe(ivf_probe, corpus_np, queries_np)
+    del corpus_np
+
+    t1 = time.perf_counter()
+    text = _cli(["--device", "cuda", "bench", "--suite", "streaming"],
+                timeout=900)
+    line = json.loads(text.splitlines()[-1])
+    log("bench streaming JSON line: " + json.dumps(line))
+    if set(line) != BENCH_STREAMING_KEYS or not line["value"] > 0:
+        raise AssertionError(f"bench --suite streaming: {line}")
+    out["streaming"] = {"wall_s": time.perf_counter() - t1, "line": line}
+    out["phase_s"] = time.perf_counter() - t0
+    scan_line, eng = out["scan"]["line"], out["scan"]["line"]["engine"]
+    log(f"bench on {_card()}: scan suite {out['scan']['wall_s']:.1f} s, "
+        f"streaming suite {out['streaming']['wall_s']:.1f} s, phase "
+        f"{out['phase_s']:.1f} s; paths (QPS, recall@10): "
+        + json.dumps({p: [r["qps"], r["recall_at_10"]]
+                      for p, r in scan_line["paths"].items()})
+        + f"; engine single {eng['engine_qps_single']} pipelined "
+        f"{eng['engine_qps_pipelined']} QPS, recall "
+        f"{eng['engine_recall_at_10']}; ivf p50 {eng['ivf_p50_ms_per_query']}"
+        f" ms a query (b8), build {eng['ivf_build_s']} s; ingest "
+        f"{line['value']} vec/s, concurrent search p50 "
+        f"{line['concurrent_search_p50_ms']} ms, recovery "
+        f"{line['recovery_s']} s")
     return out
 
 
@@ -3205,6 +3421,9 @@ def main() -> int:
     clipped["e2e"] = phase_clip_e2e()
     clipped["phase_s"] = time.perf_counter() - t0
     log("clip " + json.dumps(clipped))
+    benched = phase_bench(scan, ivf_probe)
+    launches_bench = benched["scan"]["launches"]
+    log(f"bench phase {benched['phase_s']:.1f} s")
 
     ivf_kern = phase_ivf_kernel(ivf_probe)
     ivf_probe.LAUNCHES_EXPANDED = ivf_probe.LAUNCHES_COMPACT = 0
@@ -3254,8 +3473,10 @@ def main() -> int:
     del data
     log(f"launches: scan {launches} (flat engine phase), "
         f"{launches_serve} (serve phase, HTTP) and {launches_clip} (clip "
-        f"phase, one client's /api/search), ivf expanded "
-        f"{launches_expanded} (ivf engine phase), ivf compact "
+        f"phase, one client's /api/search), "
+        f"{launches_bench['scan_candidates']} (bench phase, bench --suite "
+        f"scan), ivf expanded {launches_expanded} (ivf engine phase) and "
+        f"{launches_bench['ivf_candidates']} (bench phase), ivf compact "
         f"{launches_compact} (b1,024 index search), ivf expanded int8 "
         f"{launches_expanded_i8} (ivf int8 engine's searches), ivf compact "
         f"int8 {launches_compact_i8} (b1,024 int8 index search), pq "
@@ -3294,29 +3515,42 @@ def main() -> int:
         "source": "tpuvdb_torch/csrc/scan.cu",
         "replaces": "tpuvdb/kernels/pallas_scan.py:41",
         "launches": launches + launches_serve + launches_clip
+        + launches_bench["scan_candidates"]
         + mesh_launches["scan_candidates"],
         "launches_by_path": {"flat engine": launches,
                              "served (HTTP)": launches_serve,
                              "clip": launches_clip,
+                             "bench": launches_bench["scan_candidates"],
                              "mesh": mesh_launches["scan_candidates"]},
-        "max_abs_err": kern["max_abs_err"],
+        "max_abs_err": max(kern["max_abs_err"],
+                           benched["hold_scan"]["max_abs_err"]),
         "ms": m["ms"], "plain_ms": m["plain_ms"],
         "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
         "bound_route": m["bound_route"],
         "library_ms": m["library_ms"],
+        # the bench's shape: 1,048,576 x 128 bf16, Q = 512
+        "bench_shape": {k: benched["hold_scan"]["rows"][-1][k] for k in
+                        ("ms", "plain_ms", "bound_ms", "bound_by",
+                         "library_ms")},
     }, {
         "name": "ivf_candidates",
         "route": "cuda",
         "source": "tpuvdb_torch/csrc/ivf_probe.cu",
         "replaces": "tpuvdb/kernels/pallas_ivf.py:172",
-        "launches": launches_expanded + mesh_launches["ivf_candidates"],
+        "launches": launches_expanded + launches_bench["ivf_candidates"]
+        + mesh_launches["ivf_candidates"],
         "launches_by_path": {"ivf engine": launches_expanded,
+                             "bench": launches_bench["ivf_candidates"],
                              "mesh": mesh_launches["ivf_candidates"]},
-        "max_abs_err": ivf_kern["err_expanded"],
+        "max_abs_err": max(ivf_kern["err_expanded"],
+                           benched["hold_probe"]["max_abs_err"]),
         "ms": e["ms"], "plain_ms": e["plain_ms"],
         "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
         "bound_route": e["bound_route"],
         "library_ms": no_library,
+        # the bench's IVF shape: 1M x 128 f32, nprobe 64, Q = 8
+        "bench_shape": {k: benched["hold_probe"]["row"][k] for k in
+                        ("ms", "plain_ms", "bound_ms", "bound_by")},
     }, {
         "name": "ivf_candidates_packed",
         "route": "cuda",
@@ -3372,10 +3606,7 @@ def main() -> int:
         "engine_shape": {k: pq_out["kernel_engine_shape"][k] for k in
                          ("ms", "plain_ms", "bound_ms", "bound_by")},
     }]}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    log(smi.stdout.strip().splitlines()[0])
+    log(_card())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

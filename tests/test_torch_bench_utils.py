@@ -121,3 +121,14 @@ def test_chained_timer_on_the_cpu(iters, reps):
     dt = chained_timer(fn, (x, x), iters=iters, reps=reps)
     assert dt > 0
     assert len(calls) == 1 + iters * reps
+
+
+def test_chained_timer_raises_on_a_window_that_is_not_positive(monkeypatch):
+    """A clock that does not move gives a window of 0 s: the timer raises
+    (the reference clamps it to 1e-9 s and a bench would publish it)."""
+    from tpuvdb_torch.bench import harness
+
+    monkeypatch.setattr(harness.time, "perf_counter", lambda: 5.0)
+    x = torch.ones(4, 4)
+    with pytest.raises(RuntimeError, match="not positive|took 0.0 s"):
+        chained_timer(lambda a: a + 1, (x,), iters=2, reps=1)

@@ -48,7 +48,10 @@ _MUST_WALK = ("tpuvdb_torch.kernels.pq", "tpuvdb_torch.kernels.pq_probe",
               "tpuvdb_torch.embed.bpe", "tpuvdb_torch.embed.clip",
               "tpuvdb_torch.embed.client", "tpuvdb_torch.bench.harness",
               "tpuvdb_torch.bench.recall", "tpuvdb_torch.bench.datasets",
-              "tpuvdb_torch.bench.clip_e2e")
+              "tpuvdb_torch.bench.clip_e2e", "tpuvdb_torch.bench.scan",
+              "tpuvdb_torch.bench.engine_serving",
+              "tpuvdb_torch.bench.streaming", "tpuvdb_torch.utils.hostmem",
+              "tpuvdb_torch.utils.vector_utils")
 
 
 def _sources():

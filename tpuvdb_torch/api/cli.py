@@ -20,9 +20,9 @@ card (`--mesh`, the default, with more than one card) or splits them into
 `--replicas` groups of a 2-D (repl, shards) mesh where the cards divide.
 `text-search` and `ingest-images` embed with the CLIP towers
 (embed/clip.py) on --device: in-process with --data-dir, else the server
-embeds the text and the CLI the images. `bench --suite clip` runs the
-text -> image benchmark (bench/clip_e2e.py); `--suite scan` and
-`--suite streaming` wait for ROADMAP.md item 13 and fail naming it.
+embeds the text and the CLI the images. `bench --suite scan|streaming|clip`
+runs bench/scan.py (the headline scan QPS), bench/streaming.py (durable
+ingest) or bench/clip_e2e.py (text -> image) on --device.
 """
 
 from __future__ import annotations
@@ -64,11 +64,6 @@ def _table(headers: List[str], rows: List[List[str]]) -> str:
         return " | ".join(str(c).ljust(w) for c, w in zip(row, widths))
     sep = "-+-".join("-" * w for w in widths)
     return "\n".join([fmt(headers), sep] + [fmt(r) for r in rows])
-
-
-def _waits(command: str, item: str):
-    raise click.ClickException(
-        f"{command}: not ported yet (see ROADMAP.md queue 1: {item})")
 
 
 class Ctx:
@@ -455,12 +450,14 @@ def coordinate(ctx: Ctx, host, port, data_dir):
               default="scan", show_default=True)
 @click.pass_obj
 def bench(ctx: Ctx, suite):
-    """Run a benchmark suite (prints one JSON line to stdout)."""
-    if suite != "clip":
-        _waits(f"bench --suite {suite}", "item 13, tooling and benchmarks")
-    from tpuvdb_torch.bench import clip_e2e
+    """Run a benchmark suite on --device: scan (the kernels' paths and the
+    served engines at 1M x 128; one JSON line a stage), streaming (durable
+    ingest beside searches, then recovery) or clip (text -> image). The
+    last line of stdout is the result, with the reference's keys."""
+    from tpuvdb_torch.bench import clip_e2e, scan, streaming
 
-    clip_e2e.main(device=ctx.device)
+    suites = {"scan": scan, "streaming": streaming, "clip": clip_e2e}
+    suites[suite].main(device=ctx.device)
 
 
 @cli.command("text-search")

@@ -1,4 +1,5 @@
-"""Benchmark helpers: the port of tpuvdb.bench (the part the CLIP
-benchmark stands on; the scan, serving and streaming benchmarks wait for
-ROADMAP.md item 13). Import the modules themselves: `harness`
-(`chained_timer`), `datasets`, `recall` and `clip_e2e`."""
+"""Benchmarks: the port of tpuvdb.bench. Import the modules themselves:
+`harness` (`chained_timer`), `datasets`, `recall`, `scan` (the headline
+scan QPS, `bench --suite scan`), `engine_serving` (the served path it
+calls), `streaming` (durable ingest, `bench --suite streaming`) and
+`clip_e2e` (text -> image, `bench --suite clip`)."""

@@ -70,3 +70,33 @@ def synthetic_corpus(
         corpus = rng.standard_normal((n, dim), dtype=np.float32)
         queries = rng.standard_normal((1024, dim), dtype=np.float32)
     return corpus, queries
+
+
+def adversarial_corpus(n: int, dim: int,
+                       rng: np.random.Generator) -> np.ndarray:
+    """The scan benchmark's synthetic corpus (tpuvdb/bench/scan.py:66-91):
+    (n, dim) f32 rows that broke recall margins where gaussian data does
+    not. Makes the reference's draws in its order from `rng`: a 20%
+    gaussian background, 256 zipf-sized clusters (60% of the rows, centres
+    * 4.0, spread 0.35), 20% near-duplicate shells (0.02) of random rows
+    drawn so far, then a permutation. The shares' row counts must add up
+    to n (int(0.2 n) + int(0.6 n) + int(0.2 n) == n), as in the reference.
+    The caller draws its queries from the same `rng` afterwards, as the
+    reference does."""
+    n_clusters = 256
+    w = 1.0 / np.arange(1, n_clusters + 1)
+    counts = rng.multinomial(int(n * 0.6), w / w.sum())
+    parts = [rng.standard_normal((int(n * 0.2), dim)).astype(np.float32)]
+    for m in counts[counts > 0]:
+        c = rng.standard_normal(dim).astype(np.float32) * 4.0
+        parts.append(c + 0.35 * rng.standard_normal((m, dim)).astype(
+            np.float32))
+    basep = np.concatenate(parts)
+    del parts
+    dup_src = basep[rng.choice(len(basep), int(n * 0.2))]
+    shells = dup_src + 0.02 * rng.standard_normal(dup_src.shape).astype(
+        np.float32)
+    del dup_src
+    corpus = np.concatenate([basep, shells])[:n]
+    del basep, shells
+    return corpus[rng.permutation(n)]

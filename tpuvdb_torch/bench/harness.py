@@ -5,7 +5,9 @@ call of fn(*args), the best of `reps` windows of `iters` back-to-back
 calls after one warm call. When args[0] is a CUDA tensor each window is
 timed by CUDA events around the calls; otherwise by the host clock. (The
 reference chains the calls in an on-device loop to see past a remote
-relay; a launch queue on the card needs no such loop.)
+relay; a launch queue on the card needs no such loop.) Neither clock goes
+backwards, so a window that is not positive raises where the reference
+clamps it to 1e-9 s.
 """
 
 from __future__ import annotations
@@ -44,5 +46,8 @@ def chained_timer(
             for _ in range(iters):
                 fn(*args)
             t = (time.perf_counter() - t0) / iters
+        if not t > 0:
+            raise RuntimeError(f"chained_timer: a window of {iters} calls "
+                               f"took {t} s a call")
         best = min(best, t)
-    return max(best, 1e-9)
+    return best

@@ -111,6 +111,7 @@ from tpuvdb_torch.mesh.sharded_ivf import ShardedIVFIndex
 from tpuvdb_torch.store.checkpoint import CheckpointManager
 from tpuvdb_torch.store.kv import DocEntry, DocStore
 from tpuvdb_torch.store.wal import WriteAheadLog
+from tpuvdb_torch.utils.hostmem import memlog, trim_heap
 from tpuvdb_torch.utils.logging import get_logger
 from tpuvdb_torch.utils.sharding_utils import get_shard_id
 from tpuvdb_torch.utils.tracing import StageTimer
@@ -884,6 +885,10 @@ class VectorDBEngine:
             self._ivf_delta.clear()
             self._staged_updates.clear()
             self._staged_deletes.clear()
+            # phase boundary: hand the build's transient heap back to the
+            # OS (keep_malloc_warm turns automatic trimming off)
+            trim_heap()
+            memlog("engine: ivf rebuild done (trimmed)")
         else:
             for s, sl in self._staged_updates:
                 if self.mirrors[s].is_valid(sl):

@@ -77,6 +77,7 @@ from tpuvdb_torch.kernels.ivf_probe import ivf_probe_search
 from tpuvdb_torch.kernels.kmeans import assign_blockwise, kmeans
 from tpuvdb_torch.kernels.pq_probe import pq_probe_search
 from tpuvdb_torch.kernels.quant import quantize_rows_np
+from tpuvdb_torch.utils.hostmem import memlog
 
 _DTYPES = (torch.float32, torch.bfloat16, torch.int8)
 _ASSIGN_CHUNK = 16384
@@ -698,6 +699,7 @@ class IVFIndex:
         live_idx = np.flatnonzero(valid)
         if len(live_idx) == 0:
             raise ValueError("cannot build IVF over empty corpus")
+        memlog("build: start")
         if pq_codebooks is not None and not pq_subq:
             pq_subq = pqk.pq_code_bytes(pq_codebooks)
         if pq_subq:
@@ -773,6 +775,7 @@ class IVFIndex:
                                           rotation=pq_rotation, seed=seed)
             del residuals
         del sample
+        memlog("build: trained (cents+codebooks)")
 
         # 2. assign every row, streamed in blocks; invalid rows -> -1. PQ
         # rows are encoded in the same pass, from the same uploaded block,
@@ -798,6 +801,7 @@ class IVFIndex:
                 pq_tables[0][g0:g0 + len(blk)] = codes
                 pq_tables[1][g0:g0 + len(blk)] = rsq
         assign = np.where(valid, assign, -1)
+        memlog("build: assigned+encoded")
 
         # 3. skew control: bound the max cell, then pack
         sizes = np.bincount(assign[assign >= 0], minlength=nlist)
@@ -840,6 +844,7 @@ class IVFIndex:
                    if nlist > 1 else int(sizes.max()))
             cell_pad = max(_round_up(max(cap, 1), 128), 128)
 
+        memlog("build: split done")
         live2 = np.flatnonzero(valid & (assign >= 0))
         int8_out = dtype == torch.int8
         pq = pq_tables is not None
@@ -848,6 +853,7 @@ class IVFIndex:
             source, live2, assign[live2], nlist, cell_pad, int8_out,
             pq_tables=pq_tables)
 
+        memlog("build: packed")
         # spill reserve: free capacity so append_rows can overflow full
         # cells here instead of forcing a rebuild
         reserve = min(8192, max(128, n // 8))
