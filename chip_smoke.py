@@ -321,6 +321,45 @@ the native rescore, and, with a data_dir, the native WAL writer.
               adaptive counters equal; each form's time (fastest of 3) and
               the rows and bytes read are printed.
 
+  capacity    Last, after the mesh phase: capacity_engine and capacity_pq
+              set keep_malloc_warm (a process-wide mallopt, as the
+              reference's scripts do), so no phase's host times are taken
+              after it. The latency and capacity benches in this process
+              through their main(argv, device="cuda"), stdout captured,
+              each one's engine and arrays freed before the next (the
+              anonymous RSS is printed after each). bench/latency.py at the
+              reference's 100,000 x 512 and 200 reps, three times: --mode
+              approx (the scan's launches > 0), --mode int8, and --index
+              ivf --mode approx (the f32 probe's launches > 0); three lines
+              each with the reference's keys and a positive p50
+              (`launches_by_path` "latency"). Then each capacity bench at
+              its CAPACITY_ROWS rows (cut from 8,000,000 to fit the run's
+              time limit, capacity_ivf furthest; every other width is the
+              reference's): bench/capacity.py (the rescored paths' recall
+              >= 0.95, the plain int8 recalls printed), capacity_engine.py
+              (recall@10 >= 0.95; its restart counts every row or raises;
+              device GiB, ingest, build, QPS, checkpoint and restart
+              printed), capacity_ivf.py (its nprobe the reference's choice
+              from the sweep it prints: the first at recall 0.95, else the
+              last, 256; whether 0.95 was reached is printed, and on this
+              data it is not at 1M or 8M rows: PERF.md; b1 / b8 / b128
+              present, the int8 probe's launches > 0; then on the index
+              its main returns the int8 probe against its plain twin bit
+              for bit at Q = 8 and 128, with times and bounds) and
+              capacity_pq.py (--out in a temp dir: its file equals the last
+              line, stage "complete"; served recall >= 0.95, printed beside
+              the data's recall in the reference's record; the PQ probe's
+              launches > 0; kernel_probe b32 and b256; both serving batches
+              above 0; the restart counts every row or raises; the build
+              split printed; then on the index its main returns, the
+              restarted engine's, the PQ probe against its plain twin bit
+              for bit at Q = 8 and 256, with times and bounds;
+              `launches_by_path` "capacity" of both probes). Last the
+              examples: `python -m tpuvdb_torch.examples.quickstart` as a
+              process in a temp working directory (exit 0, img_01234.jpg
+              first) and sharded_serving.main on four slots of the card
+              (self-retrieval 64/64). `capacity_alone(rows)` runs the
+              capacity benches alone at any rows (8,000,000 is theirs).
 At the end a table gives each engine's b1 and b256 stage p50s
 (search.device, search.assemble, search.rescore), p50 and idle share.
 The last two lines of standard output are the card's name and power limit
@@ -331,9 +370,11 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -450,6 +491,43 @@ BENCH_IVF_KEYS = {"ivf_build_s", "ivf_p50_ms_per_query",
 BENCH_STREAMING_KEYS = {"metric", "value", "unit", "vs_baseline",
                         "ingest_total", "dim", "concurrent_search_p50_ms",
                         "recovery_s"}
+# the capacity phase: each bench's rows, in the order they run, cut from
+# 8,000,000 so the whole run stays inside its time limit (at 8M the four
+# take about 33 min on the card's machine, mostly host work, beside the
+# ~790 s of the other phases: PERF.md section 4). capacity_ivf is cut
+# furthest: its build's host bisection grows faster than its rows (24 s
+# at 500,000 rows, ~1,000 s at 8M). dim, code bytes, nlist, nprobe, k and
+# the batches are the benches' own
+CAPACITY_ROWS = {"capacity": 1_000_000, "capacity_engine": 1_000_000,
+                 "capacity_ivf": 500_000, "capacity_pq": 1_000_000}
+LATENCY_RUNS = (("approx", "flat"), ("int8", "flat"), ("approx", "ivf"))
+LATENCY_KEYS = {"metric", "unit", "value", "per_query_p50_ms", "p99_ms",
+                "mode", "index", "dispatch_floor_ms", "p50_minus_dispatch_ms",
+                "per_query_p50_minus_dispatch_ms", "rows"}
+CAPACITY_KEYS = {"int8_b128", "int8_b256", "int8_resc_b128",
+                 "int8_resc_b256"}
+CAPACITY_ENGINE_KEYS = {"metric", "rows", "dim", "ingest_rows_per_s",
+                        "build_s", "device_gib", "recall_at_10",
+                        "engine_qps_single", "engine_qps_pipelined",
+                        "checkpoint_s", "restart_s", "peak_rss_gb",
+                        "anon_rss_gb"}
+CAPACITY_IVF_KEYS = {"nprobe", "recall_at_10", "nlist", "cell_pad", "rows",
+                     "dim", "hbm_gib", "b1", "b8", "b128"}
+CAPACITY_PQ_KEYS = {"metric", "rows", "dim", "pq_subq", "pq_bits", "nprobe",
+                    "ingest_rows_per_s", "build_s", "codes_gib_hbm",
+                    "recall_at_10", "recall_sweep", "kernel_probe",
+                    "engine_qps_single", "engine_qps_pipelined",
+                    "serving_by_batch", "checkpoint_s", "restart_s",
+                    "restart_split", "peak_rss_gb", "anon_rss_gb",
+                    "adaptive_rescore", "pq_err", "opq", "stage",
+                    "rss_stages"}
+# the served recall of this data at 8M rows and nprobe 16 in the
+# reference's own record (docs/BENCH_PQ8M_r4.json, an earlier revision of
+# its code): a property of the data and the re-rank window, no time. Its
+# later record of 16M rows (docs/BENCH_PQ16M_r5.json) has 0.9187 at the
+# default window of 640 candidates and 0.9719 at 1,280 (--overfetch 128)
+CAPACITY_PQ_DATA_RECALL = 0.9781
+CAPACITY_HOLD_QS = {"capacity_ivf": (8, 128), "capacity_pq": (8, 256)}
 MESH_SLOTS = 4           # slots of the one card (a device may repeat)
 MESH_ODD_BATCH = 255     # pads to the replica groups
 MESH_REPS = 40           # closed-loop searches of each IVF mesh batch
@@ -2065,6 +2143,323 @@ def phase_bench(scan, ivf_probe) -> dict:
     return out
 
 
+# ------------------------------------------------------------ capacity phase
+
+
+def _run_bench(module, argv: list) -> dict:
+    """module.main(argv, device="cuda") in this process with its stdout
+    and stderr captured (stderr is echoed after): its JSON lines, stderr,
+    seconds and what main returned. What it left on the card is freed
+    after, and the anonymous RSS logged."""
+    from tpuvdb_torch.utils.hostmem import anon_gb
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            returned = module.main(argv, device="cuda")
+    finally:
+        sys.stderr.write(err.getvalue())
+    wall = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    name = module.__name__.rsplit(".", 1)[-1]
+    log(f"capacity phase: {name} {' '.join(argv)} took {wall:.1f} s; "
+        f"anonymous RSS after it {anon_gb():.2f} GB (hostmem.anon_gb; -1 "
+        f"where /proc/self/smaps_rollup is missing), {_status_rss()}")
+    return {"lines": [json.loads(line) for line in
+                      out.getvalue().splitlines()],
+            "stderr": err.getvalue(), "wall_s": wall, "returned": returned}
+
+
+def _status_rss() -> str:
+    """The resident-set lines of /proc/self/status (RssAnon, VmRSS)."""
+    with open("/proc/self/status") as f:
+        return ", ".join(" ".join(line.split()) for line in f
+                         if line.startswith(("RssAnon:", "VmRSS:")))
+
+
+def _near_centroids(index, nq: int, seed: int) -> torch.Tensor:
+    """nq queries on the index's device: centroids drawn by a seeded
+    generator, plus 5% of their spread in gaussian noise."""
+    gen = torch.Generator(device=index.device).manual_seed(seed)
+    pick = torch.randint(0, index.nlist, (nq,), generator=gen,
+                         device=index.device)
+    c = index.centroids[pick]
+    noise = torch.randn(c.shape, generator=gen, device=index.device)
+    return c + 0.05 * c.std() * noise
+
+
+def _capacity_latency(scan, ivf_probe) -> dict:
+    """bench/latency.py at its defaults, three times; the scan's and the
+    f32 probe's launches zeroed before each run and read after."""
+    from tpuvdb_torch.bench import latency
+
+    out = {}
+    for mode, index in LATENCY_RUNS:
+        scan.LAUNCHES = 0
+        ivf_probe.LAUNCHES_EXPANDED = 0
+        run = _run_bench(latency, ["--mode", mode, "--index", index])
+        launches = {"scan_candidates": scan.LAUNCHES,
+                    "ivf_candidates": ivf_probe.LAUNCHES_EXPANDED}
+        lines = run["lines"]
+        if [line.get("metric") for line in lines] != [
+                f"search_latency_b{b}" for b in (1, 8, 64)]:
+            raise AssertionError(f"latency {mode}/{index}: lines {lines}")
+        for line in lines:
+            if set(line) != LATENCY_KEYS or not line["value"] > 0 or (
+                    line["mode"], line["index"]) != (mode, index):
+                raise AssertionError(f"latency {mode}/{index}: {line}")
+        if mode == "approx" and index == "flat" and \
+                launches["scan_candidates"] <= 0:
+            raise AssertionError("latency --mode approx never launched the "
+                                 "scan kernel")
+        if index == "ivf" and launches["ivf_candidates"] <= 0:
+            raise AssertionError("latency --index ivf never launched the f32 "
+                                 "probe kernel")
+        for line in lines:
+            log("capacity latency JSON line " + json.dumps(line))
+        log(f"capacity latency {mode}/{index}: launches "
+            f"{json.dumps(launches)}")
+        out[f"{mode}/{index}"] = {"lines": lines, "wall_s": run["wall_s"],
+                                  "launches": launches}
+    return out
+
+
+def _capacity_raw(rows: int) -> dict:
+    from tpuvdb_torch.bench import capacity
+
+    run = _run_bench(capacity, ["--rows", str(rows)])
+    line = run["lines"][-1]
+    log("capacity JSON line " + json.dumps(line))
+    if set(line) != CAPACITY_KEYS:
+        raise AssertionError(f"capacity: keys {sorted(line)}")
+    for path in ("int8_resc_b128", "int8_resc_b256"):
+        if not line[path]["recall"] >= RECALL_MIN:
+            raise AssertionError(f"capacity {path}: recall "
+                                 f"{line[path]['recall']}")
+    log(f"capacity plain int8 recall@10 (reported): b128 "
+        f"{line['int8_b128']['recall']}, b256 {line['int8_b256']['recall']}")
+    return {"line": line, "wall_s": run["wall_s"]}
+
+
+def _capacity_engine(rows: int) -> dict:
+    from tpuvdb_torch.bench import capacity_engine
+
+    run = _run_bench(capacity_engine, ["--rows", str(rows)])
+    line = run["lines"][-1]
+    log("capacity_engine JSON line " + json.dumps(line))
+    if set(line) != CAPACITY_ENGINE_KEYS or line["rows"] != rows:
+        raise AssertionError(f"capacity_engine: {line}")
+    if not line["recall_at_10"] >= RECALL_MIN:
+        raise AssertionError(f"capacity_engine: recall "
+                             f"{line['recall_at_10']}")
+    if line["restart_s"] is None:
+        raise AssertionError("capacity_engine: no restart")
+    log(f"capacity_engine on {_card()}: device {line['device_gib']} GiB, "
+        f"ingest {line['ingest_rows_per_s']} rows/s, build "
+        f"{line['build_s']} s, QPS single {line['engine_qps_single']} x8 "
+        f"{line['engine_qps_pipelined']}, checkpoint {line['checkpoint_s']}"
+        f" s, restart {line['restart_s']} s (count {rows}, asserted)")
+    return {"line": line, "wall_s": run["wall_s"]}
+
+
+def _capacity_ivf(ivf_probe, rows: int) -> dict:
+    from tpuvdb_torch.bench import capacity_ivf
+
+    ivf_probe.LAUNCHES_EXPANDED_INT8 = 0
+    run = _run_bench(capacity_ivf, ["--rows", str(rows)])
+    launches = ivf_probe.LAUNCHES_EXPANDED_INT8
+    line = run["lines"][-1]
+    log("capacity_ivf JSON line " + json.dumps(line))
+    if set(line) != CAPACITY_IVF_KEYS or line["rows"] != rows:
+        raise AssertionError(f"capacity_ivf: {line}")
+    sweep = {int(n): float(r) for n, r in re.findall(
+        r"^nprobe (\d+): recall@10 ([0-9.]+)$", run["stderr"], re.M)}
+    if list(sweep) != [8, 16, 32, 64, 128, 256]:
+        raise AssertionError(f"capacity_ivf: sweep {sweep}")
+    # the reference's rule: the first nprobe at recall 0.95, else the last
+    reached = [n for n, r in sweep.items() if r >= RECALL_MIN]
+    chosen = reached[0] if reached else max(sweep)
+    if line["nprobe"] != chosen or line["recall_at_10"] != round(
+            sweep[chosen], 4):
+        raise AssertionError(f"capacity_ivf: measured at nprobe "
+                             f"{line['nprobe']}, the sweep {sweep} chooses "
+                             f"{chosen}")
+    log(f"capacity_ivf recall@10 sweep {json.dumps(sweep)}: "
+        + (f"{RECALL_MIN} reached at nprobe {chosen}" if reached else
+           f"no nprobe of the reference's sweep reaches {RECALL_MIN} on "
+           f"this data at {rows} rows (TARGET MISSED: best "
+           f"{sweep[chosen]} at nprobe {chosen}, over {line['nlist']} "
+           f"cells after the build's bisection); measured there, as the "
+           f"reference's script does"))
+    if launches <= 0:
+        raise AssertionError("capacity_ivf never launched the int8 probe")
+    _, idx = run.pop("returned")
+    mask = torch.zeros(idx.grouped_valid.shape, device=idx.device
+                       ).masked_fill_(~idx.grouped_valid, ivf_probe.NEG_INF)
+    rows_out = []
+    for nq in CAPACITY_HOLD_QS["capacity_ivf"]:
+        q = _near_centroids(idx, nq, seed=13)
+        plan = ivf_probe.probe_plan(q, idx.centroids, idx.cell_offsets,
+                                    idx.cell_pad, 10, line["nprobe"])
+        if plan.compact:
+            raise AssertionError(f"capacity_ivf Q={nq}: the compact form")
+        rows_out.append(_int8_case(ivf_probe, plan, idx, mask, nq,
+                                   line["nprobe"], label="capacity "))
+    del idx, mask
+    torch.cuda.empty_cache()
+    return {"line": line, "wall_s": run["wall_s"], "launches": launches,
+            "kernel": rows_out,
+            "max_abs_err": max(r["max_abs_err"] for r in rows_out)}
+
+
+def _capacity_pq(pq_probe, rows: int, sm_clocks: float,
+                 args: tuple = ()) -> dict:
+    """capacity_pq.py at `rows` with its defaults, or `args` beside them;
+    then the PQ probe against its twin on the index the bench ends with
+    (the restarted engine's)."""
+    from tpuvdb_torch.bench import capacity_pq
+
+    pq_probe.LAUNCHES_PQ = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        out_file = os.path.join(tmp, "capacity_pq.json")
+        run = _run_bench(capacity_pq, ["--rows", str(rows), *args, "--out",
+                                       out_file])
+        with open(out_file) as f:
+            written = json.loads(f.read())
+    launches = pq_probe.LAUNCHES_PQ
+    line = run["lines"][-1]
+    log("capacity_pq JSON line " + json.dumps(line))
+    # the holds first: they report whatever the checks below find
+    _, idx = run.pop("returned")
+    rows_out = []
+    for nq in CAPACITY_HOLD_QS["capacity_pq"]:
+        row = _hold_pq_index(pq_probe, idx, _near_centroids(idx, nq, 17),
+                             line["nprobe"], "capacity index",
+                             20 if nq <= 32 else 5, sm_clocks)
+        rows_out.append({**row, "Q": nq, "nprobe": line["nprobe"]})
+    del idx
+    torch.cuda.empty_cache()
+    if set(line) != CAPACITY_PQ_KEYS or line["rows"] != rows:
+        raise AssertionError(f"capacity_pq: keys {sorted(line)}")
+    if written != line or line["stage"] != "complete":
+        raise AssertionError("capacity_pq: --out does not hold the last line")
+    if not line["recall_at_10"] >= RECALL_MIN:
+        raise AssertionError(f"capacity_pq: served recall "
+                             f"{line['recall_at_10']}")
+    if launches <= 0:
+        raise AssertionError("capacity_pq never launched the PQ probe")
+    if set(line["kernel_probe"]) != {"b32", "b256"}:
+        raise AssertionError(f"capacity_pq: kernel_probe "
+                             f"{line['kernel_probe']}")
+    serving = line["serving_by_batch"]
+    if set(serving) != {"32", "256"} or not min(
+            min(v) for v in serving.values()) > 0:
+        raise AssertionError(f"capacity_pq: serving {serving}")
+    if line["restart_s"] is None:
+        raise AssertionError("capacity_pq: no restart")
+    (split,) = [json.loads(x[len("build split: "):]) for x in
+                run["stderr"].splitlines() if x.startswith("build split: ")]
+    log(f"capacity_pq on {_card()} ({' '.join(args) or 'its defaults'}): "
+        f"served recall@10 "
+        f"{line['recall_at_10']} at nprobe {line['nprobe']} (this data's "
+        f"recall in the reference's record of 8M rows at nprobe 16, an "
+        f"earlier revision of its code: {CAPACITY_PQ_DATA_RECALL}); build "
+        f"{line['build_s']} s, split "
+        f"{json.dumps(split)}; restart {line['restart_s']} s "
+        f"{json.dumps(line['restart_split'])} (count {rows}, asserted)")
+    return {"line": line, "wall_s": run["wall_s"], "launches": launches,
+            "build_split": split, "kernel": rows_out,
+            "max_abs_err": max(r["max_abs_err"] for r in rows_out)}
+
+
+def _capacity_examples() -> dict:
+    """quickstart as a process in a temporary working directory, then
+    sharded_serving on four slots of the card in this process."""
+    from tpuvdb_torch.examples import sharded_serving
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        proc = subprocess.run(
+            [sys.executable, "-m", "tpuvdb_torch.examples.quickstart"],
+            cwd=work, env={**os.environ, "PYTHONPATH": ROOT},
+            capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"quickstart exited {proc.returncode}: "
+                             f"{(proc.stdout + proc.stderr)[-3000:]}")
+    hits = [x.split()[0] for x in proc.stdout.splitlines()
+            if x.startswith("  img_")]
+    log("quickstart: " + " | ".join(proc.stdout.splitlines()))
+    if not hits or hits[0] != "img_01234.jpg":
+        raise AssertionError(f"quickstart: first hits {hits}")
+    quick_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        sharded_serving.main(devices=["cuda:0"] * MESH_SLOTS)
+    log("sharded_serving: " + " | ".join(out.getvalue().splitlines()))
+    if "self-retrieval: 64/64" not in out.getvalue():
+        raise AssertionError("sharded_serving: self-retrieval below 64/64")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"quickstart_s": quick_s,
+            "sharded_serving_s": time.perf_counter() - t0}
+
+
+def capacity_benches(ivf_probe, pq_probe, sm_clocks: float, rows: dict,
+                     pq_args: tuple = ()) -> dict:
+    """The capacity benches named in `rows`, in its order, each at its
+    --rows (capacity_pq with `pq_args` beside them)."""
+    run = {"capacity": _capacity_raw,
+           "capacity_engine": _capacity_engine,
+           "capacity_ivf": lambda n: _capacity_ivf(ivf_probe, n),
+           "capacity_pq": lambda n: _capacity_pq(pq_probe, n, sm_clocks,
+                                                 tuple(pq_args))}
+    return {name: run[name](n) for name, n in rows.items()}
+
+
+def capacity_alone(rows: int, benches=tuple(CAPACITY_ROWS),
+                   pq_args: tuple = ()) -> dict:
+    """The capacity benches alone, each at `rows` rows, after the builds
+    they need; every check of the capacity phase holds. At the benches'
+    own 8,000,000 rows the four take about 33 minutes:
+    python3 -c 'import chip_smoke; chip_smoke.capacity_alone(8_000_000)'
+    capacity_pq's served recall misses 0.95 there at the reference's
+    re-rank window (640 = 10 x k); the reference's record of 16M rows
+    widens it to 1,280 (docs/BENCH_PQ16M_r5.json, "window_tune"):
+    capacity_alone(8_000_000, ["capacity_pq"],
+                   pq_args=["--overfetch", "128"])"""
+    sys.path.insert(0, ROOT)
+    from tpuvdb_torch.kernels import ivf_probe, pq_probe, scan
+
+    libs = (scan.LIBRARY, ivf_probe.LIBRARY, pq_probe.LIBRARY)
+    with ThreadPoolExecutor(len(libs) + 1) as pool:
+        host = pool.submit(build_native)
+        list(pool.map(lambda lib: lib.load(), libs))
+        host.result()
+    sm_clocks = (torch.cuda.get_device_properties(0).multi_processor_count
+                 * _sm_clock_hz())
+    out = capacity_benches(ivf_probe, pq_probe, sm_clocks,
+                           {name: rows for name in benches}, pq_args)
+    log(_card())
+    return out
+
+
+def phase_capacity(scan, ivf_probe, pq_probe, sm_clocks: float) -> dict:
+    """The latency and capacity benches and the examples (see the module
+    docstring); each capacity bench at its CAPACITY_ROWS."""
+    t0 = time.perf_counter()
+    out = {"latency": _capacity_latency(scan, ivf_probe),
+           **capacity_benches(ivf_probe, pq_probe, sm_clocks, CAPACITY_ROWS),
+           "examples": _capacity_examples()}
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"capacity phase {out['phase_s']:.1f} s: " + json.dumps(
+        {k: round(v["wall_s"], 1) for k, v in out.items()
+         if isinstance(v, dict) and "wall_s" in v}))
+    return out
+
+
 # --------------------------------------------------------------- phase 4
 
 
@@ -2160,7 +2555,6 @@ def _int8_kernel_cases(ivf_probe, corpus_np, dead, queries, cases) -> dict:
     mask = torch.zeros(idx8.grouped_valid.shape,
                        device=idx8.device).masked_fill_(
                            ~idx8.grouped_valid, ivf_probe.NEG_INF)
-    n_chunks = idx8.grouped.shape[0] // 128
     w128 = idx8.cell_pad // 128
     rows, err = [], {False: 0.0, True: 0.0}
     for nq, nprobe, force in cases:
@@ -2169,27 +2563,37 @@ def _int8_kernel_cases(ivf_probe, corpus_np, dead, queries, cases) -> dict:
         plan = ivf_probe.probe_plan(queries[:nq], idx8.centroids,
                                     idx8.cell_offsets, idx8.cell_pad, 10,
                                     nprobe, force_compact=force)
-        form = "compact" if plan.compact else "expanded"
-        name = f"{form} int8 Q={nq} nprobe={nprobe}"
-        e = _hold_probe_int8(ivf_probe, name, plan, idx8, mask)
-        err[plan.compact] = max(err[plan.compact], e)
-        reps = 20 if nq <= 8 else 5
-        ms = cuda_ms(lambda: ivf_probe.plan_candidates(
-            plan, idx8.grouped, idx8.grouped_sq, mask,
-            cell_scales=idx8.cell_scales), reps)
-        plain_ms = cuda_ms(lambda: ivf_probe.plan_candidates(
-            plan, idx8.grouped, idx8.grouped_sq, mask, plain=True,
-            cell_scales=idx8.cell_scales), 2, 1)
-        work = _plan_work(ivf_probe, plan, n_chunks, IVF_D, 1, row_extra=12)
-        bound, by, route = _bound(work, torch.int8)
-        row = {"form": form, "dtype": "int8", "Q": nq, "nprobe": nprobe,
-               "ms": ms, "tops": tflops(work["ops"], ms),
-               "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-               "bound_route": route, **work}
+        row = _int8_case(ivf_probe, plan, idx8, mask, nq, nprobe)
+        err[plan.compact] = max(err[plan.compact], row["max_abs_err"])
         rows.append(row)
-        log("ivf kernel timing " + json.dumps(row))
     return {"rows": rows, "err_expanded": err[False],
             "err_compact": err[True], "nbytes": idx8.nbytes()}
+
+
+def _int8_case(ivf_probe, plan, idx8, mask, nq: int, nprobe: int,
+               label: str = "") -> dict:
+    """One int8 probe plan on `idx8`: the kernel held against its plain
+    twin bit for bit, then both timed, with the plan's bound."""
+    form = "compact" if plan.compact else "expanded"
+    name = f"{label}{form} int8 Q={nq} nprobe={nprobe}"
+    err = _hold_probe_int8(ivf_probe, name, plan, idx8, mask)
+    reps = 20 if nq <= 8 else 5
+    ms = cuda_ms(lambda: ivf_probe.plan_candidates(
+        plan, idx8.grouped, idx8.grouped_sq, mask,
+        cell_scales=idx8.cell_scales), reps)
+    plain_ms = cuda_ms(lambda: ivf_probe.plan_candidates(
+        plan, idx8.grouped, idx8.grouped_sq, mask, plain=True,
+        cell_scales=idx8.cell_scales), 2, 1)
+    n_chunks = idx8.grouped.shape[0] // 128
+    work = _plan_work(ivf_probe, plan, n_chunks, idx8.grouped.shape[1], 1,
+                      row_extra=12)
+    bound, by, route = _bound(work, torch.int8)
+    row = {"form": form, "dtype": "int8", "Q": nq, "nprobe": nprobe,
+           "ms": ms, "tops": tflops(work["ops"], ms),
+           "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+           "bound_route": route, "max_abs_err": err, **work}
+    log(f"{label}ivf kernel timing " + json.dumps(row))
+    return row
 
 
 def phase_ivf_kernel(ivf_probe) -> dict:
@@ -2935,18 +3339,24 @@ def phase_pq_kernel(pq_probe, sm_clocks: float) -> dict:
 def _pq_engine_kernel_check(pq_probe, eng, queries, sm_clocks) -> dict:
     """The PQ kernel vs its twin on the engine's own index, at the shapes
     its b256 search gives it."""
-    ivf = eng._ivf
     q = torch.from_numpy(queries[:256]).cuda()
+    return _hold_pq_index(pq_probe, eng._ivf, q, eng._ivf.nprobe,
+                          "engine index", 5, sm_clocks)
+
+
+def _hold_pq_index(pq_probe, ivf, q, nprobe: int, label: str, reps: int,
+                   sm_clocks) -> dict:
+    """The PQ kernel vs its twin on an IVF-PQ index at fetch PQ_FETCH."""
     plan, lut, cellof, bias = pq_probe.pq_probe_inputs(
         q, ivf.centroids, ivf.pq_codebooks, ivf.grouped_valid,
         ivf.grouped_sq, ivf.cell_offsets, ivf.cell_pad, PQ_FETCH,
-        min(ivf.nprobe, ivf.nlist), ivf.grouped.shape[0], ivf.pq_rotation)
+        min(nprobe, ivf.nlist), ivf.grouped.shape[0], ivf.pq_rotation)
     args = (lut, plan.qc2, plan.cells, plan.segs, cellof, ivf.grouped, bias,
             plan.n_segments, plan.query_tile)
-    mb = ivf.grouped.shape[1]
+    mb, d = ivf.grouped.shape[1], ivf.centroids.shape[1]
     work = _pq_work(plan, lut, mb, ivf.pq_codebooks.shape[0], ivf.nlist)
-    return _hold_pq(pq_probe, f"engine index Q=256 Mb={mb} d={IVF_D}", args,
-                    5, work, sm_clocks)
+    return _hold_pq(pq_probe, f"{label} Q={q.shape[0]} Mb={mb} d={d}",
+                    args, reps, work, sm_clocks)
 
 
 def _pq_recall(eng, queries, truth, keys, label: str) -> dict:
@@ -3391,6 +3801,15 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"nvcc {os.path.basename(lib.source)}: {line.strip()}")
     log_sass_counts(libs)
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = _sm_clock_hz()
+    sm_clocks = sm_count * clock_hz
+    log(f"lookup rates: {sm_count} SMs x {clock_hz / 1e6:.0f} MHz (nvidia-smi "
+        f"clocks.max.sm) x {SMEM_BYTES_PER_CLOCK} shared-memory bytes a "
+        f"clock / {LUT_ENTRY_BYTES} bytes an entry = "
+        f"{sm_clocks * SMEM_BYTES_PER_CLOCK / LUT_ENTRY_BYTES:.4e} entries/s "
+        f"(256 codes); x {F32_LANES_PER_CLOCK} f32 additions a clock = "
+        f"{sm_clocks * F32_LANES_PER_CLOCK:.4e} /s (16 codes)")
 
     kern = phase_kernel(scan)
     scan.LAUNCHES = 0
@@ -3452,15 +3871,6 @@ def main() -> int:
         tt, ivf_probe, data, queries, truth, keys)
     log("ivf int8 engine " + json.dumps(ivf8))
 
-    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
-    clock_hz = _sm_clock_hz()
-    sm_clocks = sm_count * clock_hz
-    log(f"lookup rates: {sm_count} SMs x {clock_hz / 1e6:.0f} MHz (nvidia-smi "
-        f"clocks.max.sm) x {SMEM_BYTES_PER_CLOCK} shared-memory bytes a "
-        f"clock / {LUT_ENTRY_BYTES} bytes an entry = "
-        f"{sm_clocks * SMEM_BYTES_PER_CLOCK / LUT_ENTRY_BYTES:.4e} entries/s "
-        f"(256 codes); x {F32_LANES_PER_CLOCK} f32 additions a clock = "
-        f"{sm_clocks * F32_LANES_PER_CLOCK:.4e} /s (16 codes)")
     pq_kern = phase_pq_kernel(pq_probe, sm_clocks)
     pq_out, launches_pq = phase_ivf_pq(
         tt, pq_probe, data, queries, truth, keys, sm_clocks,
@@ -3471,16 +3881,30 @@ def main() -> int:
     log("mesh " + json.dumps(mesh_out))
     log(f"mesh phase {mesh_out['phase_s']:.1f} s")
     del data
+    # last: capacity_engine and capacity_pq set keep_malloc_warm (a
+    # process-wide mallopt, as the reference's scripts do), which would
+    # change the host times of any phase after them
+    cap = phase_capacity(scan, ivf_probe, pq_probe, sm_clocks)
+    launches_latency = {
+        name: sum(run["launches"][name] for run in cap["latency"].values())
+        for name in ("scan_candidates", "ivf_candidates")}
     log(f"launches: scan {launches} (flat engine phase), "
         f"{launches_serve} (serve phase, HTTP) and {launches_clip} (clip "
         f"phase, one client's /api/search), "
         f"{launches_bench['scan_candidates']} (bench phase, bench --suite "
-        f"scan), ivf expanded {launches_expanded} (ivf engine phase) and "
-        f"{launches_bench['ivf_candidates']} (bench phase), ivf compact "
+        f"scan), {launches_latency['scan_candidates']} (capacity phase, "
+        f"bench/latency.py), ivf expanded {launches_expanded} (ivf engine "
+        f"phase), {launches_bench['ivf_candidates']} (bench phase) and "
+        f"{launches_latency['ivf_candidates']} (capacity phase, latency), "
+        f"ivf compact "
         f"{launches_compact} (b1,024 index search), ivf expanded int8 "
-        f"{launches_expanded_i8} (ivf int8 engine's searches), ivf compact "
+        f"{launches_expanded_i8} (ivf int8 engine's searches) and "
+        f"{cap['capacity_ivf']['launches']} (capacity phase, "
+        f"capacity_ivf), ivf compact "
         f"int8 {launches_compact_i8} (b1,024 int8 index search), pq "
-        f"{launches_pq} (ivf pq engine's searches); on the mesh "
+        f"{launches_pq} (ivf pq engine's searches) and "
+        f"{cap['capacity_pq']['launches']} (capacity phase, capacity_pq); "
+        f"on the mesh "
         f"{json.dumps(mesh_launches)}; the flat int8 engine launches no "
         f"hand-written kernel")
     log_stage_table({
@@ -3516,11 +3940,13 @@ def main() -> int:
         "replaces": "tpuvdb/kernels/pallas_scan.py:41",
         "launches": launches + launches_serve + launches_clip
         + launches_bench["scan_candidates"]
+        + launches_latency["scan_candidates"]
         + mesh_launches["scan_candidates"],
         "launches_by_path": {"flat engine": launches,
                              "served (HTTP)": launches_serve,
                              "clip": launches_clip,
                              "bench": launches_bench["scan_candidates"],
+                             "latency": launches_latency["scan_candidates"],
                              "mesh": mesh_launches["scan_candidates"]},
         "max_abs_err": max(kern["max_abs_err"],
                            benched["hold_scan"]["max_abs_err"]),
@@ -3538,9 +3964,11 @@ def main() -> int:
         "source": "tpuvdb_torch/csrc/ivf_probe.cu",
         "replaces": "tpuvdb/kernels/pallas_ivf.py:172",
         "launches": launches_expanded + launches_bench["ivf_candidates"]
+        + launches_latency["ivf_candidates"]
         + mesh_launches["ivf_candidates"],
         "launches_by_path": {"ivf engine": launches_expanded,
                              "bench": launches_bench["ivf_candidates"],
+                             "latency": launches_latency["ivf_candidates"],
                              "mesh": mesh_launches["ivf_candidates"]},
         "max_abs_err": max(ivf_kern["err_expanded"],
                            benched["hold_probe"]["max_abs_err"]),
@@ -3568,14 +3996,22 @@ def main() -> int:
         "source": "tpuvdb_torch/csrc/ivf_probe.cu",
         "replaces": "tpuvdb/kernels/pallas_ivf.py:230",
         "launches": launches_expanded_i8
+        + cap["capacity_ivf"]["launches"]
         + mesh_launches["ivf_candidates_int8"],
         "launches_by_path": {"ivf int8 engine": launches_expanded_i8,
+                             "capacity": cap["capacity_ivf"]["launches"],
                              "mesh": mesh_launches["ivf_candidates_int8"]},
-        "max_abs_err": ivf_kern["err_expanded_int8"],
+        "max_abs_err": max(ivf_kern["err_expanded_int8"],
+                           cap["capacity_ivf"]["max_abs_err"]),
         "ms": e8["ms"], "plain_ms": e8["plain_ms"],
         "bound_ms": e8["bound_ms"], "bound_by": e8["bound_by"],
         "bound_route": e8["bound_route"],
         "library_ms": no_library,
+        # capacity_ivf's index (d = 768, nlist 4,096), Q = 8 and 128
+        "capacity_shape": [{k: r[k] for k in
+                            ("Q", "nprobe", "ms", "plain_ms", "bound_ms",
+                             "bound_by")}
+                           for r in cap["capacity_ivf"]["kernel"]],
     }, {
         "name": "ivf_candidates_packed_int8",
         "route": "cuda",
@@ -3594,17 +4030,25 @@ def main() -> int:
         "route": "cuda",
         "source": "tpuvdb_torch/csrc/pq_probe.cu",
         "replaces": "tpuvdb/kernels/pallas_pq.py:53",
-        "launches": launches_pq + mesh_launches["pq_candidates"],
+        "launches": launches_pq + cap["capacity_pq"]["launches"]
+        + mesh_launches["pq_candidates"],
         "launches_by_path": {"ivf pq engine": launches_pq,
+                             "capacity": cap["capacity_pq"]["launches"],
                              "mesh": mesh_launches["pq_candidates"]},
         "max_abs_err": max(pq_kern["max_abs_err"],
-                           pq_out["kernel_engine_shape"]["max_abs_err"]),
+                           pq_out["kernel_engine_shape"]["max_abs_err"],
+                           cap["capacity_pq"]["max_abs_err"]),
         "ms": pq_kern["main"]["ms"], "plain_ms": pq_kern["main"]["plain_ms"],
         "bound_ms": pq_kern["main"]["bound_ms"],
         "bound_by": pq_kern["main"]["bound_by"],
         "library_ms": no_library,
         "engine_shape": {k: pq_out["kernel_engine_shape"][k] for k in
                          ("ms", "plain_ms", "bound_ms", "bound_by")},
+        # capacity_pq's engine index (d = 768, 96 B, nlist 4,096), Q = 8
+        # and 256 at its nprobe
+        "capacity_shape": [{k: r[k] for k in
+                            ("Q", "ms", "plain_ms", "bound_ms", "bound_by")}
+                           for r in cap["capacity_pq"]["kernel"]],
     }]}))
     log(_card())
     log(json.dumps({"ok": True, "device": {

@@ -51,7 +51,13 @@ _MUST_WALK = ("tpuvdb_torch.kernels.pq", "tpuvdb_torch.kernels.pq_probe",
               "tpuvdb_torch.bench.clip_e2e", "tpuvdb_torch.bench.scan",
               "tpuvdb_torch.bench.engine_serving",
               "tpuvdb_torch.bench.streaming", "tpuvdb_torch.utils.hostmem",
-              "tpuvdb_torch.utils.vector_utils")
+              "tpuvdb_torch.utils.vector_utils", "tpuvdb_torch.bench.latency",
+              "tpuvdb_torch.bench.capacity",
+              "tpuvdb_torch.bench.capacity_engine",
+              "tpuvdb_torch.bench.capacity_ivf",
+              "tpuvdb_torch.bench.capacity_pq", "tpuvdb_torch.examples",
+              "tpuvdb_torch.examples.quickstart",
+              "tpuvdb_torch.examples.sharded_serving")
 
 
 def _sources():

@@ -24,7 +24,10 @@ layout and public names so each part finds its counterpart:
   embed/     CLIP: the ViT-B/32 text and image towers (torch modules), the
              BPE tokenizer, the remote ingest/search client
   bench/     the timing harness, recall and corpora helpers, and the
-             text -> image benchmark (bench/clip_e2e.py)
+             benchmarks: scan, serving, streaming, text -> image, latency
+             and capacity (`python -m tpuvdb_torch.bench.<name>`)
+  examples/  quickstart and sharded_serving (`python -m
+             tpuvdb_torch.examples.<name>`)
 
 It imports `torch`, never `jax`, and nothing of `tpuvdb`. Every entry point
 takes `device=None`, which means "cuda", and raises when CUDA is missing;
