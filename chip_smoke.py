@@ -307,9 +307,23 @@ the native rescore, and, with a data_dir, the native WAL writer.
               the warm table's cells are bisected again, as in the
               reference). NCCL: `initialize_multihost` at world size 1
               and a `sharded_search` over the process mesh equal to the
-              in-process one, then `shutdown_multihost`. Last the dry run
-              `dryrun_multichip(4, devices=["cuda:0"] * 4)`, each path
-              against its numpy oracle. The phase's seconds are printed.
+              in-process one, then `shutdown_multihost`. Across processes:
+              two worker processes (`_MESH_WORKER_SRC`, spawned) on
+              `cuda:0`, two slots each, join a gloo group themselves and
+              call `initialize_multihost` (NCCL takes one rank a card);
+              each records whether gloo's all_gather takes CUDA tensors,
+              then runs a 2x2 "exact" flat engine over the same 1,000,000
+              rows (b256 and b255), the default ("approx") flat engine on
+              4 slots (b256: the scan) and 4-slot IVF f32 and 64-byte PQ
+              engines over the MESH_IVF_ROWS rows (PQ at the window the
+              in-process engine served), every call in both workers. Both
+              workers' keys must equal each other and the in-process
+              mesh's outside near-ties, recall@10 >= 0.95, and the scan,
+              f32-probe and PQ-probe launches > 0 in each worker; each
+              worker's seconds and the sub-phase's are printed. Last the
+              dry run `dryrun_multichip(4, devices=["cuda:0"] * 4)`, each
+              path against its numpy oracle. The phase's seconds are
+              printed.
   rescore     On the flat int8, IVF int8 (f32 and int8 mirrors) and IVF-PQ
               engines: the candidate rows of one real b256 search go through
               the native and the numpy forms of the exact re-rank on the
@@ -333,8 +347,8 @@ the native rescore, and, with a data_dir, the native WAL writer.
               ivf --mode approx (the f32 probe's launches > 0); three lines
               each with the reference's keys and a positive p50
               (`launches_by_path` "latency"). Then each capacity bench at
-              its CAPACITY_ROWS rows (cut from 8,000,000 to fit the run's
-              time limit, capacity_ivf furthest; every other width is the
+              its CAPACITY_ROWS rows (500,000, cut from 8,000,000 to fit
+              the run's time limit; every other width is the
               reference's): bench/capacity.py (the rescored paths' recall
               >= 0.95, the plain int8 recalls printed), capacity_engine.py
               (recall@10 >= 0.95; its restart counts every row or raises;
@@ -492,14 +506,15 @@ BENCH_STREAMING_KEYS = {"metric", "value", "unit", "vs_baseline",
                         "ingest_total", "dim", "concurrent_search_p50_ms",
                         "recovery_s"}
 # the capacity phase: each bench's rows, in the order they run, cut from
-# 8,000,000 so the whole run stays inside its time limit (at 8M the four
-# take about 33 min on the card's machine, mostly host work, beside the
-# ~790 s of the other phases: PERF.md section 4). capacity_ivf is cut
-# furthest: its build's host bisection grows faster than its rows (24 s
-# at 500,000 rows, ~1,000 s at 8M). dim, code bytes, nlist, nprobe, k and
-# the batches are the benches' own
-CAPACITY_ROWS = {"capacity": 1_000_000, "capacity_engine": 1_000_000,
-                 "capacity_ivf": 500_000, "capacity_pq": 1_000_000}
+# 8,000,000 so the whole run stays inside its 1,200 s limit beside the
+# mesh phase's processes (at 8M the four take about 33 min on the card's
+# machine, mostly host work; at 1,000,000 rows, 500,000 for capacity_ivf,
+# the run took 1,168 s: PERF.md section 4). capacity_ivf's build's host
+# bisection grows faster than its rows (24 s at 500,000 rows, ~1,000 s at
+# 8M). dim, code bytes, nlist, nprobe, k and the batches are the benches'
+# own; capacity_alone(rows) runs them at any size
+CAPACITY_ROWS = {"capacity": 500_000, "capacity_engine": 500_000,
+                 "capacity_ivf": 500_000, "capacity_pq": 500_000}
 LATENCY_RUNS = (("approx", "flat"), ("int8", "flat"), ("approx", "ivf"))
 LATENCY_KEYS = {"metric", "unit", "value", "per_query_p50_ms", "p99_ms",
                 "mode", "index", "dispatch_floor_ms", "p50_minus_dispatch_ms",
@@ -530,8 +545,11 @@ CAPACITY_PQ_DATA_RECALL = 0.9781
 CAPACITY_HOLD_QS = {"capacity_ivf": (8, 128), "capacity_pq": (8, 256)}
 MESH_SLOTS = 4           # slots of the one card (a device may repeat)
 MESH_ODD_BATCH = 255     # pads to the replica groups
-MESH_REPS = 40           # closed-loop searches of each IVF mesh batch
-MESH_IVF_ROWS = 1_000_000  # IVF / IVF-PQ depth on the mesh
+MESH_REPS = 20           # closed-loop searches of each IVF mesh batch
+# IVF / IVF-PQ depth on the mesh, in process and across processes: cut
+# from 1,000,000 so the run ends inside its 1,200 s on a slow host (at 1M
+# it took 1,139.9 s, the mesh phase 366.4 s of it: PERF.md section 4)
+MESH_IVF_ROWS = 500_000
 NCCL_ROWS = 1 << 18      # the corpus of the NCCL process-mesh check
 SMEM_BYTES_PER_CLOCK = 128  # an SM's shared memory: 32 banks x 4 bytes
 LUT_ENTRY_BYTES = 2         # the table holds bf16
@@ -3364,14 +3382,19 @@ def _pq_recall(eng, queries, truth, keys, label: str) -> dict:
     and, if that misses RECALL_MIN, at the first wider one that reaches it
     (named in the log); fails if none does."""
     default = eng.config.ivf_pq_rescore_overfetch
+    mesh = type(eng._ivf).__name__ == "ShardedIVFIndex"
     out = {}
     for window in [w for w in PQ_WINDOWS if w >= default]:
         eng.config.ivf_pq_rescore_overfetch = window
         _, got = eng.search_batch(queries[:256], 10)
         recall = _recall(got, truth[:256], keys)
         out[f"recall_at_10_window_{window}"] = recall
+        # a mesh engine ranks its whole power-of-two fetch, as the
+        # reference's does
+        ranked = (1 << (10 * window - 1).bit_length() if mesh
+                  else 10 * window)
         log(f"{label} recall@10 (exact rescore of {window} x k candidates, "
-            f"b256 vs exact f32 scan): {recall:.4f}")
+            f"{ranked} ranked, b256 vs exact f32 scan): {recall:.4f}")
         if recall >= RECALL_MIN:
             out.update(recall_at_10=recall, window=window)
             break
@@ -3533,15 +3556,20 @@ def _same_keys(label: str, got, want, queries) -> dict:
     return res
 
 
-def phase_mesh_flat(tt, scan) -> tuple:
+def phase_mesh_flat(tt, scan, work: str) -> tuple:
     """The flat engine on the mesh over the engine phase's 1,000,000 rows:
     "exact" keys on 4 slots and on a 2x2 mesh against the single-device
     engine's, then the default ("approx") engine on 4 slots: latency,
-    recall, the scan's launches. Returns (out, scan launches)."""
+    recall, the scan's launches. The rows, queries and the 2x2 mesh's
+    answers go to `work` for the processes' sub-phase. Returns (out, scan
+    launches)."""
     rng = np.random.default_rng(0)   # the engine phase's rows and queries
     data = _unit_rows(rng, ENGINE_ROWS, SCAN_D)
     keys = [f"doc{i}" for i in range(ENGINE_ROWS)]
     queries = _unit_rows(rng, max(ENGINE_BATCHES), SCAN_D)
+    np.save(os.path.join(work, "flat_rows.npy"), data)
+    np.save(os.path.join(work, "flat_queries.npy"), queries)
+    in_process = {}
     odd = MESH_ODD_BATCH
     ref, ref_s = _flat_engine(tt, data, keys, "single-device exact engine",
                               search_mode="exact")
@@ -3559,9 +3587,11 @@ def phase_mesh_flat(tt, scan) -> tuple:
                                     mesh=_mesh(shape), search_mode="exact")
         res = {"build_s": build_s, "device_bytes": eng.info()["device_bytes"]}
         for b in batches:
-            res[f"keys_b{b}"] = _same_keys(f"mesh {label} b{b}",
-                                           eng.search_batch(queries[:b], 10),
+            got = eng.search_batch(queries[:b], 10)
+            res[f"keys_b{b}"] = _same_keys(f"mesh {label} b{b}", got,
                                            want[b], queries[:b])
+            if shape is not None:
+                in_process[f"b{b}"] = [np.asarray(got[0]).tolist(), got[1]]
         if shape is not None:
             _timed_searches(eng, f"mesh {label} exact", queries, (256,), res,
                             reps=MESH_REPS)
@@ -3576,7 +3606,8 @@ def phase_mesh_flat(tt, scan) -> tuple:
     res = {"build_s": build_s, "device_bytes": eng.info()["device_bytes"]}
     _timed_searches(eng, "mesh flat", queries, ENGINE_BATCHES, res)
     res["b256_device"] = _device_share(eng, queries, "mesh flat")
-    _, got = eng.search_batch(queries, 10)
+    dist, got = eng.search_batch(queries, 10)
+    in_process["approx b256"] = [np.asarray(dist).tolist(), got]
     hit = sum(len(set(g[:10]) & set(w[:10]))
               for g, w in zip(got, want[max(ENGINE_BATCHES)][1]))
     res["recall_at_10"] = hit / (10 * len(queries))
@@ -3592,14 +3623,15 @@ def phase_mesh_flat(tt, scan) -> tuple:
     eng.close()
     del eng, data
     torch.cuda.empty_cache()
+    with open(os.path.join(work, "flat_2x2.json"), "w") as f:
+        json.dump(in_process, f)
     return out, launches
 
 
 def _mesh_ivf_engine(tt, data, queries, truth, keys, label: str, **kw):
     """An IVF engine of the ivf engine phase's configuration on the
     4-slot mesh: build, timed b1 / b256, recall@10 >= 0.95 (IVF-PQ under
-    the exact rescore), the write checks with an append. Returns (engine,
-    out)."""
+    the exact rescore). Returns (engine, out, its b256 answer)."""
     eng = tt.VectorDBEngine(_ivf_config(tt, **kw), mesh=_mesh())
     check_native(eng, label)
     t0 = time.perf_counter()
@@ -3629,18 +3661,24 @@ def _mesh_ivf_engine(tt, data, queries, truth, keys, label: str, **kw):
         log(f"{label} recall@10 (b256 vs exact): {out['recall_at_10']:.4f}")
         if out["recall_at_10"] < RECALL_MIN:
             raise AssertionError(f"{label} recall@10 {out['recall_at_10']}")
-    return eng, out
+    dist, got = eng.search_batch(queries[:256], 10)
+    return eng, out, [np.asarray(dist).tolist(), got]
 
 
 def phase_mesh_ivf(tt, ivf_probe, pq_probe, data, queries, truth,
-                   keys) -> tuple:
+                   keys, work: str) -> tuple:
     """IVF f32, int8 and IVF-PQ (64 bytes) engines on the 4-slot mesh over
     the first MESH_IVF_ROWS of the ivf engine phase's rows, and a warm
-    restart of the f32 one. Returns (out, launches by kernel)."""
+    restart of the f32 one. The rows, queries, truth and the engines' b256
+    answers go to `work` for the processes' sub-phase. Returns (out,
+    launches by kernel)."""
     if MESH_IVF_ROWS < len(keys):
         data, keys = data[:MESH_IVF_ROWS], keys[:MESH_IVF_ROWS]
         truth = _exact_truth(data, queries)
-    out, launches = {}, {}
+    np.save(os.path.join(work, "ivf_rows.npy"), data)
+    np.save(os.path.join(work, "ivf_queries.npy"), queries[:256])
+    np.save(os.path.join(work, "ivf_truth.npy"), truth[:256])
+    out, launches, in_process = {}, {}, {}
     for label, kw, counter in (
             ("mesh ivf", {}, "LAUNCHES_EXPANDED"),
             ("mesh ivf int8", {"storage_dtype": "int8"},
@@ -3648,8 +3686,9 @@ def phase_mesh_ivf(tt, ivf_probe, pq_probe, data, queries, truth,
             ("mesh ivf pq", {"ivf_pq_subq": PQ_ENGINE_BYTES}, "LAUNCHES_PQ")):
         mod = pq_probe if counter == "LAUNCHES_PQ" else ivf_probe
         setattr(mod, counter, 0)
-        eng, res = _mesh_ivf_engine(tt, data, queries, truth, keys, label,
-                                    **kw)
+        eng, res, in_process[label] = _mesh_ivf_engine(
+            tt, data, queries, truth, keys, label, **kw)
+        in_process[label].append(res.get("window"))
         launches[label] = getattr(mod, counter)
         if launches[label] <= 0:
             raise AssertionError(f"{label}: no launch of the probe kernel "
@@ -3661,6 +3700,8 @@ def phase_mesh_ivf(tt, ivf_probe, pq_probe, data, queries, truth,
         torch.cuda.empty_cache()
     out["ivf"]["restart"] = phase_ivf_restart(tt, "mesh ivf", mesh=_mesh())
     log(f"mesh ivf probe launches: {json.dumps(launches)}")
+    with open(os.path.join(work, "ivf_in_process.json"), "w") as f:
+        json.dump(in_process, f)
     return out, launches
 
 
@@ -3709,24 +3750,222 @@ def phase_mesh_nccl(tt) -> dict:
     return res
 
 
+_MESH_WORKER_SRC = r'''
+import json, os, sys, time
+t_start = time.perf_counter()
+rank, port, work, root = int(sys.argv[1]), sys.argv[2], sys.argv[3], \
+    sys.argv[4]
+sys.path.insert(0, root)
+import numpy as np
+import torch
+import torch.distributed as dist
+
+torch.cuda.set_device(0)
+# NCCL takes one rank a card: two ranks on one card join gloo, and
+# initialize_multihost then finds the group up and joins nothing
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        world_size=2, rank=rank)
+import chip_smoke as cs
+import tpuvdb_torch as tt
+from tpuvdb_torch.cluster.bootstrap import (initialize_multihost,
+                                            shutdown_multihost)
+from tpuvdb_torch.kernels import ivf_probe, pq_probe, scan
+from tpuvdb_torch.mesh import create_mesh
+from tpuvdb_torch.mesh.replicated import create_mesh_2d
+
+out = {"rank": rank, "topology": initialize_multihost(),
+       "backend": dist.get_backend()}
+x = torch.full((2,), float(rank), device="cuda:0")
+try:
+    parts = [torch.empty_like(x) for _ in range(2)]
+    dist.all_gather(parts, x)
+    out["gloo_all_gather_cuda"] = [float(p[0]) for p in parts] == [0.0, 1.0]
+except RuntimeError as e:
+    out["gloo_all_gather_cuda"] = f"raises: {str(e)[:160]}"
+slots = ["cuda:0", "cuda:0"]   # two slots of the card a process
+
+rows = np.load(os.path.join(work, "flat_rows.npy"), mmap_mode="r")
+queries = np.load(os.path.join(work, "flat_queries.npy"))
+keys = [f"doc{i}" for i in range(len(rows))]
+scan.LAUNCHES = 0
+t0 = time.perf_counter()
+eng, build_s = cs._flat_engine(tt, rows, keys, "process mesh 2x2",
+                               mesh=create_mesh_2d(2, 2, devices=slots),
+                               search_mode="exact")
+out["flat"] = {"build_s": build_s,
+               "device_bytes": eng.info()["device_bytes"]}
+for b in (256, cs.MESH_ODD_BATCH):
+    d, k = eng.search_batch(queries[:b], 10)
+    out["flat"][f"b{b}"] = [np.asarray(d).tolist(), k]
+eng.close()
+del eng
+torch.cuda.empty_cache()
+# the default ("approx") engine on the 1-D 4-slot process mesh: the scan
+eng, out["flat"]["approx_build_s"] = cs._flat_engine(
+    tt, rows, keys, "process mesh approx", mesh=create_mesh(devices=slots))
+d, k = eng.search_batch(queries, 10)
+out["flat"]["approx b256"] = [np.asarray(d).tolist(), k]
+out["flat"]["s"] = time.perf_counter() - t0
+out["flat"]["scan_launches"] = scan.LAUNCHES
+eng.close()
+del eng, rows
+torch.cuda.empty_cache()
+
+rows = np.load(os.path.join(work, "ivf_rows.npy"), mmap_mode="r")
+queries = np.load(os.path.join(work, "ivf_queries.npy"))
+keys = [f"r{i}" for i in range(len(rows))]
+with open(os.path.join(work, "ivf_in_process.json")) as f:
+    windows = {label: v[2] for label, v in json.load(f).items()}
+for label, kw, mod, counter in (
+        ("mesh ivf", {}, ivf_probe, "LAUNCHES_EXPANDED"),
+        ("mesh ivf pq", {"ivf_pq_subq": cs.PQ_ENGINE_BYTES}, pq_probe,
+         "LAUNCHES_PQ")):
+    setattr(mod, counter, 0)
+    t0 = time.perf_counter()
+    eng = tt.VectorDBEngine(cs._ivf_config(tt, **kw),
+                            mesh=create_mesh(devices=slots))
+    cs.check_native(eng, f"process {label}")
+    assert eng.put_rows(keys, rows).success
+    eng.flush()
+    torch.cuda.synchronize()
+    res = {"build_s": time.perf_counter() - t0,
+           "stats": eng.info()["ivf"],
+           "host_digest": eng._ivf.host_digest()}
+    if windows[label]:
+        eng.config.ivf_pq_rescore_overfetch = windows[label]
+    d, k = eng.search_batch(queries, 10)
+    res["b256"] = [np.asarray(d).tolist(), k]
+    res["launches"] = getattr(mod, counter)
+    res["s"] = time.perf_counter() - t0
+    out[label] = res
+    eng.close()
+    del eng
+    torch.cuda.empty_cache()
+shutdown_multihost()
+out["worker_s"] = time.perf_counter() - t_start
+print(json.dumps(out), flush=True)
+'''
+
+
+def phase_mesh_processes(work: str) -> dict:
+    """The mesh across processes: two spawned workers, two `cuda:0` slots
+    each, in one gloo group (`_MESH_WORKER_SRC`), make the same calls on
+    the rows the in-process mesh phases left in `work`. Both workers'
+    answers must be equal, and equal to the in-process mesh's outside
+    near-ties; recall@10 >= 0.95; the kernels launched in each worker."""
+    t0 = time.perf_counter()
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _MESH_WORKER_SRC, str(rank), str(port), work,
+         ROOT], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=ROOT) for rank in range(2)]
+    try:
+        outs = [p.communicate(timeout=900) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, (stdout, stderr)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"mesh worker {rank} failed "
+                                 f"(rc {p.returncode}):\n{stderr[-6000:]}")
+    workers = [json.loads(stdout.strip().splitlines()[-1])
+               for stdout, _ in outs]
+    with open(os.path.join(work, "flat_2x2.json")) as f:
+        flat_ref = json.load(f)
+    with open(os.path.join(work, "ivf_in_process.json")) as f:
+        ivf_ref = json.load(f)
+    flat_q = np.load(os.path.join(work, "flat_queries.npy"))
+    ivf_q = np.load(os.path.join(work, "ivf_queries.npy"))
+    truth = np.load(os.path.join(work, "ivf_truth.npy"))
+    n_ivf = len(np.load(os.path.join(work, "ivf_rows.npy"), mmap_mode="r"))
+    ivf_keys = [f"r{i}" for i in range(n_ivf)]
+    res = {"workers": [{"rank": w["rank"], "worker_s": w["worker_s"],
+                        "topology": w["topology"], "backend": w["backend"],
+                        "gloo_all_gather_cuda": w["gloo_all_gather_cuda"]}
+                       for w in workers]}
+    a, b = workers
+    for part, batches in (("flat", (256, MESH_ODD_BATCH, "approx 256")),
+                          ("mesh ivf", (256,)), ("mesh ivf pq", (256,))):
+        for bq in batches:
+            key = f"b{bq}" if bq != "approx 256" else "approx b256"
+            if a[part][key] != b[part][key]:
+                raise AssertionError(f"processes {part} {key}: the two "
+                                     "workers' answers differ")
+            got = a[part][key]
+            if part == "flat":
+                want = flat_ref[key]
+                q = flat_q[:len(got[1])]
+            else:
+                want = ivf_ref[part][:2]
+                q = ivf_q
+            res[f"{part} {key}"] = _same_keys(
+                f"processes {part} {key}", got, want, q)
+            res[f"{part} {key}"]["rows_and_distances_equal"] = got == want
+    for part in ("mesh ivf", "mesh ivf pq"):
+        recall = _recall(a[part]["b256"][1], truth, ivf_keys)
+        res[f"{part} recall_at_10"] = recall
+        if recall < RECALL_MIN:
+            raise AssertionError(f"processes {part} recall@10 {recall}")
+        if a[part]["host_digest"] != b[part]["host_digest"]:
+            raise AssertionError(f"processes {part}: host tables differ")
+    launches = {"scan_candidates": [w["flat"]["scan_launches"]
+                                    for w in workers],
+                "ivf_candidates": [w["mesh ivf"]["launches"]
+                                   for w in workers],
+                "pq_candidates": [w["mesh ivf pq"]["launches"]
+                                  for w in workers]}
+    for name, per in launches.items():
+        if min(per) <= 0:
+            raise AssertionError(f"processes: a worker never launched "
+                                 f"{name}: {per}")
+    res["launches_by_worker"] = launches
+    res["launches"] = {name: sum(per) for name, per in launches.items()}
+    for w in workers:
+        res[f"rank{w['rank']}_s"] = {
+            part: {k: w[part][k] for k in ("build_s", "approx_build_s", "s")
+                   if k in w[part]}
+            for part in ("flat", "mesh ivf", "mesh ivf pq")}
+    res["device_bytes_2x2"] = a["flat"]["device_bytes"]
+    res["ivf_stats"] = {p: a[p]["stats"] for p in ("mesh ivf",
+                                                   "mesh ivf pq")}
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"mesh across processes (2 gloo workers x 2 slots of cuda:0): "
+        f"{json.dumps(res)}")
+    log(f"mesh across processes: sub-phase {res['phase_s']:.1f} s; worker "
+        f"seconds {[w['worker_s'] for w in workers]}")
+    return res
+
+
 def phase_mesh(tt, scan, ivf_probe, pq_probe, ivf_data) -> tuple:
     """Every mesh path on MESH_SLOTS slots of the card. Returns (out,
     launches by kernel name)."""
     t0 = time.perf_counter()
-    flat, scan_launches = phase_mesh_flat(tt, scan)
-    ivf, probe_launches = phase_mesh_ivf(tt, ivf_probe, pq_probe, *ivf_data)
+    work = tempfile.mkdtemp(prefix="mesh_processes_")
+    try:
+        flat, scan_launches = phase_mesh_flat(tt, scan, work)
+        ivf, probe_launches = phase_mesh_ivf(tt, ivf_probe, pq_probe,
+                                             *ivf_data, work)
+        procs = phase_mesh_processes(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     from tpuvdb_torch.mesh.dryrun import dryrun_multichip
 
     out = {"slots": ["cuda:0"] * MESH_SLOTS, "flat": flat, "ivf": ivf,
-           "nccl": phase_mesh_nccl(tt),
+           "nccl": phase_mesh_nccl(tt), "processes": procs,
            "dryrun": dryrun_multichip(MESH_SLOTS,
                                       devices=["cuda:0"] * MESH_SLOTS)}
     log(f"mesh dry run ({MESH_SLOTS} slots): {json.dumps(out['dryrun'])}")
     out["phase_s"] = time.perf_counter() - t0
-    return out, {"scan_candidates": scan_launches,
-                 "ivf_candidates": probe_launches["mesh ivf"],
+    # the workers' launches join the in-process mesh's
+    by = procs["launches"]
+    return out, {"scan_candidates": scan_launches + by["scan_candidates"],
+                 "ivf_candidates": probe_launches["mesh ivf"]
+                 + by["ivf_candidates"],
                  "ivf_candidates_int8": probe_launches["mesh ivf int8"],
-                 "pq_candidates": probe_launches["mesh ivf pq"]}
+                 "pq_candidates": probe_launches["mesh ivf pq"]
+                 + by["pq_candidates"]}
 
 
 # ------------------------------------------------------------------ main

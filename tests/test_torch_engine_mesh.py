@@ -26,6 +26,7 @@ from tpuvdb.mesh.mesh import create_mesh as jax_create_mesh
 from tpuvdb.mesh.replicated import create_mesh_2d as jax_mesh_2d
 from tpuvdb_torch import DBConfig, VectorDBEngine
 from tpuvdb_torch.core.types import SearchRequest, VectorData
+from tpuvdb_torch.kernels.distance import numpy_oracle
 from tpuvdb_torch.mesh import Mesh, create_mesh
 from tpuvdb_torch.mesh.replicated import create_mesh_2d
 from tpuvdb_torch.mesh.sharded_ivf import ShardedIVFIndex
@@ -259,3 +260,42 @@ def test_service_on_mesh(rng):
         assert len(svc.registry.list_nodes()) == mesh.size
     finally:
         svc.close()
+
+
+@pytest.mark.parametrize("k", [10, 16])
+def test_mesh_ivf_pq_cold_recall_agrees_with_jax(k):
+    """Both packages' mesh IVF-PQ engines train cold on one clustered
+    corpus (the card phase's shape: centres 3 apart at spread 0.4, the
+    clusters far larger than the window), the port on 4 CPU slots, the
+    reference on 4 virtual CPU devices: recall@10 at the default 64 x k
+    window within 0.02 of each other, at the default k = 10 and at k =
+    16. Both mesh engines round the device fetch up to a power of two and
+    rank the whole of it (1,024 candidates at either k); when the port
+    ranked 640 at k = 10 its recall here was 0.8516 against the
+    reference's 0.925."""
+    rng = np.random.default_rng(0)
+    n, d = 32768, 64
+    cents = 3 * rng.standard_normal((8, d)).astype(np.float32)
+    data = (cents[rng.integers(0, 8, n)]
+            + 0.4 * rng.standard_normal((n, d))).astype(np.float32)
+    q = (cents[rng.integers(0, 8, 64)]
+         + 0.4 * rng.standard_normal((64, d))).astype(np.float32)
+    _, truth = numpy_oracle(q, data, np.ones(n, bool), 10)
+    keys = [f"k{i}" for i in range(n)]
+    kw = dict(vector_dim=d, shard_capacity=n, ivf_nlist=64, ivf_nprobe=8,
+              ivf_kmeans_iters=5, ivf_pq_subq=4)
+    recall = {}
+    for name, eng in (
+            ("port", VectorDBEngine(_ivf(DBConfig, **kw),
+                                    mesh=create_mesh(devices=["cpu"] * 4),
+                                    device="cpu")),
+            ("jax", JaxEngine(_ivf(JaxConfig, **kw),
+                              mesh=jax_create_mesh(4)))):
+        assert eng.config.ivf_pq_rescore_overfetch == 64
+        assert eng.put_rows(keys, data).success
+        eng.flush()
+        _, got = eng.search_batch(q, k)
+        recall[name] = np.mean([len({keys[j] for j in t} & set(g[:10])) / 10
+                                for t, g in zip(truth, got)])
+    assert recall["port"] < 1.0  # the window binds on this corpus
+    assert abs(recall["port"] - recall["jax"]) <= 0.02, recall

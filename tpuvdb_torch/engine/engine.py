@@ -1490,9 +1490,16 @@ class VectorDBEngine:
         """IVF probe + host exact scan of the delta snapshot (staged
         writes and the standing unclustered delta), merged as in
         _flat_search_rows. The fetch is k + n_del wide; the reference's
-        power-of-two width and bf16 wire distances (XLA compile and relay
-        workarounds) are not carried over."""
-        dists, rows = ivf.search(queries, k + n_del)
+        bf16 wire distances (an XLA relay workaround) are not carried
+        over. On a mesh it is the reference's power-of-two width: its mesh
+        program returns every column of that fetch (no out_w shrink,
+        `tpuvdb/mesh/sharded_ivf.py` `search`), and a rescore ranks the
+        whole window, so the width is part of the served answer (an IVF-PQ
+        window of 64 x 10 ranks 1,024 candidates there)."""
+        fetch = k + n_del
+        if isinstance(ivf, ShardedIVFIndex):
+            fetch = 1 << (fetch - 1).bit_length()
+        dists, rows = ivf.search(queries, fetch)
         return self._merge_delta(queries, dists, rows, delta, total_rows)
 
     @staticmethod

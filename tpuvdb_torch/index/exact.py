@@ -48,7 +48,7 @@ import torch
 from tpuvdb_torch.device import resolve_device
 from tpuvdb_torch.index.layout import ShardMirror, StackedLayout
 from tpuvdb_torch.kernels.quant import quantize_rows, quantize_rows_np
-from tpuvdb_torch.mesh.mesh import Mesh
+from tpuvdb_torch.mesh.mesh import Mesh, sum_over_processes
 from tpuvdb_torch.mesh.replicated import pad_to_groups, replicated_search
 from tpuvdb_torch.mesh.sharded import local_topk, sharded_search
 
@@ -367,11 +367,15 @@ class DeviceExactIndex:
         return dist.cpu().numpy(), rows.cpu().numpy()
 
     def nbytes(self) -> int:
-        """Device bytes of the index (on a mesh: the sum over this
-        process's slots, every replica counted)."""
+        """Device bytes of the index (on a mesh: the sum over every slot,
+        every replica counted; across processes a collective that sums
+        each process's slots)."""
         parts = [self.vectors, self.sqnorms, self.valid]
         if self.quantized:
             parts.append(self.row_scales)
         tensors = (parts if self.mesh is None
                    else [t for p in parts for t in p if t is not None])
-        return sum(t.numel() * t.element_size() for t in tensors)
+        own = sum(t.numel() * t.element_size() for t in tensors)
+        if self.mesh is None:
+            return own
+        return sum_over_processes(self.mesh, [own])[0]

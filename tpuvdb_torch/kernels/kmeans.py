@@ -3,7 +3,8 @@ tpuvdb/kernels/kmeans.py in torch ops on an explicit device.
 
 The assignment step is the same GEMM shape as search (block x centroids),
 streamed over the rows in blocks so memory stays O(block * nlist); centroid
-updates are index_add sums. Empty clusters keep their previous centroid
+updates are segment sums (`segment_add_`: deterministic on the card, so
+two runs or two processes train the same table bit for bit). Empty clusters keep their previous centroid
 (standard Lloyd fallback). The initial centroids are drawn with
 `np.random.default_rng(seed)` exactly as the reference draws them, so both
 packages start from the same centroids; the reference pads the rows to a
@@ -37,6 +38,18 @@ def assign_blockwise(
     return out
 
 
+def segment_add_(out: torch.Tensor, index: torch.Tensor,
+                 values: torch.Tensor) -> torch.Tensor:
+    """out[index[i]] += values[i], in place. On the card a sorted
+    accumulation (`index_put_` with accumulate), whose sums come out the
+    same in every run: `index_add_` adds there with atomics, in an order
+    that changes between runs and processes. On the host `index_add_`,
+    whose sequential sums match the reference's bit for bit."""
+    if out.is_cuda:
+        return out.index_put_((index,), values, accumulate=True)
+    return out.index_add_(0, index, values)
+
+
 def _kmeans_step(data: torch.Tensor, weight: torch.Tensor,
                  centroids: torch.Tensor,
                  block_size: int) -> Tuple[torch.Tensor, float]:
@@ -49,8 +62,8 @@ def _kmeans_step(data: torch.Tensor, weight: torch.Tensor,
     for lo in range(0, data.shape[0], block_size):
         a = assign[lo:lo + block_size]
         w = weight[lo:lo + block_size]
-        sums.index_add_(0, a, data[lo:lo + block_size] * w[:, None])
-        counts.index_add_(0, a, w)
+        segment_add_(sums, a, data[lo:lo + block_size] * w[:, None])
+        segment_add_(counts, a, w)
     new = torch.where(counts[:, None] > 0,
                       sums / counts.clamp(min=1)[:, None], centroids)
     shift = float(torch.linalg.norm(new - centroids, dim=-1).mean())

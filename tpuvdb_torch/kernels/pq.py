@@ -7,8 +7,9 @@ A d-dim row becomes Mb bytes: one code per subspace against a
 low nibble). The codebook shape tells the tiers apart everywhere.
 
   * Training is batched Lloyd over all subspaces at once: the assignment is
-    one einsum, the update an `index_add_` over combined (subspace, code)
-    ids (the reference's `segment_sum`); an empty codeword keeps its value.
+    one einsum, the update a segment sum (`kmeans.segment_add_`,
+    deterministic on the card) over combined (subspace, code) ids (the
+    reference's `segment_sum`); an empty codeword keeps its value.
     The initial codewords are drawn with `np.random.default_rng(seed)`
     exactly as the reference draws them, so both packages start Lloyd from
     the same codebooks. `train_opq` alternates it with an orthogonal
@@ -45,6 +46,7 @@ import torch
 from tpuvdb_torch import device as _device  # noqa: F401  (TF32 off)
 from tpuvdb_torch.device import resolve_device
 from tpuvdb_torch.kernels import topk as tk
+from tpuvdb_torch.kernels.kmeans import segment_add_
 
 ADC_GATHER_ELEMS = 1 << 24  # looked-up entries per adc_scores block
 
@@ -137,8 +139,8 @@ def _lloyd_step(data_sub: torch.Tensor, codebooks: torch.Tensor,
     for lo in range(0, n, block):
         chunk = data_sub[lo:lo + block]
         seg = (pq_assign(chunk, codebooks, c_sq) + seg_base).reshape(-1)
-        sums.index_add_(0, seg, chunk.reshape(-1, dsub))
-        counts.index_add_(0, seg, torch.ones_like(seg, dtype=torch.float32))
+        segment_add_(sums, seg, chunk.reshape(-1, dsub))
+        segment_add_(counts, seg, torch.ones_like(seg, dtype=torch.float32))
     sums = sums.reshape(m_subq, n_codes, dsub)
     counts = counts.reshape(m_subq, n_codes)
     new = torch.where(counts[:, :, None] > 0,

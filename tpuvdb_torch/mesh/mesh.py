@@ -12,14 +12,21 @@ and the replica split then run as they would over as many cards.
 
 Across processes (`cluster/bootstrap.initialize_multihost`), a mesh made
 while the process group is up spans every process's slots in rank order;
-`slot_ranks` says which process owns each slot, a process holds and scans
-only its own, and a search finishes with a `torch.distributed.all_gather`
-of each process's merged (Q, k) pair (`distributed`).
+`slot_ranks` says which process owns each slot, and a process holds and
+scans only its own. The program is the reference's SPMD one: every
+process makes the same calls on the same data, in the same order, and
+gets the whole answer back. A search finishes with one
+`torch.distributed.all_gather` of every group's merged (Q, k) pairs
+(mesh/sharded.py); the helpers below are the other collectives the mesh
+modules take (sums for whole-mesh counts, a broadcast of trained tables,
+a digest check). Under gloo the tensors meet on the host, under NCCL on
+the process's current card.
 """
 
 from __future__ import annotations
 
 import contextlib
+import hashlib
 from typing import Optional, Sequence
 
 import numpy as np
@@ -96,6 +103,77 @@ def _in_process_group() -> bool:
     import torch.distributed as dist
 
     return dist.is_available() and dist.is_initialized()
+
+
+def collective_device() -> torch.device:
+    """Where a collective's tensors live: the current card under NCCL,
+    the host under gloo (whose all_gather need not take CUDA tensors)."""
+    import torch.distributed as dist
+
+    if dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def all_gather_tensor(t: torch.Tensor) -> list:
+    """Every process's `t` (same shape and dtype in each), in rank order,
+    on the collective device."""
+    import torch.distributed as dist
+
+    t = t.to(collective_device()).contiguous()
+    out = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(out, t)
+    return out
+
+
+def sum_over_processes(mesh: Mesh, values) -> list:
+    """Integer counts summed over the mesh's processes (unchanged within
+    one process): each process passes its own part."""
+    values = [int(v) for v in values]
+    if not mesh.distributed:
+        return values
+    import torch.distributed as dist
+
+    t = torch.tensor(values, dtype=torch.int64, device=collective_device())
+    dist.all_reduce(t)
+    return [int(v) for v in t.cpu().tolist()]
+
+
+def broadcast_from(mesh: Mesh, obj, src: int):
+    """`obj` as process `src` holds it, in every process of the mesh (a
+    picklable object: host arrays, tuples of them)."""
+    if not mesh.distributed:
+        return obj
+    import torch.distributed as dist
+
+    box = [obj if dist.get_rank() == src else None]
+    dist.broadcast_object_list(box, src=src, device=collective_device())
+    return box[0]
+
+
+def digest(*arrays) -> str:
+    """A hash of arrays' dtypes, shapes and bytes (None allowed)."""
+    h = hashlib.blake2b(digest_size=16)
+    for a in arrays:
+        if a is None:
+            h.update(b"none")
+            continue
+        a = np.ascontiguousarray(a)
+        h.update(f"{a.dtype.str}{a.shape}".encode())
+        h.update(a.view(np.uint8).reshape(-1).data)
+    return h.hexdigest()
+
+
+def check_same_everywhere(mesh: Mesh, what: str, value: str) -> None:
+    """Raise unless every process of the mesh holds the same `value`."""
+    if not mesh.distributed:
+        return
+    import torch.distributed as dist
+
+    got = [None] * dist.get_world_size()
+    dist.all_gather_object(got, value)
+    if len(set(got)) != 1:
+        raise RuntimeError(f"{what} differ between processes: {got}")
 
 
 def mesh_devices(devices: Optional[Sequence]) -> list:

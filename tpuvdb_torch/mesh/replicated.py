@@ -8,8 +8,9 @@ tpuvdb/mesh/replicated.py.
     output:        the groups' slices put back together in order
 
 R replicas multiply query throughput by R at R x memory, and each replica
-group holds a complete copy of every shard. Within one process (a replica
-group may not span processes here).
+group holds a complete copy of every shard. Across processes a group may
+lie in one process or span several; every process gets the whole batch's
+answer (mesh/sharded.groups_topk).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 from tpuvdb_torch.mesh.mesh import Mesh, build_mesh, mesh_devices
-from tpuvdb_torch.mesh.sharded import (Sharded, as_queries, group_topk,
+from tpuvdb_torch.mesh.sharded import (Sharded, as_queries, groups_topk,
                                        local_topk, shard_rows, slot_rows)
 
 
@@ -44,19 +45,20 @@ def shard_corpus_replicated(mesh: Mesh, vectors, sqnorms, valid,
 
 def replicated_topk(mesh: Mesh, shard_axis: str, q: torch.Tensor,
                     rows_per_slot: int, k: int, search_slot):
-    """Each replica group's even slice of the batch through `group_topk`,
+    """Each replica group's even slice of the batch through `groups_topk`,
     the slices concatenated in order on the first group's merge device.
-    Every group sits in this process."""
-    if mesh.distributed:
-        raise ValueError("a replicated mesh runs within one process")
+    Across processes a process searches the slices of the groups it has
+    slots in, and the one exchange of `groups_topk` puts the whole batch
+    together on every process (the reference's tiled all_gather over
+    `repl`)."""
     grid = mesh.slot_grid(shard_axis)
     if q.shape[0] % len(grid) != 0:
         raise ValueError(f"batch {q.shape[0]} not divisible by repl axis "
                          f"{len(grid)}")
     per = q.shape[0] // len(grid)
-    outs = [group_topk(mesh, g.tolist(), q[i * per:(i + 1) * per],
+    outs = groups_topk(mesh, [g.tolist() for g in grid],
+                       [q[i * per:(i + 1) * per] for i in range(len(grid))],
                        rows_per_slot, k, search_slot)
-            for i, g in enumerate(grid)]
     dev = outs[0][0].device
     return (torch.cat([d.to(dev) for d, _ in outs]),
             torch.cat([r.to(dev) for _, r in outs]))

@@ -10,8 +10,9 @@ group), adds the slot's row offset, concatenates them slot-major and takes
 the final top-k. `jax.lax.top_k` puts the lower index first on a tie, and
 the lower index is the lower slot; `torch.topk` promises no order, so the
 merge is a stable sort. Across processes each process merges its own slots
-and the (Q, k) pairs meet in a `torch.distributed.all_gather`, in rank
-(= slot) order, before the same merge.
+of each group, and the groups' (Q, k) pairs meet in one
+`torch.distributed.all_gather`, in rank (= slot) order, before the same
+merge; a process that owns no slot of a group sends empty rows for it.
 
 A sharded tensor is a list over the mesh's flat slots: slot s holds the
 rows of its position on the shard axis, on its own device, and None where
@@ -28,7 +29,8 @@ import torch.nn.functional as F
 
 from tpuvdb_torch.kernels.distance import l2sq_topk
 from tpuvdb_torch.kernels.quant import l2sq_topk_int8, l2sq_topk_int8_rescored
-from tpuvdb_torch.mesh.mesh import Mesh, on_device
+from tpuvdb_torch.mesh.mesh import (Mesh, all_gather_tensor,
+                                    collective_device, on_device)
 
 Sharded = List[Optional[torch.Tensor]]
 
@@ -94,46 +96,76 @@ def merge_topk(parts: Sequence[Tuple[torch.Tensor, torch.Tensor]],
     return dist, row
 
 
-def merge_processes(dist: torch.Tensor, rows: torch.Tensor, k: int):
-    """The cross-process half of the merge: all_gather each process's
-    merged (Q, k) pair (rows already global) and merge them in rank
-    order, which is slot order."""
-    import torch.distributed as dist_
+def merge_processes(parts: Sequence, q_rows: int, k: int,
+                    device: torch.device) -> list:
+    """The cross-process half of the merge: one all_gather of every
+    group's (q_rows, k) pair (rows already global) from every process,
+    each group then merged in rank order. A process with no slot in a
+    group sends +inf / -1 rows for it, so every process sends the same
+    shape. Slots are numbered in rank order and a group's shard positions
+    ascend with their slots, so rank order keeps the lower slot first on
+    a tie, as the one-process merge does. Each pair packs into f64 (f32
+    distances and rows below 2**53 are exact there)."""
+    cdev = collective_device()
+    empty = torch.stack([
+        torch.full((q_rows, k), float("inf"), dtype=torch.float64,
+                   device=cdev),
+        torch.full((q_rows, k), -1.0, dtype=torch.float64, device=cdev)])
+    mine = torch.stack([
+        empty if p is None else
+        torch.stack([t.to(cdev, torch.float64) for t in p])
+        for p in parts])                              # (G, 2, q_rows, k)
+    every = all_gather_tensor(mine)
+    out = []
+    for g in range(len(parts)):
+        pairs = [(w[g, 0].to(torch.float32), w[g, 1].to(torch.int64))
+                 for w in every]
+        dist, rows = merge_topk(pairs, [0] * len(pairs), k, cdev)
+        out.append((dist.to(device), rows.to(device)))
+    return out
 
-    world = dist_.get_world_size()
-    ds = [torch.empty_like(dist) for _ in range(world)]
-    rs = [torch.empty_like(rows) for _ in range(world)]
-    dist_.all_gather(ds, dist.contiguous())
-    dist_.all_gather(rs, rows.contiguous())
-    return merge_topk(list(zip(ds, rs)), [0] * world, k, dist.device)
 
-
-def group_topk(mesh: Mesh, slots: Sequence[int], q: torch.Tensor,
-               rows_per_slot: int, k: int, search_slot):
-    """The local top-k of each slot of one group (`search_slot(slot, q on
-    the slot's device, k_local)` -> (dist, idx)), merged on the group's
-    first local slot's device; across processes, then merged with the
-    other processes' results. Launches run back to back, one device after
-    the other, with no host read until the caller's."""
+def groups_topk(mesh: Mesh, groups: Sequence[Sequence[int]],
+                qs: Sequence[torch.Tensor], rows_per_slot: int, k: int,
+                search_slot) -> list:
+    """The top-k of each group (its flat slots in shard order) over its
+    batch `qs[g]`: each local slot's top-k (`search_slot(slot, q on the
+    slot's device, k_local)` -> (dist, idx)), merged on the group's first
+    local slot's device. Across processes the groups' merged pairs then
+    meet in one exchange (`merge_processes`), so every process returns
+    every group's answer; every process calls this with the same groups
+    and batch shapes. Launches run back to back, one device after the
+    other, with no host read until the caller's."""
     devs = mesh.flat_devices()
-    mine = [(p, s) for p, s in enumerate(slots) if mesh.is_local(s)]
-    if not mine:
-        raise ValueError("this process owns no slot of the mesh")
     k_local = min(k, rows_per_slot)
-    parts, offsets, q_on = [], [], {}
-    for p, s in mine:
-        dev = devs[s]
-        if dev not in q_on:
-            q_on[dev] = q.to(dev, non_blocking=True)
-        with on_device(dev):
-            parts.append(search_slot(s, q_on[dev], k_local))
-        offsets.append(p * rows_per_slot)
-    merge_dev = devs[mine[0][1]]
-    with on_device(merge_dev):
-        dist, rows = merge_topk(parts, offsets, k, merge_dev)
-        if mesh.distributed:
-            dist, rows = merge_processes(dist, rows, k)
-    return dist, rows
+    parts, out_dev = [], None
+    for slots, q in zip(groups, qs):
+        mine = [(p, s) for p, s in enumerate(slots) if mesh.is_local(s)]
+        if not mine:
+            if not mesh.distributed:
+                raise ValueError("this process owns no slot of the mesh")
+            parts.append(None)
+            continue
+        slot_parts, offsets, q_on = [], [], {}
+        for p, s in mine:
+            dev = devs[s]
+            if dev not in q_on:
+                q_on[dev] = q.to(dev, non_blocking=True)
+            with on_device(dev):
+                slot_parts.append(search_slot(s, q_on[dev], k_local))
+            offsets.append(p * rows_per_slot)
+        merge_dev = devs[mine[0][1]]
+        out_dev = out_dev or merge_dev
+        with on_device(merge_dev):
+            parts.append(merge_topk(slot_parts, offsets, k, merge_dev))
+    if not mesh.distributed:
+        return parts
+    local = mesh.local_slots()
+    out_dev = out_dev or (devs[local[0]] if local else torch.device("cpu"))
+    q_rows = {int(q.shape[0]) for q in qs}
+    if len(q_rows) != 1:
+        raise ValueError(f"groups' batches differ in rows {sorted(q_rows)}")
+    return merge_processes(parts, q_rows.pop(), k, out_dev)
 
 
 def as_queries(queries) -> torch.Tensor:
@@ -190,5 +222,5 @@ def sharded_search(
 
     # the first copy of the shards answers (the reference's replicated
     # queries give every copy the same answer)
-    return group_topk(mesh, mesh.slot_grid(axis)[0].tolist(), q,
-                      rows_per_dev, k, search_slot)
+    return groups_topk(mesh, [mesh.slot_grid(axis)[0].tolist()], [q],
+                       rows_per_dev, k, search_slot)[0]

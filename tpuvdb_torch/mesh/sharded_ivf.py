@@ -5,7 +5,7 @@ Each shard position of the mesh owns a row range of the corpus and builds
 its own k-means cell structure over it (no global quantizer). A query goes
 to every slot; each slot scores its own centroids, probes its nprobe
 nearest cells plus its spill region, and the per-slot top-k candidates
-merge on the group's first slot (mesh/sharded.group_topk). On a 2-D
+merge on the group's first slot (mesh/sharded.groups_topk). On a 2-D
 (repl, shards) mesh every replica group holds its own copy of the cells
 and serves its slice of the batch.
 
@@ -27,8 +27,22 @@ A slot's IVFIndex carries no row map of its own. Appends and deletes write
 every replica of the owning shard in place and bump `version`.
 
 The reference's PQ cells take an XLA gather on its mesh; here they run the
-same PQ probe kernel as the single-device index. Within one process (a
-mesh across processes serves the flat index).
+same PQ probe kernel as the single-device index.
+
+Across processes (the reference's one program over a global mesh) every
+process builds the host tables of every shard and uploads only its own
+slots. The tables must be equal everywhere, and two steps of the build are
+float reductions in torch that nothing shows bit-reproducible between
+processes: k-means, and PQ / OPQ training. So each shard's k-means runs in
+one process (rank = shard mod world size, which spreads the work) and its
+centroid table is broadcast; the codebooks train on rank 0 and are
+broadcast. The rest (the bisection of oversized cells and the packing,
+host numpy) is arithmetic on equal inputs in every process, plus torch
+assignments and encodes, and a digest of every host table (and of
+the PQ codes the replicas upload) is all-gathered at the end of the build:
+a mismatch raises. Appends, deletes and filters update every process's host
+maps alike and write this process's replicas only; `stats()` and
+`nbytes()` sum over the processes (collectives: every process calls them).
 """
 
 from __future__ import annotations
@@ -44,7 +58,9 @@ from tpuvdb_torch.index.ivf import (IVFIndex, IVFStats, build_inverse_maps,
 from tpuvdb_torch.kernels import pq as pqk
 from tpuvdb_torch.kernels.kmeans import assign_blockwise, kmeans
 from tpuvdb_torch.kernels.quant import quantize_rows_np
-from tpuvdb_torch.mesh.mesh import Mesh
+from tpuvdb_torch.mesh.mesh import (Mesh, broadcast_from,
+                                    check_same_everywhere, digest,
+                                    sum_over_processes)
 from tpuvdb_torch.mesh.replicated import pad_to_groups, replicated_topk
 
 _NO_ROWS = np.empty(0, np.int64)  # a slot's IVFIndex keeps no row map
@@ -69,9 +85,6 @@ class ShardedIVFIndex:
                  repl_axis: Optional[str] = None,
                  pq_codebooks: Optional[np.ndarray] = None,
                  pq_rotation: Optional[np.ndarray] = None):
-        if mesh.distributed:
-            raise ValueError("the sharded IVF index runs on a mesh within "
-                             "one process")
         self.mesh = mesh
         self.axis = axis
         # 2-D (repl, shards) mesh: the cells are copied to every replica
@@ -108,8 +121,21 @@ class ShardedIVFIndex:
         return next(s for s in self.slots if s is not None)
 
     def _replicas(self, dev: int) -> list:
-        """The IVFIndex of every slot holding shard `dev`."""
-        return [self.slots[s] for s in self._grid[:, dev].tolist()]
+        """The IVFIndex of every slot of this process holding shard
+        `dev`."""
+        return [self.slots[s] for s in self._grid[:, dev].tolist()
+                if self.slots[s] is not None]
+
+    def host_digest(self) -> str:
+        """A hash of the host tables (centroids, cell offsets, lengths and
+        caps, row maps, spill cells, PQ codebooks and rotation): equal on
+        every process of a mesh."""
+        return digest(self.centroids, self.cell_offsets, self.cell_lens,
+                      self.cell_caps, self.row_ids, self.spill_row_ids,
+                      self.spill_cells, self._pq_codebooks,
+                      self._pq_rotation,
+                      np.asarray([self.cell_pad, self.nprobe,
+                                  self.rows_per_dev]))
 
     def centroids_np(self) -> np.ndarray:
         return self.centroids
@@ -150,8 +176,14 @@ class ShardedIVFIndex:
         per = n // ndev
         grid = mesh.slot_grid(axis)
         devs = mesh.flat_devices()
-        # each shard's training and encodes run on its first slot's device
-        shard_dev = [devs[s] for s in grid[0].tolist()]
+        # each shard's training and encodes run on its first local slot's
+        # device (or this process's first slot's, where it holds none)
+        local = mesh.local_slots()
+        shard_dev = [next((devs[s] for s in grid[:, dev].tolist()
+                           if mesh.is_local(s)),
+                          devs[local[0] if local else 0])
+                     for dev in range(ndev)]
+        world = (int(mesh.slot_ranks.max()) + 1 if mesh.distributed else 1)
         if pq_codebooks is not None and not pq_subq:
             pq_subq = pqk.pq_code_bytes(pq_codebooks)
         if pq_subq:
@@ -183,33 +215,46 @@ class ShardedIVFIndex:
                      or warm.shape[2] != d)):
             warm = None  # partition geometry changed: retrain
 
-        parts = []
+        trained = []
         for dev in range(ndev):
             lo = dev * per
             part_vec = vectors[lo:lo + per]
-            part_val = valid[lo:lo + per]
-            live = np.flatnonzero(part_val)
+            live = np.flatnonzero(valid[lo:lo + per])
             nl = max(1, min(nlist, max(1, len(live) // 4)))
             wc = None
             if warm is not None:
                 wc = warm[dev][_live_centroids(warm[dev])]  # drop pads
+            cents = None
             if len(live) == 0:
                 # 1e30 pads, not zeros: a zero table saved for an empty
                 # partition would pass the warm pad filter on a later
                 # restart and collapse the shard into one degenerate cell
                 cents = np.full((nlist, d), _PAD, np.float32)
+            elif wc is not None and len(wc):
+                # checkpoint warm start: this shard's trained centroids
+                # skip its k-means run
+                cents = np.asarray(wc, np.float32)
+            elif dev % world == mesh.rank:
+                cents, _ = kmeans(part_vec[live], np.ones(len(live), bool),
+                                  nlist=nl, iters=kmeans_iters,
+                                  block_size=4096, seed=seed + dev,
+                                  device=shard_dev[dev])
+            trained.append(cents)
+        # each trainer's table in every process, once all have trained
+        # (warm tables too: each process read its own checkpoint)
+        trained = [broadcast_from(mesh, c, dev % world)
+                   for dev, c in enumerate(trained)]
+
+        parts = []
+        for dev in range(ndev):
+            lo = dev * per
+            part_vec = vectors[lo:lo + per]
+            part_val = valid[lo:lo + per]
+            cents = trained[dev]
+            if not part_val.any():
                 assign = np.full(per, -1, np.int32)
             else:
-                if wc is not None and len(wc):
-                    # checkpoint warm start: this shard's trained
-                    # centroids skip its k-means run
-                    cents = np.asarray(wc, np.float32)
-                    nl = len(cents)
-                else:
-                    cents, _ = kmeans(part_vec[live],
-                                      np.ones(len(live), bool), nlist=nl,
-                                      iters=kmeans_iters, block_size=4096,
-                                      seed=seed + dev, device=shard_dev[dev])
+                nl = len(cents)
                 if nl < nlist:  # pad the centroid table to the common size
                     cents = np.concatenate(
                         [cents, np.full((nlist - nl, d), _PAD, np.float32)])
@@ -222,7 +267,7 @@ class ShardedIVFIndex:
                 assign = np.where(part_val, assign, -1).astype(np.int32)
             parts.append((part_vec, part_val, cents, assign, lo))
 
-        if pq_subq and pq_codebooks is None:
+        if pq_subq and pq_codebooks is None and mesh.rank == 0:
             # residual codebooks trained on x - c_assign pooled across
             # shards (global codebooks over per-shard coarse structures;
             # pre-split assignments: the residual distribution barely moves
@@ -251,6 +296,10 @@ class ShardedIVFIndex:
                 pq_codebooks = pqk.train_pq(pooled_res, m_subq=pq_m,
                                             seed=seed, n_codes=pq_j,
                                             device=shard_dev[0])
+        if pq_subq:
+            # rank 0's codebooks (trained or warm) in every process
+            pq_codebooks, pq_rotation = broadcast_from(
+                mesh, (pq_codebooks, pq_rotation), 0)
 
         # one scan window for every shard: pooled median x 1.25, then each
         # shard bisects its oversized cells and packs (index/ivf.py
@@ -383,7 +432,7 @@ class ShardedIVFIndex:
                     pq_codebooks=pq_codebooks,
                     spill_cells=scell[dev] if pq_subq else None,
                     pq_rotation=pq_rotation)
-        return cls(
+        idx = cls(
             mesh, axis, slots,
             centroids=cents_all,
             cell_offsets=offsets_all,
@@ -403,24 +452,43 @@ class ShardedIVFIndex:
             pq_rotation=(None if pq_rotation is None
                          else np.asarray(pq_rotation, np.float32)),
         )
+        # the PQ codes come from torch encodes in each process: a replica
+        # of a shard in another process must upload the same ones
+        check_same_everywhere(
+            mesh, "the sharded IVF index's host tables",
+            idx.host_digest() + (digest(grouped, gsq, spill, ssq)
+                                 if pq_subq else ""))
+        return idx
 
     # ------------------------------------------------------------ accounting
 
     def stats(self) -> IVFStats:
-        """Over one copy of the shards (a replica group)."""
-        group = [self.slots[s] for s in self._grid[0].tolist()]
-        gval = torch.cat([g.grouped_valid.cpu() for g in group])
+        """Over one copy of the shards (a replica group): each shard is
+        counted at its slot in the first group, by the process that owns
+        it, and summed over the processes."""
+        valid_g = total_g = valid_s = 0
+        for s in self._grid[0].tolist():
+            if self.slots[s] is not None:
+                g = self.slots[s]
+                valid_g += int(g.grouped_valid.sum())
+                total_g += int(g.grouped_valid.numel())
+                valid_s += int(g.spill_valid.sum())
+        valid_g, total_g, valid_s = sum_over_processes(
+            self.mesh, (valid_g, total_g, valid_s))
         return IVFStats(
             nlist=int(self.centroids.shape[0] * self.centroids.shape[1]),
             cell_pad=self.cell_pad,
-            spill_rows=int(sum(int(g.spill_valid.sum()) for g in group)),
-            grouped_rows=int(gval.numel()),
-            fill=float(gval.float().mean()),
+            spill_rows=valid_s,
+            grouped_rows=total_g,
+            fill=valid_g / max(total_g, 1),
         )
 
     def nbytes(self) -> int:
-        """Device bytes over every slot, every replica counted."""
-        return sum(s.nbytes() for s in self.slots if s is not None)
+        """Device bytes over every slot of the mesh, every replica
+        counted (summed over the processes)."""
+        return sum_over_processes(
+            self.mesh, [sum(s.nbytes() for s in self.slots
+                            if s is not None)])[0]
 
     # ------------------------------------------------------------- mutations
 
@@ -596,6 +664,8 @@ class ShardedIVFIndex:
         for dev in range(self.row_ids.shape[0]):
             for s in self._grid[:, dev].tolist():
                 rep = self.slots[s]
+                if rep is None:
+                    continue  # another process's slot
                 masks = []
                 for valid, pos in ((rep.grouped_valid, g_by.get(dev)),
                                    (rep.spill_valid, s_by.get(dev))):

@@ -319,12 +319,24 @@ class WriteAheadLog:
 
     def truncate_through(self, seq: int) -> int:
         """Remove whole segments whose records all have LSN <= seq
-        (post-checkpoint GC). Returns number of segments removed."""
+        (post-checkpoint GC). Returns number of segments removed. When seq
+        covers every record written, the active segment is closed and
+        removed too, and the next append starts a new one: a reopen then
+        reads no record the checkpoint holds (the reference keeps the
+        active segment, so one large batch stays in it until it rotates)."""
         removed = 0
         with self._lock:
             # marker BEFORE deletion: a crash in between must never let the
             # LSN counter regress below records a checkpoint covers
             self._write_seq_marker_locked()
+            if self._fh is not None and self.last_seq <= seq:
+                # every record of the active segment is covered: close and
+                # remove it without reading it back
+                self._fh.close()
+                self._fh = None  # append opens the next segment
+                os.remove(self._cur_path)
+                self._cur_path = None
+                removed += 1
             for path in self._segments():
                 if path == self._cur_path:
                     continue
