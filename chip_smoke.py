@@ -335,10 +335,11 @@ the native rescore, and, with a data_dir, the native WAL writer.
               adaptive counters equal; each form's time (fastest of 3) and
               the rows and bytes read are printed.
 
-  capacity    Last, after the mesh phase: capacity_engine and capacity_pq
-              set keep_malloc_warm (a process-wide mallopt, as the
-              reference's scripts do), so no phase's host times are taken
-              after it. The latency and capacity benches in this process
+  capacity    After the mesh phase: capacity_engine and capacity_pq set
+              keep_malloc_warm (a process-wide mallopt, as the reference's
+              scripts do), so only the ops phase runs after it (its
+              cluster in processes of its own; its wire bench and serving
+              A/B in this process, under the mallopt). The latency and capacity benches in this process
               through their main(argv, device="cuda"), stdout captured,
               each one's engine and arrays freed before the next (the
               anonymous RSS is printed after each). bench/latency.py at the
@@ -347,7 +348,7 @@ the native rescore, and, with a data_dir, the native WAL writer.
               ivf --mode approx (the f32 probe's launches > 0); three lines
               each with the reference's keys and a positive p50
               (`launches_by_path` "latency"). Then each capacity bench at
-              its CAPACITY_ROWS rows (500,000, cut from 8,000,000 to fit
+              its CAPACITY_ROWS rows (250,000, cut from 8,000,000 to fit
               the run's time limit; every other width is the
               reference's): bench/capacity.py (the rescored paths' recall
               >= 0.95, the plain int8 recalls printed), capacity_engine.py
@@ -372,8 +373,45 @@ the native rescore, and, with a data_dir, the native WAL writer.
               examples: `python -m tpuvdb_torch.examples.quickstart` as a
               process in a temp working directory (exit 0, img_01234.jpg
               first) and sharded_serving.main on four slots of the card
-              (self-retrieval 64/64). `capacity_alone(rows)` runs the
-              capacity benches alone at any rows (8,000,000 is theirs).
+              (self-retrieval 64/64). capacity_ivf's corpus and oracle
+              cache ($TPUVDB_BENCH_CACHE) and its index, and capacity_pq's
+              data dir, are kept for the ops phase. `capacity_alone(rows)`
+              runs the capacity benches alone at any rows (8,000,000 is
+              theirs); with diag=True each is followed by its diagnostic
+              (below) on what it kept.
+  ops         Last, the port's ops scripts and the last reference scripts.
+              tpuvdb_torch/scripts/start_cluster.sh demo with
+              TPUVDB_DEVICE=cuda on free ports and a temp cluster dir: a
+              coordinator and 3 `serve` processes on the card (512-d
+              default config), 8 seeded keys put through the coordinator,
+              `search -k 1`, node0 killed, 7 s, all 8 gets, a search
+              again, stop; every CLI call a new process. It must exit 0,
+              print FAILOVER OK and give key3 as top-1 before and after
+              the kill. A thread polls the processes while it runs: each
+              node's info RPC must show device cuda:0, device_rows > 0
+              and a search.device count that rose over the demo;
+              nvidia-smi --query-compute-apps must list the node
+              processes. Printed: each process's start-up seconds (its
+              pidfile to its first answer) and card memory, the seconds
+              from node0's kill to the coordinator marking it offline,
+              the seconds of a put / search / get CLI process beside the
+              nodes' search.device p50. After `stop` no process of the cluster may be left.
+              bench/wire.py at OPS_WIRE_ROWS x 512 (10,000 of its default
+              100,000, cut to fit the run's time limit):
+              each wire's timed export counts every row, sync_all
+              succeeds, its JSON line. bench/serving_ab.py at OPS_AB_ROWS
+              x 128 (250,000 of its default 1,000,000, cut to fit the
+              run's time limit), b32 and b512, 8 threads: for
+              each batch the coalesced engine's first answer equals the
+              direct engine's (distances within rtol 1e-5, keys equal
+              outside exact ties), the scan's launches > 0. Then
+              diag_pq_recall on capacity_pq's kept data dir (nprobe 16, 64
+              and the one it served x overfetch 10, 40, 100): the recall at
+              the setting capacity_pq served equals what it printed, the PQ
+              probe's launches > 0; and diag_ivf_b1 on capacity_ivf's kept
+              cache and index (the b1 split, recall@10; its approx and cps
+              variants "n/a"), the int8 probe's launches > 0. The phase's
+              seconds are printed.
 At the end a table gives each engine's b1 and b256 stage p50s
 (search.device, search.assemble, search.rescore), p50 and idle share.
 The last two lines of standard output are the card's name and power limit
@@ -509,12 +547,13 @@ BENCH_STREAMING_KEYS = {"metric", "value", "unit", "vs_baseline",
 # 8,000,000 so the whole run stays inside its 1,200 s limit beside the
 # mesh phase's processes (at 8M the four take about 33 min on the card's
 # machine, mostly host work; at 1,000,000 rows, 500,000 for capacity_ivf,
-# the run took 1,168 s: PERF.md section 4). capacity_ivf's build's host
-# bisection grows faster than its rows (24 s at 500,000 rows, ~1,000 s at
-# 8M). dim, code bytes, nlist, nprobe, k and the batches are the benches'
-# own; capacity_alone(rows) runs them at any size
-CAPACITY_ROWS = {"capacity": 500_000, "capacity_engine": 500_000,
-                 "capacity_ivf": 500_000, "capacity_pq": 500_000}
+# the run took 1,168 s; 250,000 since the ops phase came after them:
+# PERF.md section 4). capacity_ivf's build's host bisection grows faster
+# than its rows (24 s at 500,000 rows, ~1,000 s at 8M). dim, code bytes,
+# nlist, nprobe, k and the batches are the benches' own;
+# capacity_alone(rows) runs them at any size
+CAPACITY_ROWS = {"capacity": 250_000, "capacity_engine": 250_000,
+                 "capacity_ivf": 250_000, "capacity_pq": 250_000}
 LATENCY_RUNS = (("approx", "flat"), ("int8", "flat"), ("approx", "ivf"))
 LATENCY_KEYS = {"metric", "unit", "value", "per_query_p50_ms", "p99_ms",
                 "mode", "index", "dispatch_floor_ms", "p50_minus_dispatch_ms",
@@ -543,12 +582,29 @@ CAPACITY_PQ_KEYS = {"metric", "rows", "dim", "pq_subq", "pq_bits", "nprobe",
 # default window of 640 candidates and 0.9719 at 1,280 (--overfetch 128)
 CAPACITY_PQ_DATA_RECALL = 0.9781
 CAPACITY_HOLD_QS = {"capacity_ivf": (8, 128), "capacity_pq": (8, 256)}
+# the ops phase (after the capacity phase): the port's ops scripts and the
+# last reference scripts
+OPS_NODES = 3            # start_cluster.sh demo's data nodes
+OPS_DEMO_TIMEOUT = 600   # seconds the demo may take
+OPS_POLL_S = 0.02        # the cluster poller's interval
+# bench/wire.py at 10,000 rows of its default 100,000: at 100,000 its
+# JSON export alone took 65.3 s (PERF.md section 4)
+OPS_WIRE_ROWS = 10_000
+# bench/serving_ab.py at 250,000 rows of its default 1,000,000 (17.3 s
+# there, PERF.md section 4)
+OPS_AB_ROWS = 250_000
+OPS_PQ_NPROBES = (16, 64)   # diag_pq_recall's defaults, plus the served one
+WIRE_KEYS = {"metric", "rows", "dim", "payload_mb", "export_json_s",
+             "export_json_mb_s", "export_binary_s", "export_binary_mb_s",
+             "export_speedup", "sync_all_2node_s", "sync_all_peak_records"}
 MESH_SLOTS = 4           # slots of the one card (a device may repeat)
 MESH_ODD_BATCH = 255     # pads to the replica groups
 MESH_REPS = 20           # closed-loop searches of each IVF mesh batch
 # IVF / IVF-PQ depth on the mesh, in process and across processes: cut
 # from 1,000,000 so the run ends inside its 1,200 s on a slow host (at 1M
-# it took 1,139.9 s, the mesh phase 366.4 s of it: PERF.md section 4)
+# it took 1,139.9 s, the mesh phase 366.4 s of it: PERF.md section 4).
+# At 250,000 the delta-overflow write check's rows drain by a rebuild,
+# not the append it checks for
 MESH_IVF_ROWS = 500_000
 NCCL_ROWS = 1 << 18      # the corpus of the NCCL process-mesh check
 SMEM_BYTES_PER_CLOCK = 128  # an SM's shared memory: 32 banks x 4 bytes
@@ -2164,7 +2220,7 @@ def phase_bench(scan, ivf_probe) -> dict:
 # ------------------------------------------------------------ capacity phase
 
 
-def _run_bench(module, argv: list) -> dict:
+def _run_bench(module, argv: list, phase: str = "capacity") -> dict:
     """module.main(argv, device="cuda") in this process with its stdout
     and stderr captured (stderr is echoed after): its JSON lines, stderr,
     seconds and what main returned. What it left on the card is freed
@@ -2182,7 +2238,7 @@ def _run_bench(module, argv: list) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     name = module.__name__.rsplit(".", 1)[-1]
-    log(f"capacity phase: {name} {' '.join(argv)} took {wall:.1f} s; "
+    log(f"{phase} phase: {name} {' '.join(argv)} took {wall:.1f} s; "
         f"anonymous RSS after it {anon_gb():.2f} GB (hostmem.anon_gb; -1 "
         f"where /proc/self/smaps_rollup is missing), {_status_rss()}")
     return {"lines": [json.loads(line) for line in
@@ -2282,11 +2338,25 @@ def _capacity_engine(rows: int) -> dict:
     return {"line": line, "wall_s": run["wall_s"]}
 
 
-def _capacity_ivf(ivf_probe, rows: int) -> dict:
-    from tpuvdb_torch.bench import capacity_ivf
+def _capacity_ivf(ivf_probe, rows: int, args: tuple = (),
+                  keep: str = None) -> dict:
+    """capacity_ivf.py at `rows` (`args` beside them); with `keep` its
+    corpus and oracle are cached there ($TPUVDB_BENCH_CACHE) and the index
+    it built is written there as diag_ivf_b1's cached index."""
+    from tpuvdb_torch.bench import capacity_ivf, diag_ivf_b1
+    from tpuvdb_torch.index.ivf import IVFIndex
 
     ivf_probe.LAUNCHES_EXPANDED_INT8 = 0
-    run = _run_bench(capacity_ivf, ["--rows", str(rows)])
+    before = os.environ.get("TPUVDB_BENCH_CACHE")
+    if keep:
+        os.environ["TPUVDB_BENCH_CACHE"] = keep
+    try:
+        run = _run_bench(capacity_ivf, ["--rows", str(rows), *args])
+    finally:
+        if before is None:
+            os.environ.pop("TPUVDB_BENCH_CACHE", None)
+        else:
+            os.environ["TPUVDB_BENCH_CACHE"] = before
     launches = ivf_probe.LAUNCHES_EXPANDED_INT8
     line = run["lines"][-1]
     log("capacity_ivf JSON line " + json.dumps(line))
@@ -2314,6 +2384,15 @@ def _capacity_ivf(ivf_probe, rows: int) -> dict:
     if launches <= 0:
         raise AssertionError("capacity_ivf never launched the int8 probe")
     _, idx = run.pop("returned")
+    if keep:
+        t0 = time.perf_counter()
+        with open(os.path.join(keep, "capacity_ivf.json"), "w") as f:
+            f.write(json.dumps(line))
+        np.savez(os.path.join(keep, diag_ivf_b1.index_file_name(
+            line["rows"], line["dim"], 4096)),
+            **IVFIndex.packed_fetch(idx.packed_capture()))
+        log(f"capacity_ivf: index kept for diag_ivf_b1 in "
+            f"{time.perf_counter() - t0:.1f} s")
     mask = torch.zeros(idx.grouped_valid.shape, device=idx.device
                        ).masked_fill_(~idx.grouped_valid, ivf_probe.NEG_INF)
     rows_out = []
@@ -2333,17 +2412,21 @@ def _capacity_ivf(ivf_probe, rows: int) -> dict:
 
 
 def _capacity_pq(pq_probe, rows: int, sm_clocks: float,
-                 args: tuple = ()) -> dict:
-    """capacity_pq.py at `rows` with its defaults, or `args` beside them;
-    then the PQ probe against its twin on the index the bench ends with
-    (the restarted engine's)."""
+                 args: tuple = (), keep: str = None) -> dict:
+    """capacity_pq.py at `rows` with its defaults, or `args` beside them
+    (with `keep`, its data dir is kept at keep/pq); then the PQ probe
+    against its twin on the index the bench ends with (the restarted
+    engine's)."""
     from tpuvdb_torch.bench import capacity_pq
 
     pq_probe.LAUNCHES_PQ = 0
+    kept = ["--data-dir", os.path.join(keep, "pq")] if keep else []
     with tempfile.TemporaryDirectory() as tmp:
-        out_file = os.path.join(tmp, "capacity_pq.json")
-        run = _run_bench(capacity_pq, ["--rows", str(rows), *args, "--out",
-                                       out_file])
+        # kept, the file holds the stages the bench finished even when a
+        # check below fails: the diagnostic reads what it served
+        out_file = os.path.join(keep or tmp, "capacity_pq.json")
+        run = _run_bench(capacity_pq, ["--rows", str(rows), *args, *kept,
+                                       "--out", out_file])
         with open(out_file) as f:
             written = json.loads(f.read())
     launches = pq_probe.LAUNCHES_PQ
@@ -2426,19 +2509,24 @@ def _capacity_examples() -> dict:
 
 
 def capacity_benches(ivf_probe, pq_probe, sm_clocks: float, rows: dict,
-                     pq_args: tuple = ()) -> dict:
+                     pq_args: tuple = (), ivf_args: tuple = (),
+                     keep: str = None) -> dict:
     """The capacity benches named in `rows`, in its order, each at its
-    --rows (capacity_pq with `pq_args` beside them)."""
+    --rows (capacity_pq with `pq_args` beside them, capacity_ivf with
+    `ivf_args`); with `keep`, capacity_ivf's cache and index and
+    capacity_pq's data dir are kept there for the diagnostics."""
     run = {"capacity": _capacity_raw,
            "capacity_engine": _capacity_engine,
-           "capacity_ivf": lambda n: _capacity_ivf(ivf_probe, n),
+           "capacity_ivf": lambda n: _capacity_ivf(ivf_probe, n,
+                                                   tuple(ivf_args), keep),
            "capacity_pq": lambda n: _capacity_pq(pq_probe, n, sm_clocks,
-                                                 tuple(pq_args))}
+                                                 tuple(pq_args), keep)}
     return {name: run[name](n) for name, n in rows.items()}
 
 
 def capacity_alone(rows: int, benches=tuple(CAPACITY_ROWS),
-                   pq_args: tuple = ()) -> dict:
+                   pq_args: tuple = (), ivf_args: tuple = (),
+                   diag: bool = False) -> dict:
     """The capacity benches alone, each at `rows` rows, after the builds
     they need; every check of the capacity phase holds. At the benches'
     own 8,000,000 rows the four take about 33 minutes:
@@ -2447,7 +2535,13 @@ def capacity_alone(rows: int, benches=tuple(CAPACITY_ROWS),
     re-rank window (640 = 10 x k); the reference's record of 16M rows
     widens it to 1,280 (docs/BENCH_PQ16M_r5.json, "window_tune"):
     capacity_alone(8_000_000, ["capacity_pq"],
-                   pq_args=["--overfetch", "128"])"""
+                   pq_args=["--overfetch", "128"])
+    With `diag` each diagnostic follows its bench, on what the bench kept:
+    diag_pq_recall on capacity_pq's data dir (its recall grid, nprobe x
+    overfetch), diag_ivf_b1 on capacity_ivf's cached corpus and index:
+    capacity_alone(8_000_000, ["capacity_pq"], diag=True)
+    capacity_alone(10_000_000, ["capacity_ivf"], ivf_args=["--dim", "96"],
+                   diag=True)"""
     sys.path.insert(0, ROOT)
     from tpuvdb_torch.kernels import ivf_probe, pq_probe, scan
 
@@ -2458,21 +2552,421 @@ def capacity_alone(rows: int, benches=tuple(CAPACITY_ROWS),
         host.result()
     sm_clocks = (torch.cuda.get_device_properties(0).multi_processor_count
                  * _sm_clock_hz())
-    out = capacity_benches(ivf_probe, pq_probe, sm_clocks,
-                           {name: rows for name in benches}, pq_args)
-    log(_card())
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_keep_",
+                                     dir=ROOT) as keep:
+        try:
+            out = capacity_benches(ivf_probe, pq_probe, sm_clocks,
+                                   {name: rows for name in benches},
+                                   pq_args, ivf_args, keep if diag else None)
+        finally:
+            # the diagnostics read what the benches kept, also where a
+            # bench's own check failed after it: they diagnose such misses
+            if diag:
+                diagnosed = ops_diagnostics(ivf_probe, pq_probe, keep,
+                                            tuple(pq_args))
+            log(_card())
+    out["diag"] = diagnosed if diag else None
     return out
 
 
-def phase_capacity(scan, ivf_probe, pq_probe, sm_clocks: float) -> dict:
+def phase_capacity(scan, ivf_probe, pq_probe, sm_clocks: float,
+                   keep: str) -> dict:
     """The latency and capacity benches and the examples (see the module
-    docstring); each capacity bench at its CAPACITY_ROWS."""
+    docstring); each capacity bench at its CAPACITY_ROWS, capacity_ivf's
+    cache and index and capacity_pq's data dir kept in `keep` for the ops
+    phase's diagnostics."""
     t0 = time.perf_counter()
     out = {"latency": _capacity_latency(scan, ivf_probe),
-           **capacity_benches(ivf_probe, pq_probe, sm_clocks, CAPACITY_ROWS),
+           **capacity_benches(ivf_probe, pq_probe, sm_clocks, CAPACITY_ROWS,
+                              keep=keep),
            "examples": _capacity_examples()}
     out["phase_s"] = time.perf_counter() - t0
     log(f"capacity phase {out['phase_s']:.1f} s: " + json.dumps(
+        {k: round(v["wall_s"], 1) for k, v in out.items()
+         if isinstance(v, dict) and "wall_s" in v}))
+    return out
+
+
+# ----------------------------------------------------------------- ops phase
+
+
+def _nvidia_apps() -> dict:
+    """The card's compute processes (nvidia-smi --query-compute-apps: a
+    line each) and its memory in use, MiB. In a container whose pids
+    nvidia-smi cannot map, every process shows as pid 1 with the card's
+    whole memory: the lines count the processes, and only the card's total
+    splits between them."""
+    apps = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True)
+    used = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True)
+    return {"lines": apps.stdout.strip().splitlines(),
+            "used_mib": float(used.stdout.strip().splitlines()[0])}
+
+
+def _pid_alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except OSError:
+        return False
+    return True
+
+
+class _ClusterWatch(threading.Thread):
+    """Polls a running start_cluster.sh every OPS_POLL_S: each process's
+    pidfile (its start) and first /healthz answer, each node's info RPC
+    (the first and the last it answered), the coordinator's node list
+    (when node0 goes offline), node0's pidfile (the demo removes it as it
+    kills node0) and, once every node holds rows, nvidia-smi's compute
+    processes."""
+
+    def __init__(self, cluster_dir: str, coord_port: int, base_port: int):
+        super().__init__(daemon=True)
+        self.dir, self.coord = cluster_dir, f"127.0.0.1:{coord_port}"
+        self.nodes = {f"node{i}": f"127.0.0.1:{base_port + i}"
+                      for i in range(OPS_NODES)}
+        self.t0 = time.perf_counter()
+        self.stop = threading.Event()
+        self.pids, self.started, self.healthy = {}, {}, {}
+        self.first_info, self.last_info = {}, {}
+        self.apps = None
+        self.node0_gone = self.node0_offline = None
+
+    def _now(self) -> float:
+        return time.perf_counter() - self.t0
+
+    def run(self):
+        import http.client
+
+        from tpuvdb_torch.api.client import DBClient
+
+        clients = {}
+        addrs = {"coordinator": self.coord, **self.nodes}
+        while not self.stop.is_set():
+            for name, addr in addrs.items():
+                pidfile = os.path.join(self.dir, "pids", f"{name}.pid")
+                if name not in self.pids and os.path.exists(pidfile):
+                    with open(pidfile) as f:
+                        text = f.read().strip()
+                    if text:
+                        self.pids[name] = int(text)
+                        self.started[name] = (os.stat(pidfile).st_mtime
+                                              - time.time() + self._now())
+                if name == "node0" and name in self.pids and \
+                        self.node0_gone is None and \
+                        not os.path.exists(pidfile):
+                    self.node0_gone = self._now()
+                if name not in self.pids:
+                    continue
+                if name not in clients:
+                    clients[name] = DBClient(addr, timeout=1.0)
+                try:
+                    if name == "coordinator":
+                        r = clients[name].call("list_nodes", {})
+                        self.healthy.setdefault(name, self._now())
+                        offline = {n["node_id"] for n in r.get("nodes", [])
+                                   if not n["online"]}
+                        if "node0" in offline and self.node0_offline is None:
+                            self.node0_offline = self._now()
+                        continue
+                    info = clients[name].call("info", {})["info"]
+                except (OSError, http.client.HTTPException, KeyError,
+                        ValueError):
+                    continue
+                self.healthy.setdefault(name, self._now())
+                self.first_info.setdefault(name, info)
+                self.last_info[name] = info
+            if self.apps is None and len(self.last_info) == OPS_NODES and \
+                    all(i["device_rows"] > 0 and i["docs"] > 0
+                        for i in self.last_info.values()):
+                self.apps = _nvidia_apps()
+            time.sleep(OPS_POLL_S)
+
+
+def _search_count(info: dict) -> int:
+    return info["latency"].get("search.device", {}).get("count", 0)
+
+
+def _ops_cluster(device: str = "cuda") -> dict:
+    """tpuvdb_torch/scripts/start_cluster.sh demo on the card (a
+    coordinator and OPS_NODES serve processes, TPUVDB_DEVICE=cuda), watched
+    while it runs; then `stop`."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_ops_", dir=ROOT)
+    cluster = os.path.join(work, "cluster")
+    script = os.path.join(ROOT, "tpuvdb_torch", "scripts",
+                          "start_cluster.sh")
+    coord_port = _free_port()
+    base_port = _free_port_block(OPS_NODES)
+    env = dict(os.environ, TPUVDB_CLUSTER_DIR=cluster,
+               TPUVDB_COORD_PORT=str(coord_port),
+               TPUVDB_NODE_BASE_PORT=str(base_port), TPUVDB_DEVICE=device,
+               TPUVDB_PYTHON=sys.executable, PYTHONPATH=ROOT)
+    watch = _ClusterWatch(cluster, coord_port, base_port)
+    before = _nvidia_apps()
+    proc = subprocess.Popen(["bash", script, "demo"], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    watch.t0 = time.perf_counter()
+    watch.start()
+    lines = []
+    try:
+        timer = threading.Timer(OPS_DEMO_TIMEOUT, proc.kill)
+        timer.start()
+        for line in proc.stdout:
+            lines.append((watch._now(), line.rstrip("\n")))
+        rc = proc.wait()
+        timer.cancel()
+    finally:
+        watch.stop.set()
+        watch.join()
+        stop = subprocess.run(["bash", script, "stop"], cwd=ROOT, env=env,
+                              capture_output=True, text=True, timeout=60)
+        deadline = time.monotonic() + 60
+        while any(_pid_alive(p) for p in watch.pids.values()) and \
+                time.monotonic() < deadline:
+            time.sleep(0.2)
+        left = {n: p for n, p in watch.pids.items() if _pid_alive(p)}
+        for p in left.values():
+            os.kill(p, 9)
+        logs = {}
+        for name in os.listdir(os.path.join(cluster, "logs")) if \
+                os.path.isdir(os.path.join(cluster, "logs")) else ():
+            with open(os.path.join(cluster, "logs", name)) as f:
+                logs[name] = f.read()[-2000:]
+        shutil.rmtree(work, ignore_errors=True)
+    out = "\n".join(text for _, text in lines)
+    log("ops cluster demo output:\n" + out)
+    if rc != 0 or "FAILOVER OK" not in out:
+        raise AssertionError(f"start_cluster.sh demo exited {rc}; logs "
+                             f"{json.dumps(logs)}")
+    # "1 | key3 | -0.000061 | {}": rank, key, distance, metadata
+    top1 = re.findall(r"^1\s*\|\s*(\S+)\s*\|\s*-?[0-9.]+\s*\|", out,
+                      re.M)
+    if top1 != ["key3", "key3"]:
+        raise AssertionError(f"demo top-1 before and after the kill: {top1}")
+    if left:
+        raise AssertionError(f"processes left after stop: {left}")
+    if stop.returncode != 0:
+        raise AssertionError(f"start_cluster.sh stop exited "
+                             f"{stop.returncode}: {stop.stderr}")
+    at = {}
+    for t, text in lines:
+        for mark in ("--- ingesting", "--- search works", "--- killing",
+                     "--- every key", "FAILOVER OK", "cluster stopped"):
+            if text.startswith(mark):
+                at.setdefault(mark, t)
+    nodes = {}
+    for name in watch.nodes:
+        first, last = watch.first_info.get(name), watch.last_info.get(name)
+        if last is None:
+            raise AssertionError(f"{name} never answered info")
+        searches = _search_count(last) - _search_count(first)
+        # one card: "cuda" is cuda:0
+        on = torch.device(last["device"])
+        if not (on.type == device and on.index in (None, 0)
+                and last["device_rows"] > 0
+                and searches > 0):
+            raise AssertionError(
+                f"{name}: device {last['device']}, device_rows "
+                f"{last['device_rows']}, search.device count "
+                f"{_search_count(first)} -> {_search_count(last)}")
+        nodes[name] = {
+            "pid": watch.pids[name],
+            "startup_s": watch.healthy[name] - watch.started[name],
+            "docs": last["docs"], "device_rows": last["device_rows"],
+            "searches": searches,
+            "search_device_p50_ms": last["latency"]["search.device"][
+                "p50_ms"]}
+    apps = watch.apps
+    if apps is None or len(apps["lines"]) < len(before["lines"]) + len(
+            nodes):
+        raise AssertionError(f"nvidia-smi --query-compute-apps lists "
+                             f"{apps} with the nodes up, {before} before: "
+                             f"not the {len(nodes)} node processes")
+    if watch.node0_gone is None or watch.node0_offline is None:
+        raise AssertionError("node0's kill or its offline mark was not seen")
+    res = {
+        "nodes": nodes,
+        "coordinator_startup_s": (watch.healthy["coordinator"]
+                                  - watch.started["coordinator"]),
+        "kill_to_offline_s": watch.node0_offline - watch.node0_gone,
+        "compute_apps": [len(before["lines"]), len(apps["lines"])],
+        # the card's memory in use with the nodes up less before, a node
+        "node_card_mib": (apps["used_mib"] - before["used_mib"])
+        / len(nodes),
+        # 8 `put` client processes, one `search`, 8 `get`s after the sleep
+        "put_cli_s": (at["--- search works"] - at["--- ingesting"]) / 8,
+        "search_cli_s": at["--- killing"] - at["--- search works"],
+        "get_cli_s": (at["FAILOVER OK"] - at["--- every key"]) / 8,
+        "demo_s": at["cluster stopped"]}
+    log("ops cluster on the card: " + json.dumps(res))
+    return res
+
+
+def _free_port_block(n: int) -> int:
+    """The first of n consecutive free localhost ports."""
+    import socket
+
+    for base in range(_free_port(), 65536 - n):
+        socks = []
+        try:
+            for port in range(base, base + n):
+                s = socket.socket()
+                socks.append(s)
+                s.bind(("127.0.0.1", port))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    raise AssertionError("no block of free ports")
+
+
+def _ops_wire(rows: int) -> dict:
+    from tpuvdb_torch.bench import wire
+
+    counts = []
+    export_all = wire.export_all
+
+    def counted(client, limit=wire.PAGE):
+        n = export_all(client, limit)
+        counts.append({"binary": client.binary, "limit": limit, "n": n})
+        return n
+
+    wire.export_all = counted
+    try:
+        run = _run_bench(wire, ["--rows", str(rows)], phase="ops")
+    finally:
+        wire.export_all = export_all
+    line = run["lines"][-1]
+    log("ops wire JSON line " + json.dumps(line))
+    if set(line) != WIRE_KEYS or line["rows"] != rows:
+        raise AssertionError(f"wire: {line}")
+    timed = [c for c in counts if c["limit"] == wire.PAGE]
+    if [(c["binary"], c["n"]) for c in timed] != [(False, rows),
+                                                   (True, rows)]:
+        raise AssertionError(f"wire: export counts {counts}")
+    if not line["sync_all_peak_records"] > 0:
+        raise AssertionError(f"wire: sync_all {line}")
+    return {"line": line, "wall_s": run["wall_s"], "exports": counts}
+
+
+def _ops_serving_ab(scan, rows: int) -> dict:
+    from tpuvdb_torch.bench import serving_ab
+
+    scan.LAUNCHES = 0
+    run = _run_bench(serving_ab, ["--rows", str(rows)], phase="ops")
+    launches = scan.LAUNCHES
+    line, answers = run["returned"]
+    log("ops serving_ab JSON line " + json.dumps(line))
+    if list(line["ab"]) != ["b32_direct", "b32_coalesce", "b512_direct",
+                            "b512_coalesce"]:
+        raise AssertionError(f"serving_ab: {line}")
+    ties = {}
+    for b in (32, 512):
+        d_dir, k_dir = answers[f"b{b}_direct"]
+        d_co, k_co = answers[f"b{b}_coalesce"]
+        d_dir, d_co = np.asarray(d_dir), np.asarray(d_co)
+        diff = [(i, j) for i in range(b) for j in range(10)
+                if k_co[i][j] != k_dir[i][j]]
+        near = np.abs(d_co - d_dir) <= TOPK_RTOL * np.abs(d_dir)
+        if not near.all() or any(d_co[i, j] != d_dir[i, j]
+                                 for i, j in diff):
+            raise AssertionError(f"serving_ab b{b}: the coalesced answer "
+                                 f"differs outside exact ties at {diff}")
+        ties[b] = len(diff)
+    if launches <= 0:
+        raise AssertionError("serving_ab never launched the scan kernel")
+    log(f"serving_ab: coalesced keys equal to direct (exact-tie swaps "
+        f"{ties}); scan launches {launches}")
+    return {"line": line, "wall_s": run["wall_s"], "launches": launches,
+            "tie_swaps": ties}
+
+
+def ops_diagnostics(ivf_probe, pq_probe, keep: str,
+                    pq_args: tuple = ()) -> dict:
+    """diag_pq_recall on capacity_pq's kept data dir and diag_ivf_b1 on
+    capacity_ivf's kept cache, for whichever of the two left them (a bench
+    whose own checks failed after it kept them included); the PQ grid at
+    the setting capacity_pq served must give its recall unless `pq_args`
+    changed its window."""
+    from tpuvdb_torch.bench import diag_ivf_b1, diag_pq_recall
+
+    out = {}
+    pq_line = os.path.join(keep, "capacity_pq.json")
+    if os.path.exists(pq_line):
+        with open(pq_line) as f:
+            served = json.loads(f.read())
+        nprobes = sorted({*OPS_PQ_NPROBES, served["nprobe"]})
+        pq_probe.LAUNCHES_PQ = 0
+        run = _run_bench(diag_pq_recall, [
+            "--data-dir", os.path.join(keep, "pq"), "--rows",
+            str(served["rows"]), "--nprobes", ",".join(map(str, nprobes))],
+            phase="ops")
+        launches = pq_probe.LAUNCHES_PQ
+        grid = run["lines"][-1]["results"]
+        log("diag_pq_recall JSON line " + json.dumps(run["lines"][-1]))
+        at = grid[f"np{served['nprobe']}_ov10"]["recall_at_10"]
+        log(f"diag_pq_recall on {_card()} at {served['rows']} rows: the "
+            f"served setting (nprobe {served['nprobe']}, window 640) "
+            f"{at}, capacity_pq printed {served['recall_at_10']}; PQ probe "
+            f"launches {launches}")
+        if not pq_args and at != served["recall_at_10"]:
+            raise AssertionError(f"diag_pq_recall: {at} at capacity_pq's "
+                                 f"setting, which printed "
+                                 f"{served['recall_at_10']}")
+        if launches <= 0:
+            raise AssertionError("diag_pq_recall never launched the PQ "
+                                 "probe")
+        out["pq_recall"] = {"grid": grid, "launches": launches,
+                            "wall_s": run["wall_s"]}
+    ivf_line = os.path.join(keep, "capacity_ivf.json")
+    if os.path.exists(ivf_line):
+        with open(ivf_line) as f:
+            line = json.loads(f.read())
+        ivf_probe.LAUNCHES_EXPANDED_INT8 = 0
+        ivf_probe.LAUNCHES_COMPACT_INT8 = 0
+        before = os.environ.get("TPUVDB_BENCH_CACHE")
+        os.environ["TPUVDB_BENCH_CACHE"] = keep
+        try:
+            run = _run_bench(diag_ivf_b1, ["--rows", str(line["rows"]),
+                                           "--dim", str(line["dim"])],
+                             phase="ops")
+        finally:
+            if before is None:
+                os.environ.pop("TPUVDB_BENCH_CACHE", None)
+            else:
+                os.environ["TPUVDB_BENCH_CACHE"] = before
+        launches = {"expanded": ivf_probe.LAUNCHES_EXPANDED_INT8,
+                    "compact": ivf_probe.LAUNCHES_COMPACT_INT8}
+        b1 = run["lines"][-1]
+        log(f"diag_ivf_b1 on {_card()} JSON line " + json.dumps(b1))
+        if "packed index loaded" not in run["stderr"]:
+            raise AssertionError("diag_ivf_b1 did not take the kept index")
+        log(f"diag_ivf_b1: int8 probe launches {json.dumps(launches)}")
+        if launches[b1["base"]["form"]] <= 0:
+            raise AssertionError("diag_ivf_b1 never launched the int8 probe")
+        out["ivf_b1"] = {"line": b1, "launches": launches,
+                         "wall_s": run["wall_s"]}
+    return out
+
+
+def phase_ops(scan, ivf_probe, pq_probe, keep: str) -> dict:
+    """The port's ops scripts and the last reference scripts (see the
+    module docstring)."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"cluster": _ops_cluster()}
+    out["cluster"]["wall_s"] = time.perf_counter() - t0
+    out["wire"] = _ops_wire(OPS_WIRE_ROWS)
+    out["serving_ab"] = _ops_serving_ab(scan, OPS_AB_ROWS)
+    out.update(ops_diagnostics(ivf_probe, pq_probe, keep))
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"ops phase {out['phase_s']:.1f} s: " + json.dumps(
         {k: round(v["wall_s"], 1) for k, v in out.items()
          if isinstance(v, dict) and "wall_s" in v}))
     return out
@@ -4123,7 +4617,16 @@ def main() -> int:
     # last: capacity_engine and capacity_pq set keep_malloc_warm (a
     # process-wide mallopt, as the reference's scripts do), which would
     # change the host times of any phase after them
-    cap = phase_capacity(scan, ivf_probe, pq_probe, sm_clocks)
+    keep = tempfile.mkdtemp(prefix="chip_smoke_keep_", dir=ROOT)
+    try:
+        cap = phase_capacity(scan, ivf_probe, pq_probe, sm_clocks, keep)
+        ops = phase_ops(scan, ivf_probe, pq_probe, keep)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
+    launches_ops = {"scan_candidates": ops["serving_ab"]["launches"],
+                    "ivf_candidates_int8": ops["ivf_b1"]["launches"][
+                        "expanded"],
+                    "pq_candidates": ops["pq_recall"]["launches"]}
     launches_latency = {
         name: sum(run["launches"][name] for run in cap["latency"].values())
         for name in ("scan_candidates", "ivf_candidates")}
@@ -4135,6 +4638,9 @@ def main() -> int:
         f"bench/latency.py), ivf expanded {launches_expanded} (ivf engine "
         f"phase), {launches_bench['ivf_candidates']} (bench phase) and "
         f"{launches_latency['ivf_candidates']} (capacity phase, latency), "
+        f"ops phase {json.dumps(launches_ops)} (serving_ab, diag_ivf_b1's "
+        f"int8 probe, diag_pq_recall; the cluster's nodes count theirs in "
+        f"their own processes: their search.device timers are read), "
         f"ivf compact "
         f"{launches_compact} (b1,024 index search), ivf expanded int8 "
         f"{launches_expanded_i8} (ivf int8 engine's searches) and "
@@ -4180,13 +4686,15 @@ def main() -> int:
         "launches": launches + launches_serve + launches_clip
         + launches_bench["scan_candidates"]
         + launches_latency["scan_candidates"]
-        + mesh_launches["scan_candidates"],
+        + mesh_launches["scan_candidates"]
+        + launches_ops["scan_candidates"],
         "launches_by_path": {"flat engine": launches,
                              "served (HTTP)": launches_serve,
                              "clip": launches_clip,
                              "bench": launches_bench["scan_candidates"],
                              "latency": launches_latency["scan_candidates"],
-                             "mesh": mesh_launches["scan_candidates"]},
+                             "mesh": mesh_launches["scan_candidates"],
+                             "ops": launches_ops["scan_candidates"]},
         "max_abs_err": max(kern["max_abs_err"],
                            benched["hold_scan"]["max_abs_err"]),
         "ms": m["ms"], "plain_ms": m["plain_ms"],
@@ -4236,10 +4744,12 @@ def main() -> int:
         "replaces": "tpuvdb/kernels/pallas_ivf.py:230",
         "launches": launches_expanded_i8
         + cap["capacity_ivf"]["launches"]
-        + mesh_launches["ivf_candidates_int8"],
+        + mesh_launches["ivf_candidates_int8"]
+        + launches_ops["ivf_candidates_int8"],
         "launches_by_path": {"ivf int8 engine": launches_expanded_i8,
                              "capacity": cap["capacity_ivf"]["launches"],
-                             "mesh": mesh_launches["ivf_candidates_int8"]},
+                             "mesh": mesh_launches["ivf_candidates_int8"],
+                             "ops": launches_ops["ivf_candidates_int8"]},
         "max_abs_err": max(ivf_kern["err_expanded_int8"],
                            cap["capacity_ivf"]["max_abs_err"]),
         "ms": e8["ms"], "plain_ms": e8["plain_ms"],
@@ -4270,10 +4780,11 @@ def main() -> int:
         "source": "tpuvdb_torch/csrc/pq_probe.cu",
         "replaces": "tpuvdb/kernels/pallas_pq.py:53",
         "launches": launches_pq + cap["capacity_pq"]["launches"]
-        + mesh_launches["pq_candidates"],
+        + mesh_launches["pq_candidates"] + launches_ops["pq_candidates"],
         "launches_by_path": {"ivf pq engine": launches_pq,
                              "capacity": cap["capacity_pq"]["launches"],
-                             "mesh": mesh_launches["pq_candidates"]},
+                             "mesh": mesh_launches["pq_candidates"],
+                             "ops": launches_ops["pq_candidates"]},
         "max_abs_err": max(pq_kern["max_abs_err"],
                            pq_out["kernel_engine_shape"]["max_abs_err"],
                            cap["capacity_pq"]["max_abs_err"]),

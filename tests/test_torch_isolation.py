@@ -55,7 +55,10 @@ _MUST_WALK = ("tpuvdb_torch.kernels.pq", "tpuvdb_torch.kernels.pq_probe",
               "tpuvdb_torch.bench.capacity",
               "tpuvdb_torch.bench.capacity_engine",
               "tpuvdb_torch.bench.capacity_ivf",
-              "tpuvdb_torch.bench.capacity_pq", "tpuvdb_torch.examples",
+              "tpuvdb_torch.bench.capacity_pq", "tpuvdb_torch.bench.wire",
+              "tpuvdb_torch.bench.serving_ab",
+              "tpuvdb_torch.bench.diag_pq_recall",
+              "tpuvdb_torch.bench.diag_ivf_b1", "tpuvdb_torch.examples",
               "tpuvdb_torch.examples.quickstart",
               "tpuvdb_torch.examples.sharded_serving")
 

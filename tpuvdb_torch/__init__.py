@@ -28,6 +28,9 @@ layout and public names so each part finds its counterpart:
              and capacity (`python -m tpuvdb_torch.bench.<name>`)
   examples/  quickstart and sharded_serving (`python -m
              tpuvdb_torch.examples.<name>`)
+  scripts/   the ops scripts: start_server.sh, stop_server.sh,
+             register_node.sh, start_cluster.sh (a coordinator and data
+             nodes as processes on the card; `demo` proves failover)
 
 It imports `torch`, never `jax`, and nothing of `tpuvdb`. Every entry point
 takes `device=None`, which means "cuda", and raises when CUDA is missing;

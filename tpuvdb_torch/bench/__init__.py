@@ -6,4 +6,8 @@ calls), `streaming` (durable ingest, `bench --suite streaming`),
 service's host-inclusive latency), `capacity` (the raw int8 scan at
 8M x 768, and the helpers the capacity benches share), `capacity_engine`,
 `capacity_ivf` and `capacity_pq` (the engine, IVF and IVF-PQ at
-capacity); these five run with `python -m tpuvdb_torch.bench.<name>`."""
+capacity), `wire` (bulk export on the binary wire against JSON, and a
+two-node sync), `serving_ab` (search coalescing off against on),
+`diag_pq_recall` (the IVF-PQ recall grid on capacity_pq's kept data dir)
+and `diag_ivf_b1` (a b1 IVF probe's fixed cost, stage by stage); these
+run with `python -m tpuvdb_torch.bench.<name>`."""

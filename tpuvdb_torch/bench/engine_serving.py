@@ -52,11 +52,13 @@ def run_engine_serving(
     coalesce: bool = False,
     log=print,
     device=None,
+    keep_answer: bool = False,
 ) -> Dict:
     """The flat engine over `corpus_np` (keys r0..r{n-1}) in the
     reference's serving configuration: 4 shards, `storage_dtype`, the WAL
     off, no checkpoint or compaction, every write staged until the flush.
-    Returns the reference's keys."""
+    Returns the reference's keys; with `keep_answer` also "first_answer",
+    the (distances, keys) of the first search of the batch."""
     from tpuvdb_torch.core.config import DBConfig
     from tpuvdb_torch.engine.engine import VectorDBEngine
 
@@ -81,7 +83,8 @@ def run_engine_serving(
             f"{build_s:.3f} s")
 
         q = queries_np[:batch].astype(np.float32)
-        _, keys = eng.search_batch(q, k)
+        first = eng.search_batch(q, k)
+        keys = first[1]
         # with coalescing, T concurrent streams form stacks up to T * batch
         t0 = time.perf_counter()
         warmed = eng.warm_search(k, batch, max_stack=threads * batch)
@@ -130,6 +133,8 @@ def run_engine_serving(
             "search_groups": (dict(eng._search_coalescer.group_sizes)
                               if eng._search_coalescer else None),
         }
+        if keep_answer:
+            out["first_answer"] = first
     finally:
         eng.close()
     log(f"engine serving: single {out['engine_qps_single']:,.0f} QPS, "
