@@ -1,0 +1,72 @@
+"""The control of the check: the plain reference put in the program's
+place, one precision below the configuration's (TF32 products for a
+float32 configuration), answering the queries a run would sample. It has
+to come out as not correct, or the check could not tell a program that
+computes in TF32 from one that computes in f32.
+
+  python3 -m perfbench.control --workload <cell> --seeds 11 12 13 \
+      [--precision tf32|tf32_card]
+
+prints, for each seed, the check's numbers for the control's answers and
+whether the run's `correct` would read false. The sampled queries are the
+first ceil(check_queries / batch) batches of the seeded call order; the
+benchmark's own runs never run this.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import numpy as np
+import torch
+
+from perfbench import check
+from perfbench.corpus import make_corpus, seed_streams
+from perfbench.registry import Registry
+from perfbench.traffic import Traffic
+
+
+def control_numbers(workload: str, seed: int, precision: str = "tf32",
+                    device="cuda", registry: Registry = None) -> dict:
+    """{"numbers", "correct"} of the control on one seed."""
+    reg = registry or Registry()
+    cell = reg.workload(workload)
+    config = reg.config(cell["config"])
+    dev = torch.device(device)
+    s_query, s_order, _ = seed_streams(seed)
+    rows, centres = make_corpus(config["corpus"], dev)
+    traffic = Traffic(reg.traffic(cell["traffic"]), centres,
+                      bool(config["corpus"]["unit_norm"]), s_query, s_order)
+    del centres
+    queries = np.concatenate([traffic.queries(traffic.batch_index(i))
+                              for i in range(traffic.sample_calls())])
+    ref = reg.reference(config["reference"])
+    ids, dists = ref.exact_topk(queries, rows, traffic.k, device=dev,
+                                precision=precision)
+    values = check.numbers(queries, ids, np.asarray(dists, np.float64),
+                           np.zeros(len(queries), bool), rows, traffic.k,
+                           ref, device=dev)
+    correct, _ = check.judge(values, check.limits(config))
+    return {"numbers": values, "correct": correct}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--workload", required=True)
+    ap.add_argument("--seeds", type=int, nargs="+", required=True)
+    ap.add_argument("--precision", default="tf32",
+                    choices=("tf32", "tf32_card"))
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    for seed in args.seeds:
+        out = control_numbers(args.workload, seed, args.precision,
+                              args.device)
+        print(json.dumps({"workload": args.workload, "seed": seed,
+                          "precision": args.precision, **out}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
