@@ -6,7 +6,9 @@ against the JAX package's copies, and the IVF build's memory tags.
 * hostmem: MEM_STAGES keeps the newest 4,096 samples (the reference's list
   is unbounded; a divergence by design), memlog logs under
   "tpuvdb_torch.memlog" when TPUVDB_MEMLOG is set, anon_gb and trim_heap
-  answer as the reference's do. keep_malloc_warm is not called: it sets
+  answer as the reference's do, except that anon_gb falls back to
+  `RssAnon:` in the status file where the rollup is missing (the
+  reference answers -1 there). keep_malloc_warm is not called: it sets
   the process's malloc policy for good.
 * An IVF engine build on the CPU (2,048 x 16 rows, nlist 16) appends the
   same tags in the same order to the port's MEM_STAGES as the same build
@@ -100,9 +102,35 @@ def test_memlog_logs_only_when_asked(monkeypatch, caplog):
     assert hostmem.MEM_STAGES[-1][0] == "phase x"
 
 
+def _status_has_rss_anon() -> bool:
+    try:
+        with open("/proc/self/status") as f:
+            return any(line.startswith("RssAnon:") for line in f)
+    except OSError:
+        return False
+
+
 def test_anon_gb_and_trim_heap_answer_as_reference():
-    assert (hostmem.anon_gb() > 0) == (jax_hostmem.anon_gb() > 0)
+    rollup = jax_hostmem.anon_gb() > 0  # the reference reads it alone
+    assert (hostmem.anon_gb() > 0) == (rollup or _status_has_rss_anon())
     assert hostmem.trim_heap() == jax_hostmem.trim_heap()
+
+
+@pytest.mark.parametrize("files, want", [
+    ({"status": "Name:\tx\nRssAnon:\t 2097152 kB\n"}, 2.0),
+    ({"rollup": "Rss: 9 kB\nAnonymous:   1048576 kB\n",
+      "status": "RssAnon:\t 2097152 kB\n"}, 1.0),
+    ({"status": "Name:\tx\nVmRSS:\t 4 kB\n"}, -1.0),
+    ({}, -1.0),
+], ids=["status-only", "rollup-first", "no-field", "neither"])
+def test_anon_gb_reads_status_where_the_rollup_is_missing(tmp_path, files,
+                                                          want):
+    paths = {name: str(tmp_path / name) for name in ("rollup", "status")}
+    for name, text in files.items():
+        with open(paths[name], "w") as f:
+            f.write(text)
+    sources = ((paths["rollup"], "Anonymous:"), (paths["status"], "RssAnon:"))
+    assert hostmem.anon_gb(sources) == want
 
 
 def test_ivf_build_tags_equal_to_reference(rng, monkeypatch):

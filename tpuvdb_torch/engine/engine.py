@@ -252,6 +252,9 @@ class VectorDBEngine:
             "puts": 0, "gets": 0, "deletes": 0, "searches": 0,
             "flushes": 0, "compactions": 0, "checkpoints": 0,
             "wal_replayed": 0, "search_retries": 0,
+            # query rows searched; calls that took _assemble_results' slow
+            # path (a dead, padded or staged-deleted candidate)
+            "search_queries": 0, "search_slow_path": 0,
             # adaptive exact rescore: candidates re-ranked / skipped
             "rescored_rows": 0, "rescore_skipped_rows": 0,
         }
@@ -407,7 +410,14 @@ class VectorDBEngine:
         """Columnar bulk ingest: rows group by shard, slots allocate in one
         consecutive reservation per shard, the mirror write runs vectorized
         per shard, and the whole call is one WAL group commit. The batch is
-        all-or-nothing on capacity."""
+        all-or-nothing on capacity. Timed as the `put_rows` stage, with
+        `put_rows.route` (the MD5 routing) and `put_rows.write` (mirrors
+        and doc store) inside it."""
+        with self.timers.stage("put_rows"):
+            return self._put_rows(keys, vectors, metadatas, timestamps,
+                                  replay_mode)
+
+    def _put_rows(self, keys, vectors, metadatas, timestamps, replay_mode):
         vecs = np.asarray(vectors, np.float32)
         if vecs.ndim != 2 or vecs.shape[1] != self.config.vector_dim:
             return Response.fail(
@@ -418,9 +428,10 @@ class VectorDBEngine:
             return Response.fail(f"{len(keys)} keys for {n} vectors")
         empty_md: Dict[str, str] = {}
         with self._lock:
-            shard_ids = np.fromiter(
-                (get_shard_id(k, self.config.shard_count) for k in keys),
-                np.int32, n)
+            with self.timers.stage("put_rows.route"):
+                shard_ids = np.fromiter(
+                    (get_shard_id(k, self.config.shard_count) for k in keys),
+                    np.int32, n)
             counts = np.bincount(shard_ids,
                                  minlength=self.config.shard_count)
             for s in range(self.config.shard_count):
@@ -439,53 +450,56 @@ class VectorDBEngine:
             fast = (metadatas is None and timestamps is None
                     and journal is None
                     and (replay_mode or self.wal is None))
-            for s in range(self.config.shard_count):
-                idx = np.flatnonzero(shard_ids == s)
-                if not len(idx):
-                    continue
-                mirror = self.mirrors[s]
-                first = mirror.alloc(len(idx))
-                mirror.write_batch(first, vecs[idx])
-                idx_list = idx.tolist()
-                res = (self.docstore.put_rows_bulk(
-                    [keys[i] for i in idx_list], s, first) if fast else None)
-                if res is not None:
-                    prev_sh, prev_sl = res
+            with self.timers.stage("put_rows.write"):
+                for s in range(self.config.shard_count):
+                    idx = np.flatnonzero(shard_ids == s)
+                    if not len(idx):
+                        continue
+                    mirror = self.mirrors[s]
+                    first = mirror.alloc(len(idx))
+                    mirror.write_batch(first, vecs[idx])
+                    idx_list = idx.tolist()
+                    res = (self.docstore.put_rows_bulk(
+                        [keys[i] for i in idx_list], s, first)
+                        if fast else None)
+                    if res is not None:
+                        prev_sh, prev_sl = res
+                        self._staged_updates.extend(
+                            (s, first + j) for j in range(len(idx_list)))
+                        for t in np.flatnonzero(prev_sh >= 0).tolist():
+                            p = (int(prev_sh[t]), int(prev_sl[t]))
+                            self.mirrors[p[0]].mark_deleted(p[1])
+                            self._staged_deletes.append(p)
+                        applied += len(idx)
+                        continue
+                    entries = []
+                    for j, i in enumerate(idx_list):
+                        md = (metadatas[i] if metadatas is not None
+                              else empty_md)
+                        entries.append(DocEntry(
+                            key=keys[i], shard=s, slot=first + j,
+                            metadata=dict(md),
+                            timestamp=(timestamps[i]
+                                       if timestamps is not None else 0)))
+                    prevs = self.docstore.put_many(entries)
                     self._staged_updates.extend(
                         (s, first + j) for j in range(len(idx_list)))
-                    for t in np.flatnonzero(prev_sh >= 0).tolist():
-                        p = (int(prev_sh[t]), int(prev_sl[t]))
-                        self.mirrors[p[0]].mark_deleted(p[1])
-                        self._staged_deletes.append(p)
+                    for j, (i, prev) in enumerate(zip(idx_list, prevs)):
+                        if prev is not None:
+                            # overwrite = fresh slot + soft-delete the old one
+                            self.mirrors[prev[0]].mark_deleted(prev[1])
+                            self._staged_deletes.append(prev)
+                        e = entries[j]
+                        if journal is not None:
+                            journal.append(("put", e.key, vecs[i].copy(),
+                                            dict(e.metadata), e.timestamp))
+                        if not replay_mode and self.wal is not None:
+                            wal_records.append({
+                                "op": "put", "key": e.key, "vector": vecs[i],
+                                "metadata": dict(e.metadata),
+                                "timestamp": e.timestamp,
+                            })
                     applied += len(idx)
-                    continue
-                entries = []
-                for j, i in enumerate(idx_list):
-                    md = metadatas[i] if metadatas is not None else empty_md
-                    entries.append(DocEntry(
-                        key=keys[i], shard=s, slot=first + j,
-                        metadata=dict(md),
-                        timestamp=(timestamps[i] if timestamps is not None
-                                   else 0)))
-                prevs = self.docstore.put_many(entries)
-                self._staged_updates.extend(
-                    (s, first + j) for j in range(len(idx_list)))
-                for j, (i, prev) in enumerate(zip(idx_list, prevs)):
-                    if prev is not None:
-                        # overwrite = fresh slot + soft-delete the old one
-                        self.mirrors[prev[0]].mark_deleted(prev[1])
-                        self._staged_deletes.append(prev)
-                    e = entries[j]
-                    if journal is not None:
-                        journal.append(("put", e.key, vecs[i].copy(),
-                                        dict(e.metadata), e.timestamp))
-                    if not replay_mode and self.wal is not None:
-                        wal_records.append({
-                            "op": "put", "key": e.key, "vector": vecs[i],
-                            "metadata": dict(e.metadata),
-                            "timestamp": e.timestamp,
-                        })
-                applied += len(idx)
             if self.wal is not None and wal_records:
                 self.wal.append_batch(wal_records)
             self.stats["puts"] += applied
@@ -632,18 +646,19 @@ class VectorDBEngine:
         # path on the host instead
         device_rescore = (self.config.rescore_mode == "device"
                           and self.config.rescore_overfetch > 0)
-        self._index = DeviceExactIndex.build(
-            self.mirrors,
-            dtype=self.config.torch_dtype(),
-            block_size=self.config.block_size,
-            search_mode=self.config.search_mode,
-            recall_target=self.config.recall_target,
-            rescore_fetch=(self.config.rescore_overfetch * 2
-                           if device_rescore else 0),
-            device=self.device,
-            mesh=self.mesh,
-            mesh_axis=self.config.mesh_axis,
-        )
+        with self.timers.stage("index.build"):
+            self._index = DeviceExactIndex.build(
+                self.mirrors,
+                dtype=self.config.torch_dtype(),
+                block_size=self.config.block_size,
+                search_mode=self.config.search_mode,
+                recall_target=self.config.recall_target,
+                rescore_fetch=(self.config.rescore_overfetch * 2
+                               if device_rescore else 0),
+                device=self.device,
+                mesh=self.mesh,
+                mesh_axis=self.config.mesh_axis,
+            )
         self._staged_updates.clear()
         self._staged_deletes.clear()
         self.stats["flushes"] += 1
@@ -769,6 +784,82 @@ class VectorDBEngine:
             logger.exception("packed IVF restore failed; full rebuild")
             return None
 
+    def _rebuild_ivf(self):
+        """Called under the engine lock: the IVF index built anew over
+        the mirrors (on a mesh, from a checkpoint's packed state, or
+        from scratch); the staged writes and the delta it absorbs are
+        cleared."""
+        cfg = self.config
+        use_mesh, repl_axis = self._ivf_mesh_axes()
+        ndev = self.mesh.shape[cfg.mesh_axis] if use_mesh else 1
+        layout = StackedLayout.for_mirrors(self.mirrors, block=128,
+                                           min_rows_multiple=ndev)
+        source = MirrorRowSource(self.mirrors, layout)
+        valid = source.valid_array()
+        live = int(valid.sum())
+        # any rebuild makes the last saved packed image stale; the
+        # packed restore below marks it current again when the restored
+        # state is the checkpoint's own (nothing to reconcile)
+        self._ivf_packed_epoch += 1
+        # the checkpoint's packed state is consumed once, whatever the
+        # rebuild does with it: it is the corpus's codes
+        packed, self._ivf_packed = self._ivf_packed, None
+        if live == 0:
+            self._ivf = None
+        elif use_mesh:
+            self._build_ivf_mesh(source, valid, live, ndev, repl_axis)
+        else:
+            nlist = max(1, min(cfg.ivf_nlist, live // 8 or 1))
+            # the first rebuild after recovery reuses the checkpointed
+            # centroids (assignment only, no k-means training) within
+            # the drift/churn bounds of _consume_ivf_warm
+            warm_cents, trained_live, mut_train = \
+                self._consume_ivf_warm(live)
+            # the PQ warm start rides along with the centroids
+            # (consumed once; stale shapes retrain inside build)
+            warm_cb, self._ivf_pq_warm = self._ivf_pq_warm, None
+            warm_rot, self._ivf_opq_warm = self._ivf_opq_warm, None
+            warm_err, self._ivf_pq_err_warm = self._ivf_pq_err_warm, 0.0
+            # packed restore: the drift/churn guard just accepted the
+            # checkpoint's clustering (warm_cents is its centroids), and
+            # the packed file is that clustering's whole device image
+            restored = None
+            if packed is not None and warm_cents is not None:
+                restored = self._restore_ivf_packed(packed, source,
+                                                    valid, layout)
+            self._ivf = restored or IVFIndex.build_streaming(
+                source, valid, nlist=nlist,
+                # nprobe follows the actual cell count: warm centroids
+                # override nlist inside build
+                nprobe=min(cfg.ivf_nprobe,
+                           len(warm_cents) if warm_cents is not None
+                           else nlist),
+                kmeans_iters=cfg.ivf_kmeans_iters,
+                train_sample=cfg.ivf_train_sample,
+                dtype=cfg.torch_dtype(),
+                centroids=warm_cents,
+                device=self.device,
+                pq_subq=cfg.ivf_pq_subq,
+                pq_codebooks=warm_cb,
+                opq=cfg.ivf_opq,
+                pq_rotation=warm_rot,
+                pq_bits=cfg.ivf_pq_bits,
+                pq_err=warm_err,
+            )
+            self._ivf_train_state = (self._ivf.centroids_np(),
+                                     trained_live, mut_train)
+            self._ivf_pq_state = self._ivf.pq_codebooks_np()
+            self._ivf_opq_state = self._ivf.pq_rotation_np()
+            self._ivf_pq_err = self._ivf.pq_err
+        self._ivf_layout = layout
+        self._ivf_delta.clear()
+        self._staged_updates.clear()
+        self._staged_deletes.clear()
+        # phase boundary: hand the build's transient heap back to the
+        # OS (keep_malloc_warm turns automatic trimming off)
+        trim_heap()
+        memlog("engine: ivf rebuild done (trimmed)")
+
     def _flush_ivf(self):
         """Called under the engine lock. Staged inserts join the standing
         host delta; past ivf_delta_max they drain into the clustered index
@@ -820,75 +911,8 @@ class VectorDBEngine:
             else:
                 needs_rebuild = True
         if needs_rebuild:
-            use_mesh, repl_axis = self._ivf_mesh_axes()
-            ndev = self.mesh.shape[cfg.mesh_axis] if use_mesh else 1
-            layout = StackedLayout.for_mirrors(self.mirrors, block=128,
-                                               min_rows_multiple=ndev)
-            source = MirrorRowSource(self.mirrors, layout)
-            valid = source.valid_array()
-            live = int(valid.sum())
-            # any rebuild makes the last saved packed image stale; the
-            # packed restore below marks it current again when the restored
-            # state is the checkpoint's own (nothing to reconcile)
-            self._ivf_packed_epoch += 1
-            # the checkpoint's packed state is consumed once, whatever the
-            # rebuild does with it: it is the corpus's codes
-            packed, self._ivf_packed = self._ivf_packed, None
-            if live == 0:
-                self._ivf = None
-            elif use_mesh:
-                self._build_ivf_mesh(source, valid, live, ndev, repl_axis)
-            else:
-                nlist = max(1, min(cfg.ivf_nlist, live // 8 or 1))
-                # the first rebuild after recovery reuses the checkpointed
-                # centroids (assignment only, no k-means training) within
-                # the drift/churn bounds of _consume_ivf_warm
-                warm_cents, trained_live, mut_train = \
-                    self._consume_ivf_warm(live)
-                # the PQ warm start rides along with the centroids
-                # (consumed once; stale shapes retrain inside build)
-                warm_cb, self._ivf_pq_warm = self._ivf_pq_warm, None
-                warm_rot, self._ivf_opq_warm = self._ivf_opq_warm, None
-                warm_err, self._ivf_pq_err_warm = self._ivf_pq_err_warm, 0.0
-                # packed restore: the drift/churn guard just accepted the
-                # checkpoint's clustering (warm_cents is its centroids), and
-                # the packed file is that clustering's whole device image
-                restored = None
-                if packed is not None and warm_cents is not None:
-                    restored = self._restore_ivf_packed(packed, source,
-                                                        valid, layout)
-                self._ivf = restored or IVFIndex.build_streaming(
-                    source, valid, nlist=nlist,
-                    # nprobe follows the actual cell count: warm centroids
-                    # override nlist inside build
-                    nprobe=min(cfg.ivf_nprobe,
-                               len(warm_cents) if warm_cents is not None
-                               else nlist),
-                    kmeans_iters=cfg.ivf_kmeans_iters,
-                    train_sample=cfg.ivf_train_sample,
-                    dtype=cfg.torch_dtype(),
-                    centroids=warm_cents,
-                    device=self.device,
-                    pq_subq=cfg.ivf_pq_subq,
-                    pq_codebooks=warm_cb,
-                    opq=cfg.ivf_opq,
-                    pq_rotation=warm_rot,
-                    pq_bits=cfg.ivf_pq_bits,
-                    pq_err=warm_err,
-                )
-                self._ivf_train_state = (self._ivf.centroids_np(),
-                                         trained_live, mut_train)
-                self._ivf_pq_state = self._ivf.pq_codebooks_np()
-                self._ivf_opq_state = self._ivf.pq_rotation_np()
-                self._ivf_pq_err = self._ivf.pq_err
-            self._ivf_layout = layout
-            self._ivf_delta.clear()
-            self._staged_updates.clear()
-            self._staged_deletes.clear()
-            # phase boundary: hand the build's transient heap back to the
-            # OS (keep_malloc_warm turns automatic trimming off)
-            trim_heap()
-            memlog("engine: ivf rebuild done (trimmed)")
+            with self.timers.stage("index.build"):
+                self._rebuild_ivf()
         else:
             for s, sl in self._staged_updates:
                 if self.mirrors[s].is_valid(sl):
@@ -1010,6 +1034,7 @@ class VectorDBEngine:
                 if len(hits) >= k:
                     break
             self.stats["searches"] += 1
+            self.stats["search_queries"] += 1
             return hits
 
     def _filtered_search_device(self, query, k, pairs, threshold):
@@ -1041,6 +1066,7 @@ class VectorDBEngine:
                                   vector=[float(x) for x in vec],
                                   metadata=dict(e.metadata) if e else {}))
         self.stats["searches"] += 1
+        self.stats["search_queries"] += 1
         return hits
 
     def _filtered_search_device_ivf(self, query, k, pairs, threshold):
@@ -1086,6 +1112,7 @@ class VectorDBEngine:
             if len(hits) >= k:
                 break
         self.stats["searches"] += 1
+        self.stats["search_queries"] += 1
         return hits
 
     def search_batch(
@@ -1094,15 +1121,17 @@ class VectorDBEngine:
         """Raw batched search: returns (dists (Q, fetch_k), keys
         list-of-lists). With overfetch=True, fetches extra candidates so
         post-filters (metadata/threshold) can refill. With search_coalesce,
-        concurrent callers share one direct search (engine/coalesce.py)."""
-        q = np.atleast_2d(np.asarray(queries, np.float32))
-        if not q.flags.writeable:
-            # a decoded binary frame (core/wire.py) is read-only, and
-            # torch.from_numpy takes no read-only array
-            q = q.copy()
-        if self._search_coalescer is not None and q.shape[0] > 0:
-            return self._search_coalescer.search(q, k, overfetch)
-        return self._search_batch_direct(q, k, overfetch)
+        concurrent callers share one direct search (engine/coalesce.py).
+        While a profiler runs, the call is one `search.call` span."""
+        with self.timers.span("search.call", root=True):
+            q = np.atleast_2d(np.asarray(queries, np.float32))
+            if not q.flags.writeable:
+                # a decoded binary frame (core/wire.py) is read-only, and
+                # torch.from_numpy takes no read-only array
+                q = q.copy()
+            if self._search_coalescer is not None and q.shape[0] > 0:
+                return self._search_coalescer.search(q, k, overfetch)
+            return self._search_batch_direct(q, k, overfetch)
 
     def warm_search(self, k: int, batch: int, overfetch: bool = False,
                     max_stack: Optional[int] = None) -> List[int]:
@@ -1160,90 +1189,95 @@ class VectorDBEngine:
         "ok" — result is (dists, keys); "flush" — caller must flush and
         retry (no index yet / layout outgrown / staging buffer large);
         "retry" — a scatter or a compaction overlapped the scan."""
-        with self._lock:
-            ivf_mode = self.config.index_type == "ivf"
-            no_index = self._ivf is None if ivf_mode else self._index is None
-            if no_index and sum(m.live() for m in self.mirrors) == 0:
-                # an empty engine never builds an index: empty results
-                q = np.atleast_2d(np.asarray(queries))
-                fetch = max(2 * k, k + 16) if overfetch else k
-                empty_d = np.full((q.shape[0], fetch), np.inf,
-                                  dtype=np.float32)
-                empty_k = [[None] * fetch for _ in range(q.shape[0])]
+        with self.timers.span("search.snapshot"):
+            with self._lock:
+                ivf_mode = self.config.index_type == "ivf"
+                no_index = (self._ivf is None if ivf_mode
+                            else self._index is None)
+                if no_index and sum(m.live() for m in self.mirrors) == 0:
+                    # an empty engine never builds an index: empty results
+                    q = np.atleast_2d(np.asarray(queries))
+                    fetch = max(2 * k, k + 16) if overfetch else k
+                    empty_d = np.full((q.shape[0], fetch), np.inf,
+                                      dtype=np.float32)
+                    empty_k = [[None] * fetch for _ in range(q.shape[0])]
+                    self.stats["searches"] += 1
+                    self.stats["search_queries"] += q.shape[0]
+                    return "ok", (empty_d, empty_k)
+                # flush only when unavoidable; small staged write sets are
+                # served by the host-side delta scan so ingest never stalls
+                # queries
+                must_flush = (
+                    no_index
+                    or (not ivf_mode
+                        and self._index.needs_rebuild(self.mirrors))
+                    or len(self._staged_updates) + len(self._staged_deletes)
+                    > self.config.flush_batch
+                )
+            if must_flush:
+                return "flush", None
+            with self._lock:
+                index = self._ivf if ivf_mode else self._index
+                if index is None:
+                    return "retry", None  # flush raced with a compaction
+                layout = self._ivf_layout if ivf_mode else index.layout
+                fetch_k = max(2 * k, k + 16) if overfetch else k
+                # the host rescore runs for int8 unless disabled ("none") or
+                # the fused device re-rank is wired into this index (flat,
+                # single-device or mesh: each slot re-ranks before the merge):
+                # "device" on IVF falls back to the exact host path rather
+                # than serving raw int8 scores
+                fused_device = not ivf_mode and index.rescore_fetch > 0
+                # PQ cells rank reconstructions: without the exact re-rank the
+                # served order is the ADC order, so IVF-PQ always joins the
+                # rescore path beside int8
+                pq_mode = ivf_mode and self.config.ivf_pq_subq > 0
+                lossy = self.config.storage_dtype == "int8" or pq_mode
+                rescore = (lossy
+                           and self.config.rescore_overfetch > 0
+                           and self.config.rescore_mode != "none"
+                           and not fused_device)
+                # caller-visible width: key resolution and the final sort are
+                # bounded by out_k, not by the rescore window
+                out_k = min(fetch_k, layout.total_rows)
+                if rescore:
+                    ovf = self.config.rescore_overfetch
+                    if pq_mode:
+                        # the ADC error is far above int8's: PQ re-ranks a
+                        # deeper window
+                        ovf = max(ovf, self.config.ivf_pq_rescore_overfetch)
+                    fetch_k = max(fetch_k, ovf * k)
+                fetch_k = min(fetch_k, layout.total_rows)
+                # the adaptive rescore bound only means something where the
+                # candidates are ADC-scored and the build left a calibration
+                # (pq_err > 0; 0 = the full fixed window)
+                rescore_err = 0.0
+                if (rescore and pq_mode
+                        and self.config.ivf_pq_adaptive_rescore):
+                    rescore_err = float(index.pq_err or 0.0)
                 self.stats["searches"] += 1
-                return "ok", (empty_d, empty_k)
-            # flush only when unavoidable; small staged write sets are
-            # served by the host-side delta scan so ingest never stalls
-            # queries
-            must_flush = (
-                no_index
-                or (not ivf_mode and self._index.needs_rebuild(self.mirrors))
-                or len(self._staged_updates) + len(self._staged_deletes)
-                > self.config.flush_batch
-            )
-        if must_flush:
-            return "flush", None
-        with self._lock:
-            index = self._ivf if ivf_mode else self._index
-            if index is None:
-                return "retry", None  # flush raced with a compaction
-            layout = self._ivf_layout if ivf_mode else index.layout
-            fetch_k = max(2 * k, k + 16) if overfetch else k
-            # the host rescore runs for int8 unless disabled ("none") or
-            # the fused device re-rank is wired into this index (flat,
-            # single-device or mesh: each slot re-ranks before the merge):
-            # "device" on IVF falls back to the exact host path rather
-            # than serving raw int8 scores
-            fused_device = not ivf_mode and index.rescore_fetch > 0
-            # PQ cells rank reconstructions: without the exact re-rank the
-            # served order is the ADC order, so IVF-PQ always joins the
-            # rescore path beside int8
-            pq_mode = ivf_mode and self.config.ivf_pq_subq > 0
-            lossy = self.config.storage_dtype == "int8" or pq_mode
-            rescore = (lossy
-                       and self.config.rescore_overfetch > 0
-                       and self.config.rescore_mode != "none"
-                       and not fused_device)
-            # caller-visible width: key resolution and the final sort are
-            # bounded by out_k, not by the rescore window
-            out_k = min(fetch_k, layout.total_rows)
-            if rescore:
-                ovf = self.config.rescore_overfetch
-                if pq_mode:
-                    # the ADC error is far above int8's: PQ re-ranks a
-                    # deeper window
-                    ovf = max(ovf, self.config.ivf_pq_rescore_overfetch)
-                fetch_k = max(fetch_k, ovf * k)
-            fetch_k = min(fetch_k, layout.total_rows)
-            # the adaptive rescore bound only means something where the
-            # candidates are ADC-scored and the build left a calibration
-            # (pq_err > 0; 0 = the full fixed window)
-            rescore_err = 0.0
-            if (rescore and pq_mode
-                    and self.config.ivf_pq_adaptive_rescore):
-                rescore_err = float(index.pq_err or 0.0)
-            self.stats["searches"] += 1
-            gen = self._generation
-            slot_gen = self._slot_generation
-            version = index.version
-            # host-delta snapshot: staged AND mid-scatter (inflight) slots,
-            # so freshly-put vectors stay visible across the flush
-            delta = []
-            n_del = len(self._staged_deletes)
-            pending = list(self._staged_updates)
-            for ups, dels in self._inflight.values():
-                pending.extend(ups)
-                n_del += len(dels)
-            for s, sl in pending:
-                if self.mirrors[s].is_valid(sl):
-                    delta.append((layout.row_of(s, sl),
-                                  self.mirrors[s].vector_at(sl).copy()))
-            if ivf_mode:
-                # IVF's standing delta (flushed-but-unclustered inserts)
-                # joins the same host-side exact scan
-                for (s, sl), v in self._ivf_delta.items():
+                self.stats["search_queries"] += queries.shape[0]
+                gen = self._generation
+                slot_gen = self._slot_generation
+                version = index.version
+                # host-delta snapshot: staged AND mid-scatter (inflight) slots,
+                # so freshly-put vectors stay visible across the flush
+                delta = []
+                n_del = len(self._staged_deletes)
+                pending = list(self._staged_updates)
+                for ups, dels in self._inflight.values():
+                    pending.extend(ups)
+                    n_del += len(dels)
+                for s, sl in pending:
                     if self.mirrors[s].is_valid(sl):
-                        delta.append((layout.row_of(s, sl), v))
+                        delta.append((layout.row_of(s, sl),
+                                      self.mirrors[s].vector_at(sl).copy()))
+                if ivf_mode:
+                    # IVF's standing delta (flushed-but-unclustered inserts)
+                    # joins the same host-side exact scan
+                    for (s, sl), v in self._ivf_delta.items():
+                        if self.mirrors[s].is_valid(sl):
+                            delta.append((layout.row_of(s, sl), v))
         # the device call runs OUTSIDE the engine lock; slots are
         # append-only, so concurrent puts/deletes cannot corrupt it
         with self.timers.stage("search.device"):
@@ -1291,57 +1325,62 @@ class VectorDBEngine:
                     dists, rows = self._rescore_exact(
                         q32, rows, layout, mirrors, top=top_w,
                         native=self.rescore_backend == "native")
-        with self._lock:
-            # a rescored search validates slot identity only: the device
-            # epoch was certified before the rescore, and an IVF append
-            # during the re-rank cannot invalidate rows already fetched
-            # or the payloads read; only compaction (slot reuse) can
-            stale = (self._slot_generation != slot_gen if rescore
-                     else self._generation != gen)
-            if stale:
-                return "retry", None  # compacted mid-search: slots moved
-            # the scan returns the full width (fetch_k padded by the
-            # staged-delete count): staged-deleted slots resolve to no key
-            # here, so compact live hits to the front and truncate
-            qn, width = rows.shape
-            res_k = min(out_k, width)
-            # fast path: every caller-visible row resolves live
-            r_cut = np.ascontiguousarray(rows[:, :res_k]).reshape(-1)
-            keys, n_missing = self.docstore.keys_rows(
-                r_cut, layout.phys_cap, row=res_k)
-            if n_missing == 0:
-                out_d = np.asarray(dists, np.float32)[:, :res_k]
-                return "ok", (out_d, keys)
-            # slow path: some candidate is dead / padded / staged-deleted
-            flat = rows.reshape(-1)
-            nn = flat >= 0
-            live = np.zeros(flat.shape[0], bool)
-            if nn.any():
-                live[nn] = self.docstore.slots_live(
-                    flat[nn] // layout.phys_cap, flat[nn] % layout.phys_cap)
-            live = live.reshape(qn, width)
-            order = np.argsort(~live, axis=1, kind="stable")
-            live_sorted = np.take_along_axis(live, order, axis=1)[:, :res_k]
-            d_sorted = np.take_along_axis(
-                np.asarray(dists, np.float32), order, axis=1)[:, :res_k]
-            r_sorted = np.take_along_axis(rows, order, axis=1)[:, :res_k]
-            pad = res_k - r_sorted.shape[1]
-            if pad:
-                live_sorted = np.pad(live_sorted, ((0, 0), (0, pad)))
-                d_sorted = np.pad(d_sorted, ((0, 0), (0, pad)))
-                r_sorted = np.pad(r_sorted, ((0, 0), (0, pad)),
-                                  constant_values=-1)
-            sel = live_sorted.reshape(-1)
-            keys_flat: List[Optional[str]] = [None] * sel.shape[0]
-            if sel.any():
-                rr = r_sorted.reshape(-1)[sel]
-                resolved = self.docstore.keys_at_bulk(
-                    rr // layout.phys_cap, rr % layout.phys_cap)
-                for pos, key in zip(np.flatnonzero(sel).tolist(), resolved):
-                    keys_flat[pos] = key
-        out_d = np.where(live_sorted, d_sorted, np.inf).astype(np.float32)
-        keys = [keys_flat[i * res_k:(i + 1) * res_k] for i in range(qn)]
-        return "ok", (out_d, keys)
+        with self.timers.span("search.keys"):
+            with self._lock:
+                # a rescored search validates slot identity only: the device
+                # epoch was certified before the rescore, and an IVF append
+                # during the re-rank cannot invalidate rows already fetched
+                # or the payloads read; only compaction (slot reuse) can
+                stale = (self._slot_generation != slot_gen if rescore
+                         else self._generation != gen)
+                if stale:
+                    return "retry", None  # compacted mid-search: slots moved
+                # the scan returns the full width (fetch_k padded by the
+                # staged-delete count): staged-deleted slots resolve to no key
+                # here, so compact live hits to the front and truncate
+                qn, width = rows.shape
+                res_k = min(out_k, width)
+                # fast path: every caller-visible row resolves live
+                r_cut = np.ascontiguousarray(rows[:, :res_k]).reshape(-1)
+                keys, n_missing = self.docstore.keys_rows(
+                    r_cut, layout.phys_cap, row=res_k)
+                if n_missing == 0:
+                    out_d = np.asarray(dists, np.float32)[:, :res_k]
+                    return "ok", (out_d, keys)
+                # slow path: some candidate is dead / padded / staged-deleted
+                self.stats["search_slow_path"] += 1
+                flat = rows.reshape(-1)
+                nn = flat >= 0
+                live = np.zeros(flat.shape[0], bool)
+                if nn.any():
+                    live[nn] = self.docstore.slots_live(
+                        flat[nn] // layout.phys_cap,
+                        flat[nn] % layout.phys_cap)
+                live = live.reshape(qn, width)
+                order = np.argsort(~live, axis=1, kind="stable")
+                live_sorted = np.take_along_axis(live, order,
+                                                 axis=1)[:, :res_k]
+                d_sorted = np.take_along_axis(
+                    np.asarray(dists, np.float32), order, axis=1)[:, :res_k]
+                r_sorted = np.take_along_axis(rows, order, axis=1)[:, :res_k]
+                pad = res_k - r_sorted.shape[1]
+                if pad:
+                    live_sorted = np.pad(live_sorted, ((0, 0), (0, pad)))
+                    d_sorted = np.pad(d_sorted, ((0, 0), (0, pad)))
+                    r_sorted = np.pad(r_sorted, ((0, 0), (0, pad)),
+                                      constant_values=-1)
+                sel = live_sorted.reshape(-1)
+                keys_flat: List[Optional[str]] = [None] * sel.shape[0]
+                if sel.any():
+                    rr = r_sorted.reshape(-1)[sel]
+                    resolved = self.docstore.keys_at_bulk(
+                        rr // layout.phys_cap, rr % layout.phys_cap)
+                    for pos, key in zip(np.flatnonzero(sel).tolist(),
+                                        resolved):
+                        keys_flat[pos] = key
+            out_d = np.where(live_sorted, d_sorted, np.inf).astype(np.float32)
+            keys = [keys_flat[i * res_k:(i + 1) * res_k] for i in range(qn)]
+            return "ok", (out_d, keys)
 
     @staticmethod
     def _rescore_exact(queries: np.ndarray, rows: np.ndarray, layout,
@@ -1482,8 +1521,9 @@ class VectorDBEngine:
         """
         dev_k = min(k + n_del, index.layout.total_rows)
         dists, rows = index.search(queries, dev_k)
-        return self._merge_delta(queries, dists, rows.astype(np.int64),
-                                 delta, index.layout.total_rows)
+        with self.timers.span("index.row_map"):
+            return self._merge_delta(queries, dists, rows.astype(np.int64),
+                                     delta, index.layout.total_rows)
 
     def _ivf_search_rows(self, queries: np.ndarray, k: int, ivf, delta,
                          n_del, total_rows):
@@ -1500,7 +1540,8 @@ class VectorDBEngine:
         if isinstance(ivf, ShardedIVFIndex):
             fetch = 1 << (fetch - 1).bit_length()
         dists, rows = ivf.search(queries, fetch)
-        return self._merge_delta(queries, dists, rows, delta, total_rows)
+        with self.timers.span("index.row_map"):
+            return self._merge_delta(queries, dists, rows, delta, total_rows)
 
     @staticmethod
     def _merge_delta(queries, dists, rows, delta, total):
@@ -1806,6 +1847,8 @@ class VectorDBEngine:
                 "staged": len(self._staged_updates) + len(self._staged_deletes),
                 "stats": dict(self.stats),
                 "latency": self.timers.snapshot(),
+                # the last profiled session's spans (None before one)
+                "spans": self.timers.spans(),
                 # group commit: {batches-per-group: count}
                 "search_groups": (dict(self._search_coalescer.group_sizes)
                                   if self._search_coalescer else None),

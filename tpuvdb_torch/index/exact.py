@@ -51,6 +51,7 @@ from tpuvdb_torch.kernels.quant import quantize_rows, quantize_rows_np
 from tpuvdb_torch.mesh.mesh import Mesh, sum_over_processes
 from tpuvdb_torch.mesh.replicated import pad_to_groups, replicated_search
 from tpuvdb_torch.mesh.sharded import local_topk, sharded_search
+from tpuvdb_torch.utils.tracing import span, stage
 
 _DTYPES = (torch.float32, torch.bfloat16, torch.int8)
 _QUANTIZE_ROWS = 1 << 16  # f32 rows quantized at once at build
@@ -191,21 +192,23 @@ class DeviceExactIndex:
                   rescore_fetch=rescore_fetch, device=device, mesh=mesh,
                   mesh_axis=mesh_axis)
         raw = idx.quantized and all(m.quantized for m in mirrors)
-        for s, m in enumerate(mirrors):
-            if raw:
-                vec, scale, sq, valid = m.prefix_raw()
-            else:
-                vec, sq, valid = m.prefix_f32()
-            r0 = layout.row_of(s, 0)
-            if idx.quantized and not raw:
-                for lo in range(0, vec.shape[0], _QUANTIZE_ROWS):
-                    qv, scale = quantize_rows_np(vec[lo:lo + _QUANTIZE_ROWS])
-                    idx._place(r0 + lo, vectors=qv, row_scales=scale)
-            elif raw:
-                idx._place(r0, vectors=vec, row_scales=scale)
-            else:
-                idx._place(r0, vectors=vec)
-            idx._place(r0, sqnorms=sq, valid=valid)
+        with stage("build.upload"):
+            for s, m in enumerate(mirrors):
+                if raw:
+                    vec, scale, sq, valid = m.prefix_raw()
+                else:
+                    vec, sq, valid = m.prefix_f32()
+                r0 = layout.row_of(s, 0)
+                if idx.quantized and not raw:
+                    for lo in range(0, vec.shape[0], _QUANTIZE_ROWS):
+                        qv, scale = quantize_rows_np(
+                            vec[lo:lo + _QUANTIZE_ROWS])
+                        idx._place(r0 + lo, vectors=qv, row_scales=scale)
+                elif raw:
+                    idx._place(r0, vectors=vec, row_scales=scale)
+                else:
+                    idx._place(r0, vectors=vec)
+                idx._place(r0, sqnorms=sq, valid=valid)
         return idx
 
     @classmethod
@@ -335,17 +338,30 @@ class DeviceExactIndex:
         masked_valid() that replaces `self.valid`). Returns (dists, rows)
         as numpy, dists ascending squared-L2; empty slots are +inf / -1.
         rescore=False leaves out the re-rank that `rescore_fetch` fuses
-        into an int8 search."""
+        into an int8 search. Spans: index.upload, index.launch (a mesh's
+        whole search), index.wait, index.row_map."""
         valid = self.valid if valid is None else valid
         fetch = self.rescore_fetch if self.quantized and rescore else 0
         q = np.ascontiguousarray(queries, np.float32)
         if self.mesh is None:
-            dist, rows = local_topk(
-                torch.from_numpy(q).to(self.device), self.vectors,
-                self.sqnorms, valid, k, self.block_size, self.search_mode,
-                self.recall_target, scales=self.row_scales,
-                rescore_fetch=fetch)
-        elif len(self.mesh.axis_names) == 2:
+            with span("index.upload"):
+                qt = torch.from_numpy(q).to(self.device)
+            with span("index.launch"):
+                dist, rows = local_topk(
+                    qt, self.vectors, self.sqnorms, valid, k,
+                    self.block_size, self.search_mode, self.recall_target,
+                    scales=self.row_scales, rescore_fetch=fetch)
+        else:
+            with span("index.launch"):
+                dist, rows = self._mesh_search(q, valid, k, fetch)
+        with span("index.wait"):
+            dist, rows = dist.cpu(), rows.cpu()
+        with span("index.row_map"):
+            return dist.numpy(), rows.numpy()
+
+    def _mesh_search(self, q: np.ndarray, valid, k: int, fetch: int):
+        """search() on a mesh: device (dist, rows)."""
+        if len(self.mesh.axis_names) == 2:
             # 2-D (repl, shards) mesh: the replica groups split the batch
             repl_axis = next(a for a in self.mesh.axis_names
                              if a != self.mesh_axis)
@@ -356,15 +372,13 @@ class DeviceExactIndex:
                 repl_axis=repl_axis, shard_axis=self.mesh_axis,
                 mode=self.search_mode, recall_target=self.recall_target,
                 row_scales=self.row_scales, rescore_fetch=fetch)
-            dist, rows = dist[:qn], rows[:qn]
-        else:
-            dist, rows = sharded_search(
-                q, self.vectors, self.sqnorms, valid, k=k,
-                block_size=self.block_size, mesh=self.mesh,
-                axis=self.mesh_axis, mode=self.search_mode,
-                recall_target=self.recall_target,
-                row_scales=self.row_scales, rescore_fetch=fetch)
-        return dist.cpu().numpy(), rows.cpu().numpy()
+            return dist[:qn], rows[:qn]
+        return sharded_search(
+            q, self.vectors, self.sqnorms, valid, k=k,
+            block_size=self.block_size, mesh=self.mesh,
+            axis=self.mesh_axis, mode=self.search_mode,
+            recall_target=self.recall_target,
+            row_scales=self.row_scales, rescore_fetch=fetch)
 
     def nbytes(self) -> int:
         """Device bytes of the index (on a mesh: the sum over every slot,

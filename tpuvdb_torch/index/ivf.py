@@ -78,6 +78,7 @@ from tpuvdb_torch.kernels.kmeans import assign_blockwise, kmeans
 from tpuvdb_torch.kernels.pq_probe import pq_probe_search
 from tpuvdb_torch.kernels.quant import quantize_rows_np
 from tpuvdb_torch.utils.hostmem import memlog
+from tpuvdb_torch.utils.tracing import span, stage
 
 _DTYPES = (torch.float32, torch.bfloat16, torch.int8)
 _ASSIGN_CHUNK = 16384
@@ -700,211 +701,217 @@ class IVFIndex:
         if len(live_idx) == 0:
             raise ValueError("cannot build IVF over empty corpus")
         memlog("build: start")
-        if pq_codebooks is not None and not pq_subq:
-            pq_subq = pqk.pq_code_bytes(pq_codebooks)
-        if pq_subq:
-            if pq_bits not in (8, 4):
-                raise ValueError(f"pq_bits={pq_bits} must be 8 or 4")
-            # pq_subq stays bytes/row in both tiers; 4-bit runs 2 * subq
-            # half-width subspaces of 16 codes packed two per byte
-            pq_m = pq_subq if pq_bits == 8 else 2 * pq_subq
-            pq_j = 256 if pq_bits == 8 else 16
-            if d % pq_m != 0:
-                raise ValueError(
-                    f"pq_subq={pq_subq} at pq_bits={pq_bits} needs "
-                    f"{pq_m} subspaces to divide dim={d}")
-            if dtype == torch.int8:
-                raise ValueError("pq_subq and int8 cells are exclusive: "
-                                 "PQ already compresses below int8")
-            if (pq_codebooks is not None
-                    and pq_codebooks.shape != (pq_m, pq_j, d // pq_m)):
-                pq_codebooks = None  # stale warm shape or tier: retrain
-            if pq_rotation is not None and pq_rotation.shape != (d, d):
+        with stage("build.train"):
+            if pq_codebooks is not None and not pq_subq:
+                pq_subq = pqk.pq_code_bytes(pq_codebooks)
+            if pq_subq:
+                if pq_bits not in (8, 4):
+                    raise ValueError(f"pq_bits={pq_bits} must be 8 or 4")
+                # pq_subq stays bytes/row in both tiers; 4-bit runs 2 * subq
+                # half-width subspaces of 16 codes packed two per byte
+                pq_m = pq_subq if pq_bits == 8 else 2 * pq_subq
+                pq_j = 256 if pq_bits == 8 else 16
+                if d % pq_m != 0:
+                    raise ValueError(
+                        f"pq_subq={pq_subq} at pq_bits={pq_bits} needs "
+                        f"{pq_m} subspaces to divide dim={d}")
+                if dtype == torch.int8:
+                    raise ValueError("pq_subq and int8 cells are exclusive: "
+                                     "PQ already compresses below int8")
+                if (pq_codebooks is not None
+                        and pq_codebooks.shape != (pq_m, pq_j, d // pq_m)):
+                    pq_codebooks = None  # stale warm shape or tier: retrain
+                if pq_rotation is not None and pq_rotation.shape != (d, d):
+                    pq_rotation = None
+                    pq_codebooks = None  # codebooks are tied to their rotation
+                if opq and pq_codebooks is not None and pq_rotation is None:
+                    # warm codebooks trained without a rotation cannot pair
+                    # with OPQ coding: retrain the pair together
+                    pq_codebooks = None
+                if not opq:
+                    pq_rotation = None  # a rotation only means something there
+            else:
+                _check_dtype(dtype)  # before any training
                 pq_rotation = None
-                pq_codebooks = None  # codebooks are tied to their rotation
-            if opq and pq_codebooks is not None and pq_rotation is None:
-                # warm codebooks trained without a rotation cannot pair
-                # with OPQ coding: retrain the pair together
-                pq_codebooks = None
-            if not opq:
-                pq_rotation = None  # a rotation only means something there
-        else:
-            _check_dtype(dtype)  # before any training
-            pq_rotation = None
-        rng = np.random.default_rng(seed)
+            rng = np.random.default_rng(seed)
 
-        # 1. coarse quantizer: k-means on a sample, or caller-provided
-        # centroids (checkpoint warm start: assignment only). The PQ
-        # codebooks train on the same sample.
-        warm_cents = centroids is not None and centroids.shape[1] == d
-        need_cb = bool(pq_subq) and pq_codebooks is None
-        sample = None
-        if not warm_cents or need_cb:
-            if len(live_idx) > train_sample:
-                tr = np.sort(rng.choice(live_idx, size=train_sample,
-                                        replace=False))
+            # 1. coarse quantizer: k-means on a sample, or caller-provided
+            # centroids (checkpoint warm start: assignment only). The PQ
+            # codebooks train on the same sample.
+            warm_cents = centroids is not None and centroids.shape[1] == d
+            need_cb = bool(pq_subq) and pq_codebooks is None
+            sample = None
+            if not warm_cents or need_cb:
+                if len(live_idx) > train_sample:
+                    tr = np.sort(rng.choice(live_idx, size=train_sample,
+                                            replace=False))
+                else:
+                    tr = live_idx
+                sample = source.gather_f32(tr)
+            if warm_cents:
+                centroids = np.array(centroids, np.float32)  # own, writable
+                nlist = len(centroids)
             else:
-                tr = live_idx
-            sample = source.gather_f32(tr)
-        if warm_cents:
-            centroids = np.array(centroids, np.float32)  # own, writable
-            nlist = len(centroids)
-        else:
-            centroids, _ = kmeans(sample, np.ones(sample.shape[0], bool),
-                                  nlist=nlist, iters=kmeans_iters, seed=seed,
-                                  device=dev)
-        cents_t = torch.from_numpy(centroids).to(dev)
-        if need_cb:
-            # residual codebooks: train on x - c_assign, so the codes model
-            # the structure inside a cell (the coarse quantizer already
-            # owns which cell a row is in)
-            sa = assign_blockwise(torch.from_numpy(sample).to(dev), cents_t,
-                                  block_size=4096).cpu().numpy()
-            residuals = sample - centroids[sa]
-            if opq:
-                pq_codebooks, pq_rotation = pqk.train_opq(
-                    residuals, m_subq=pq_m, seed=seed, n_codes=pq_j,
-                    device=dev)
+                centroids, _ = kmeans(sample,
+                                      np.ones(sample.shape[0], bool),
+                                      nlist=nlist, iters=kmeans_iters,
+                                      seed=seed, device=dev)
+            cents_t = torch.from_numpy(centroids).to(dev)
+            if need_cb:
+                # residual codebooks: train on x - c_assign, so the codes model
+                # the structure inside a cell (the coarse quantizer already
+                # owns which cell a row is in)
+                sa = assign_blockwise(torch.from_numpy(sample).to(dev),
+                                      cents_t, block_size=4096).cpu().numpy()
+                residuals = sample - centroids[sa]
+                if opq:
+                    pq_codebooks, pq_rotation = pqk.train_opq(
+                        residuals, m_subq=pq_m, seed=seed, n_codes=pq_j,
+                        device=dev)
+                else:
+                    pq_codebooks = pqk.train_pq(residuals, m_subq=pq_m,
+                                                seed=seed, n_codes=pq_j,
+                                                device=dev)
+                # the adaptive-rescore error bound, calibrated on the sample
+                # the codebooks trained on and checkpointed with them
+                pq_err = pqk.calibrate_pq_err(residuals, pq_codebooks,
+                                              rotation=pq_rotation, seed=seed)
+                del residuals
+            del sample
+            memlog("build: trained (cents+codebooks)")
+
+        with stage("build.assign"):
+            # 2. assign every row, streamed in blocks; invalid rows -> -1. PQ
+            # rows are encoded in the same pass, from the same uploaded block,
+            # into a code table that stays on the device
+            pq_tables = cb_t = rot_t = None
+            if pq_codebooks is not None:
+                cb_t = torch.from_numpy(
+                    np.ascontiguousarray(pq_codebooks, np.float32)).to(dev)
+                rot_t = (torch.from_numpy(np.ascontiguousarray(
+                    pq_rotation, np.float32)).to(dev)
+                    if pq_rotation is not None else None)
+                pq_tables = (
+                    torch.zeros((n, pq_subq), dtype=torch.uint8, device=dev),
+                    torch.zeros(n, dtype=torch.float32, device=dev))
+            assign = np.full(n, -1, np.int32)
+            for g0, blk in source.iter_blocks_f32(262_144):
+                blk_t = torch.from_numpy(blk).to(dev)
+                a = assign_blockwise(blk_t, cents_t)
+                assign[g0:g0 + len(blk)] = a.cpu().numpy()
+                if pq_tables is not None:
+                    codes, rsq = pqk.encode_residual(blk_t, a, cents_t, cb_t,
+                                                     rot_t)
+                    pq_tables[0][g0:g0 + len(blk)] = codes
+                    pq_tables[1][g0:g0 + len(blk)] = rsq
+            assign = np.where(valid, assign, -1)
+            memlog("build: assigned+encoded")
+
+        with stage("build.split"):
+            # 3. skew control: bound the max cell, then pack
+            sizes = np.bincount(assign[assign >= 0], minlength=nlist)
+            live_sizes = sizes[sizes > 0]
+            if split_oversized and nlist > 1 and len(live_sizes):
+                # window ~ 1.25x the median cell; bisect anything bigger
+                cap = int(np.quantile(live_sizes, 0.5) * 1.25)
+                if pq_tables is not None:
+                    # ADC cost is per candidate (nprobe * window), not per
+                    # byte: a clamped window bisects a huge corpus at a modest
+                    # nlist into more cells instead of widening every probe
+                    cap = min(cap, pq_max_cell)
+                cell_pad = max(_round_up(max(cap, 1), 128), 128)
+                old_cents = centroids
+                centroids, assign = split_oversized_cells(
+                    source.gather_f32, assign, centroids, cell_pad, seed=seed)
+                nlist = len(centroids)
+                if pq_tables is not None and nlist > len(old_cents):
+                    # residual codes are tied to their cell's centroid: rows
+                    # whose cell was bisected (parent replaced, child appended)
+                    # are encoded again against the final centroids and
+                    # scattered into the table
+                    changed = np.ones(nlist, bool)
+                    changed[:len(old_cents)] = np.any(
+                        old_cents != centroids[:len(old_cents)], axis=1)
+                    rows_re = np.flatnonzero(
+                        (assign >= 0) & changed[np.maximum(assign, 0)])
+                    cents_t = torch.from_numpy(centroids).to(dev)
+                    for lo in range(0, len(rows_re), _ENCODE_ROWS):
+                        rr = rows_re[lo:lo + _ENCODE_ROWS]
+                        codes, rsq = pqk.encode_residual(
+                            torch.from_numpy(source.gather_f32(rr)).to(dev),
+                            torch.from_numpy(assign[rr]).to(dev), cents_t,
+                            cb_t, rot_t)
+                        rr_t = torch.from_numpy(rr).to(dev)
+                        pq_tables[0].index_copy_(0, rr_t, codes)
+                        pq_tables[1].index_copy_(0, rr_t, rsq)
             else:
-                pq_codebooks = pqk.train_pq(residuals, m_subq=pq_m,
-                                            seed=seed, n_codes=pq_j,
-                                            device=dev)
-            # the adaptive-rescore error bound, calibrated on the sample
-            # the codebooks trained on and checkpointed with them
-            pq_err = pqk.calibrate_pq_err(residuals, pq_codebooks,
-                                          rotation=pq_rotation, seed=seed)
-            del residuals
-        del sample
-        memlog("build: trained (cents+codebooks)")
+                cap = (int(np.quantile(sizes, cell_cap_quantile))
+                       if nlist > 1 else int(sizes.max()))
+                cell_pad = max(_round_up(max(cap, 1), 128), 128)
 
-        # 2. assign every row, streamed in blocks; invalid rows -> -1. PQ
-        # rows are encoded in the same pass, from the same uploaded block,
-        # into a code table that stays on the device
-        pq_tables = cb_t = rot_t = None
-        if pq_codebooks is not None:
-            cb_t = torch.from_numpy(
-                np.ascontiguousarray(pq_codebooks, np.float32)).to(dev)
-            rot_t = (torch.from_numpy(np.ascontiguousarray(
-                pq_rotation, np.float32)).to(dev)
-                if pq_rotation is not None else None)
-            pq_tables = (
-                torch.zeros((n, pq_subq), dtype=torch.uint8, device=dev),
-                torch.zeros(n, dtype=torch.float32, device=dev))
-        assign = np.full(n, -1, np.int32)
-        for g0, blk in source.iter_blocks_f32(262_144):
-            blk_t = torch.from_numpy(blk).to(dev)
-            a = assign_blockwise(blk_t, cents_t)
-            assign[g0:g0 + len(blk)] = a.cpu().numpy()
-            if pq_tables is not None:
-                codes, rsq = pqk.encode_residual(blk_t, a, cents_t, cb_t,
-                                                 rot_t)
-                pq_tables[0][g0:g0 + len(blk)] = codes
-                pq_tables[1][g0:g0 + len(blk)] = rsq
-        assign = np.where(valid, assign, -1)
-        memlog("build: assigned+encoded")
+            memlog("build: split done")
+        with stage("build.pack"):
+            live2 = np.flatnonzero(valid & (assign >= 0))
+            int8_out = dtype == torch.int8
+            pq = pq_tables is not None
+            (gvec, gscales, gsq, gval, grow, cell_offsets, cell_lens,
+             spill_rows) = _pack_cells_from_source(
+                source, live2, assign[live2], nlist, cell_pad, int8_out,
+                pq_tables=pq_tables)
 
-        # 3. skew control: bound the max cell, then pack
-        sizes = np.bincount(assign[assign >= 0], minlength=nlist)
-        live_sizes = sizes[sizes > 0]
-        if split_oversized and nlist > 1 and len(live_sizes):
-            # window ~ 1.25x the median cell; bisect anything bigger
-            cap = int(np.quantile(live_sizes, 0.5) * 1.25)
-            if pq_tables is not None:
-                # ADC cost is per candidate (nprobe * window), not per
-                # byte: a clamped window bisects a huge corpus at a modest
-                # nlist into more cells instead of widening every probe
-                cap = min(cap, pq_max_cell)
-            cell_pad = max(_round_up(max(cap, 1), 128), 128)
-            old_cents = centroids
-            centroids, assign = split_oversized_cells(
-                source.gather_f32, assign, centroids, cell_pad, seed=seed)
-            nlist = len(centroids)
-            if pq_tables is not None and nlist > len(old_cents):
-                # residual codes are tied to their cell's centroid: rows
-                # whose cell was bisected (parent replaced, child appended)
-                # are encoded again against the final centroids and
-                # scattered into the table
-                changed = np.ones(nlist, bool)
-                changed[:len(old_cents)] = np.any(
-                    old_cents != centroids[:len(old_cents)], axis=1)
-                rows_re = np.flatnonzero(
-                    (assign >= 0) & changed[np.maximum(assign, 0)])
-                cents_t = torch.from_numpy(centroids).to(dev)
-                for lo in range(0, len(rows_re), _ENCODE_ROWS):
-                    rr = rows_re[lo:lo + _ENCODE_ROWS]
-                    codes, rsq = pqk.encode_residual(
-                        torch.from_numpy(source.gather_f32(rr)).to(dev),
-                        torch.from_numpy(assign[rr]).to(dev), cents_t, cb_t,
-                        rot_t)
-                    rr_t = torch.from_numpy(rr).to(dev)
-                    pq_tables[0].index_copy_(0, rr_t, codes)
-                    pq_tables[1].index_copy_(0, rr_t, rsq)
-        else:
-            cap = (int(np.quantile(sizes, cell_cap_quantile))
-                   if nlist > 1 else int(sizes.max()))
-            cell_pad = max(_round_up(max(cap, 1), 128), 128)
+            memlog("build: packed")
+        with stage("build.upload"):
+            # spill reserve: free capacity so append_rows can overflow full
+            # cells here instead of forcing a rebuild
+            reserve = min(8192, max(128, n // 8))
+            s = max(len(spill_rows), 1)
+            s_pad = _round_up(s + reserve, 128)
+            s_width, s_dtype = ((pq_subq, np.uint8) if pq else
+                                (d, np.int8 if int8_out else np.float32))
+            svec = np.zeros((s_pad, s_width), s_dtype)
+            sscales = np.ones(s_pad, np.float32) if int8_out else None
+            ssq = np.zeros(s_pad, np.float32)
+            sval = np.zeros(s_pad, bool)
+            srow = np.full(s_pad, -1, np.int64)
+            scell = np.zeros(s_pad, np.int32)  # residual PQ: its cell
+            ns = len(spill_rows)
+            if ns:
+                _fill_rows_from_source(source, spill_rows, svec, sscales, ssq,
+                                       np.arange(ns), int8_out,
+                                       pq_tables=pq_tables)
+                sval[:ns] = True
+                srow[:ns] = spill_rows
+                scell[:ns] = assign[spill_rows]
 
-        memlog("build: split done")
-        live2 = np.flatnonzero(valid & (assign >= 0))
-        int8_out = dtype == torch.int8
-        pq = pq_tables is not None
-        (gvec, gscales, gsq, gval, grow, cell_offsets, cell_lens,
-         spill_rows) = _pack_cells_from_source(
-            source, live2, assign[live2], nlist, cell_pad, int8_out,
-            pq_tables=pq_tables)
+            def put(a, dt=None):
+                if isinstance(a, torch.Tensor):  # PQ cells, on the device
+                    return a
+                t = torch.from_numpy(a).to(dev)
+                return t if dt is None else t.to(dt)
 
-        memlog("build: packed")
-        # spill reserve: free capacity so append_rows can overflow full
-        # cells here instead of forcing a rebuild
-        reserve = min(8192, max(128, n // 8))
-        s = max(len(spill_rows), 1)
-        s_pad = _round_up(s + reserve, 128)
-        s_width, s_dtype = ((pq_subq, np.uint8) if pq else
-                            (d, np.int8 if int8_out else np.float32))
-        svec = np.zeros((s_pad, s_width), s_dtype)
-        sscales = np.ones(s_pad, np.float32) if int8_out else None
-        ssq = np.zeros(s_pad, np.float32)
-        sval = np.zeros(s_pad, bool)
-        srow = np.full(s_pad, -1, np.int64)
-        scell = np.zeros(s_pad, np.int32)  # residual PQ: cell per spill row
-        ns = len(spill_rows)
-        if ns:
-            _fill_rows_from_source(source, spill_rows, svec, sscales, ssq,
-                                   np.arange(ns), int8_out,
-                                   pq_tables=pq_tables)
-            sval[:ns] = True
-            srow[:ns] = spill_rows
-            scell[:ns] = assign[spill_rows]
-
-        def put(a, dt=None):
-            if isinstance(a, torch.Tensor):  # PQ cells, packed on the device
-                return a
-            t = torch.from_numpy(a).to(dev)
-            return t if dt is None else t.to(dt)
-
-        if pq:
-            dtype = torch.uint8
-        return cls(
-            centroids=centroids,
-            grouped=put(gvec, dtype),
-            grouped_sq=put(gsq),
-            grouped_valid=put(gval),
-            row_ids=grow,
-            spill=put(svec, dtype),
-            spill_sq=put(ssq),
-            spill_valid=put(sval),
-            spill_row_ids=srow,
-            cell_pad=cell_pad,
-            cell_offsets=cell_offsets,
-            cell_lens=cell_lens,
-            nprobe=nprobe,
-            cell_scales=put(gscales) if int8_out else None,
-            spill_scales=put(sscales) if int8_out else None,
-            pq_codebooks=pq_codebooks,
-            spill_cells=scell if pq else None,
-            pq_rotation=pq_rotation,
-            pq_err=pq_err if pq else 0.0,
-        )
+            if pq:
+                dtype = torch.uint8
+            return cls(
+                centroids=centroids,
+                grouped=put(gvec, dtype),
+                grouped_sq=put(gsq),
+                grouped_valid=put(gval),
+                row_ids=grow,
+                spill=put(svec, dtype),
+                spill_sq=put(ssq),
+                spill_valid=put(sval),
+                spill_row_ids=srow,
+                cell_pad=cell_pad,
+                cell_offsets=cell_offsets,
+                cell_lens=cell_lens,
+                nprobe=nprobe,
+                cell_scales=put(gscales) if int8_out else None,
+                spill_scales=put(sscales) if int8_out else None,
+                pq_codebooks=pq_codebooks,
+                spill_cells=scell if pq else None,
+                pq_rotation=pq_rotation,
+                pq_err=pq_err if pq else 0.0,
+            )
 
     # ----------------------------------------------------------------- search
 
@@ -931,12 +938,13 @@ class IVFIndex:
             if force_compact:
                 raise ValueError("the PQ probe has one form, the expanded "
                                  "list: force_compact does not apply")
-            return pq_probe_search(
-                q, self.centroids, self.grouped, self.pq_codebooks,
-                self.grouped_sq, gval, self.spill, self.spill_cells,
-                self.spill_sq, sval, self.cell_offsets,
-                cell_pad=self.cell_pad, k=k, nprobe=nprobe,
-                rotation=self.pq_rotation)
+            with span("index.launch"):
+                return pq_probe_search(
+                    q, self.centroids, self.grouped, self.pq_codebooks,
+                    self.grouped_sq, gval, self.spill, self.spill_cells,
+                    self.spill_sq, sval, self.cell_offsets,
+                    cell_pad=self.cell_pad, k=k, nprobe=nprobe,
+                    rotation=self.pq_rotation)
         return ivf_probe_search(
             q, self.centroids, self.grouped, self.grouped_sq, gval,
             self.cell_offsets, cell_pad=self.cell_pad, k=k,
@@ -953,21 +961,28 @@ class IVFIndex:
         valid_override: (grouped_valid, spill_valid) from masked_valid().
         The reference's `out_w` (a cut to the width the engine consumes,
         with bf16 distances for its relay) is not carried over: the port's
-        engine asks for exactly that width, and distances stay f32."""
-        q = torch.from_numpy(np.ascontiguousarray(queries, np.float32)).to(
-            self.device)
+        engine asks for exactly that width, and distances stay f32. Spans:
+        index.upload, the probe's (index.plan, index.launch), index.wait,
+        index.row_map."""
+        with span("index.upload"):
+            q = torch.from_numpy(
+                np.ascontiguousarray(queries, np.float32)).to(self.device)
         dist, gid = self.probe(q, k, nprobe, valid_override, force_compact)
-        gid = gid.cpu().numpy()
-        dist = dist.cpu().numpy()
-        # map grouped/spill ids back to physical rows
-        n_g = self.grouped.shape[0]
-        rows = np.full(gid.shape, -1, dtype=np.int64)
-        g = gid >= 0
-        in_spill = gid >= n_g
-        rows[g & ~in_spill] = self.row_ids[gid[g & ~in_spill]]
-        sp = g & in_spill
-        rows[sp] = self.spill_row_ids[gid[sp] - n_g]
-        return dist, rows
+        with span("index.wait"):
+            gid = gid.cpu()
+            dist = dist.cpu()
+        with span("index.row_map"):
+            gid = gid.numpy()
+            dist = dist.numpy()
+            # map grouped/spill ids back to physical rows
+            n_g = self.grouped.shape[0]
+            rows = np.full(gid.shape, -1, dtype=np.int64)
+            g = gid >= 0
+            in_spill = gid >= n_g
+            rows[g & ~in_spill] = self.row_ids[gid[g & ~in_spill]]
+            sp = g & in_spill
+            rows[sp] = self.spill_row_ids[gid[sp] - n_g]
+            return dist, rows
 
     # ------------------------------------------------------------- mutations
 

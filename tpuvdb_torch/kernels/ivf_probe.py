@@ -79,6 +79,7 @@ from tpuvdb_torch.kernels.cuda_build import CudaLibrary
 from tpuvdb_torch.kernels.distance import (mma_queries, mma_width,
                                            queries_like)
 from tpuvdb_torch.kernels.quant import int8_dots, quantize_batch
+from tpuvdb_torch.utils.tracing import span
 
 NEG_INF = float(torch.finfo(torch.float32).min)
 CHUNK = 128          # rows per chunk, the reference's lane width
@@ -749,41 +750,45 @@ def ivf_probe_search(
     spill_scales: Optional[torch.Tensor] = None,  # (S,) f32, int8 spill
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dist, grouped_row), each (Q, k): exact ascending squared L2 of the
-    candidates; spill row j has id N_g + j; empty slots +inf / -1."""
+    candidates; spill row j has id N_g + j; empty slots +inf / -1. Spans:
+    index.plan (the coarse pick and the lists), index.launch (the rest)."""
     qn = queries.shape[0]
-    plan = probe_plan(queries, centroids, cell_offsets, cell_pad, k, nprobe,
-                      query_tile, force_compact)
-    neg_mask = torch.zeros(grouped_valid.shape, dtype=torch.float32,
-                           device=grouped.device).masked_fill_(
-                               ~grouped_valid, NEG_INF)
-    cand_val, cand_idx = plan_candidates(plan, grouped, grouped_sq, neg_mask,
-                                         cell_scales=cell_scales)
-    cand_val, cand_idx = cand_val[:qn], cand_idx[:qn]
-    if spill is not None and spill.shape[0] > 0:
-        if spill.dtype == torch.int8:
-            # dequantized rows against the unquantized queries
-            spill_f = spill.to(torch.float32) * spill_scales[:, None]
-            sdots = queries.to(torch.float32) @ spill_f.T
-        else:
-            sdots = queries_like(queries, spill) @ spill.to(torch.float32).T
-        sneg = 2.0 * sdots - spill_sq[None, :]
-        sneg = torch.where(spill_valid[None, :], sneg,
-                           torch.full_like(sneg, NEG_INF))
-        sids = grouped.shape[0] + torch.arange(
-            spill.shape[0], dtype=torch.int32, device=grouped.device)
-        cand_val = torch.cat([cand_val, sneg], dim=1)
-        cand_idx = torch.cat([cand_idx, sids.expand(qn, -1)], dim=1)
-    kk = min(k, cand_val.shape[1])
-    # a stable sort: equal scores keep candidate order, as lax.top_k does
-    neg, pos = torch.sort(cand_val, dim=1, descending=True, stable=True)
-    neg, pos = neg[:, :kk], pos[:, :kk]
-    idx = torch.gather(cand_idx, 1, pos)
-    if kk < k:
-        neg = F.pad(neg, (0, k - kk), value=NEG_INF)
-        idx = F.pad(idx, (0, k - kk), value=-1)
-    q = queries.to(torch.float32)
-    q_sq = (q * q).sum(dim=-1, keepdim=True)
-    idx = torch.where(neg <= NEG_INF, torch.full_like(idx, -1), idx)
-    dist = torch.where(idx >= 0, q_sq - neg,
-                       torch.full_like(neg, float("inf")))
-    return dist, idx
+    with span("index.plan"):
+        plan = probe_plan(queries, centroids, cell_offsets, cell_pad, k,
+                          nprobe, query_tile, force_compact)
+    with span("index.launch"):
+        neg_mask = torch.zeros(grouped_valid.shape, dtype=torch.float32,
+                               device=grouped.device).masked_fill_(
+                                   ~grouped_valid, NEG_INF)
+        cand_val, cand_idx = plan_candidates(plan, grouped, grouped_sq,
+                                             neg_mask, cell_scales=cell_scales)
+        cand_val, cand_idx = cand_val[:qn], cand_idx[:qn]
+        if spill is not None and spill.shape[0] > 0:
+            if spill.dtype == torch.int8:
+                # dequantized rows against the unquantized queries
+                spill_f = spill.to(torch.float32) * spill_scales[:, None]
+                sdots = queries.to(torch.float32) @ spill_f.T
+            else:
+                sdots = (queries_like(queries, spill)
+                         @ spill.to(torch.float32).T)
+            sneg = 2.0 * sdots - spill_sq[None, :]
+            sneg = torch.where(spill_valid[None, :], sneg,
+                               torch.full_like(sneg, NEG_INF))
+            sids = grouped.shape[0] + torch.arange(
+                spill.shape[0], dtype=torch.int32, device=grouped.device)
+            cand_val = torch.cat([cand_val, sneg], dim=1)
+            cand_idx = torch.cat([cand_idx, sids.expand(qn, -1)], dim=1)
+        kk = min(k, cand_val.shape[1])
+        # a stable sort: equal scores keep candidate order, as lax.top_k does
+        neg, pos = torch.sort(cand_val, dim=1, descending=True, stable=True)
+        neg, pos = neg[:, :kk], pos[:, :kk]
+        idx = torch.gather(cand_idx, 1, pos)
+        if kk < k:
+            neg = F.pad(neg, (0, k - kk), value=NEG_INF)
+            idx = F.pad(idx, (0, k - kk), value=-1)
+        q = queries.to(torch.float32)
+        q_sq = (q * q).sum(dim=-1, keepdim=True)
+        idx = torch.where(neg <= NEG_INF, torch.full_like(idx, -1), idx)
+        dist = torch.where(idx >= 0, q_sq - neg,
+                           torch.full_like(neg, float("inf")))
+        return dist, idx

@@ -49,15 +49,22 @@ def trim_heap() -> bool:
         return False
 
 
-def anon_gb() -> float:
-    """Anonymous (non-file-backed) RSS in GB; -1 where unsupported."""
-    try:
-        with open("/proc/self/smaps_rollup") as f:
-            for line in f:
-                if line.startswith("Anonymous:"):
-                    return int(line.split()[1]) / 1024 / 1024
-    except OSError:
-        pass
+#: where anon_gb() reads, in order: the rollup's `Anonymous:` line, then
+#: the status file's `RssAnon:` (kernels or containers without the rollup)
+ANON_SOURCES = (("/proc/self/smaps_rollup", "Anonymous:"),
+                ("/proc/self/status", "RssAnon:"))
+
+
+def anon_gb(sources=ANON_SOURCES) -> float:
+    """Anonymous (non-file-backed) RSS in GB; -1 where no source reads."""
+    for path, field in sources:
+        try:
+            with open(path) as f:
+                for line in f:
+                    if line.startswith(field):
+                        return int(line.split()[1]) / 1024 / 1024
+        except OSError:
+            continue
     return -1.0
 
 
