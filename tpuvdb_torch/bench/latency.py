@@ -20,8 +20,8 @@ back to numpy (p50 of 30). On the card that is the card's own floor; the
 `--mode int8` (the default) stores int8 rows and scans them in "approx"
 mode; the other modes are search modes over f32 rows (the reference's
 mapping, bench_latency.py:43-57). Stdout takes one JSON line per batch
-size with the reference's keys; the table, the floor and the engine's
-stage timers go to stderr.
+size with the reference's keys; the table, the floor, the engine's
+stage timers and, for IVF, its probe-graph counts go to stderr.
 """
 
 from __future__ import annotations
@@ -154,6 +154,10 @@ def run(args, device) -> dict:
         snap = svc.engine.timers.snapshot()
         for name in sorted(snap):
             log(f"  {name:24s} {snap[name]}")
+        graphs = {n: v for n, v in svc.engine.info()["stats"].items()
+                  if n.startswith("ivf_graph_") and v}
+        if graphs:
+            log(f"IVF probe graphs (index/probe_graphs.py): {graphs}")
         return results
     finally:
         svc.close()

@@ -107,6 +107,7 @@ from tpuvdb_torch.device import resolve_device
 from tpuvdb_torch.index.exact import DeviceExactIndex
 from tpuvdb_torch.index.ivf import IVFIndex, MirrorRowSource
 from tpuvdb_torch.index.layout import ShardMirror, StackedLayout
+from tpuvdb_torch.index.probe_graphs import STATS as GRAPH_STATS
 from tpuvdb_torch.mesh.sharded_ivf import ShardedIVFIndex
 from tpuvdb_torch.store.checkpoint import CheckpointManager
 from tpuvdb_torch.store.kv import DocEntry, DocStore
@@ -1845,7 +1846,7 @@ class VectorDBEngine:
                         if self._ivf else None),
                 "ivf_delta": len(self._ivf_delta),
                 "staged": len(self._staged_updates) + len(self._staged_deletes),
-                "stats": dict(self.stats),
+                "stats": {**self.stats, **self._ivf_graph_stats()},
                 "latency": self.timers.snapshot(),
                 # the last profiled session's spans (None before one)
                 "spans": self.timers.spans(),
@@ -1861,6 +1862,14 @@ class VectorDBEngine:
                 "mirror_backend": ("mmap" if self._mirror_dir is not None
                                    else "ram"),
             }
+
+    def _ivf_graph_stats(self) -> Dict[str, int]:
+        """The serving IVF index's probe-graph counts as ivf_graph_<name>
+        (index/probe_graphs.py STATS; a rebuilt index counts anew); 0
+        where no single-device IVF index serves."""
+        graphs = getattr(self._ivf, "graphs", None)
+        counts = graphs.stats() if graphs is not None else {}
+        return {f"ivf_graph_{n}": counts.get(n, 0) for n in GRAPH_STATS}
 
     def close(self):
         # never hold the engine lock here: save_checkpoint takes

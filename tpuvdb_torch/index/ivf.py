@@ -73,7 +73,9 @@ import torch
 
 from tpuvdb_torch.device import resolve_device
 from tpuvdb_torch.kernels import pq as pqk
-from tpuvdb_torch.kernels.ivf_probe import ivf_probe_search
+from tpuvdb_torch.index.probe_graphs import GraphCache, capture_graph
+from tpuvdb_torch.kernels.ivf_probe import (count_launches, ivf_probe_search,
+                                            padded_k, padded_rows)
 from tpuvdb_torch.kernels.kmeans import assign_blockwise, kmeans
 from tpuvdb_torch.kernels.pq_probe import pq_probe_search
 from tpuvdb_torch.kernels.quant import quantize_rows_np
@@ -479,6 +481,8 @@ class IVFIndex:
         self.nlist = int(self._centroids_np.shape[0])
         self._inv_g = self._inv_s = None
         self.version = 0  # bumped by every in-place device write
+        # CUDA graphs of the probe by shape, and their counts
+        self.graphs = GraphCache()
 
     def centroids_np(self) -> np.ndarray:
         return self._centroids_np
@@ -961,16 +965,31 @@ class IVFIndex:
         valid_override: (grouped_valid, spill_valid) from masked_valid().
         The reference's `out_w` (a cut to the width the engine consumes,
         with bf16 distances for its relay) is not carried over: the port's
-        engine asks for exactly that width, and distances stay f32. Spans:
-        index.upload, the probe's (index.plan, index.launch), index.wait,
-        index.row_map."""
-        with span("index.upload"):
-            q = torch.from_numpy(
-                np.ascontiguousarray(queries, np.float32)).to(self.device)
-        dist, gid = self.probe(q, k, nprobe, valid_override, force_compact)
-        with span("index.wait"):
-            gid = gid.cpu()
-            dist = dist.cpu()
+        engine asks for exactly that width, and distances stay f32.
+
+        On a CUDA device an unfiltered f32, bf16 or int8 probe runs as a
+        CUDA graph once its key recurs (`graphs`, index/probe_graphs.py):
+        the batch padded as the plan pads it, k padded as padded_k pads it
+        (the engine's k grows with its staged deletes), nprobe and the
+        form. A filtered search, PQ cells and the CPU run eagerly. Both
+        answer alike, bit for bit. Spans: index.upload,
+        the probe's (index.plan, index.launch; a replay is index.launch),
+        index.wait, index.row_map."""
+        queries = np.ascontiguousarray(queries, np.float32)
+        nprobe = min(nprobe or self.nprobe, self.nlist)
+        bypass = ("filtered" if valid_override is not None
+                  else "pq" if self.pq
+                  else "cpu" if self.device.type != "cuda" else None)
+        if bypass is not None:
+            self.graphs.bypass(bypass)
+            dist, gid = self._probe_to_host(queries, k, nprobe,
+                                            valid_override, force_compact)
+        else:
+            dist, gid = self.graphs.run(
+                (padded_rows(queries.shape[0]), padded_k(k), nprobe,
+                 force_compact),
+                self._probe_to_host, self._capture_probe, queries, k, nprobe,
+                None, force_compact)
         with span("index.row_map"):
             gid = gid.numpy()
             dist = dist.numpy()
@@ -983,6 +1002,45 @@ class IVFIndex:
             sp = g & in_spill
             rows[sp] = self.spill_row_ids[gid[sp] - n_g]
             return dist, rows
+
+    def _probe_to_host(self, queries, k, nprobe, valid_override,
+                       force_compact):
+        """The eager probe: (dist, grouped id) as CPU tensors."""
+        with span("index.upload"):
+            q = torch.from_numpy(queries).to(self.device)
+        dist, gid = self.probe(q, k, nprobe, valid_override, force_compact)
+        with span("index.wait"):
+            gid = gid.cpu()
+            dist = dist.cpu()
+        return dist, gid
+
+    def _capture_probe(self, queries, k, nprobe, _valid, force_compact):
+        """Record the probe of the key's padded batch and k as a CUDA graph
+        on a static query buffer; returns the replay that answers a call."""
+        static = torch.zeros((padded_rows(queries.shape[0]),
+                              queries.shape[1]), dtype=torch.float32,
+                             device=self.device)
+        graph, (dist, gid), launches = capture_graph(
+            lambda: self.probe(static, padded_k(k), nprobe, None,
+                               force_compact),
+            self.device)
+
+        def replay(queries, k, *_):
+            qn = queries.shape[0]
+            with span("index.upload"):
+                static[:qn].copy_(torch.from_numpy(queries))
+                if qn < static.shape[0]:   # rows of an earlier, longer call
+                    static[qn:].zero_()
+            with span("index.launch"):
+                graph.replay()
+                count_launches(launches)
+            with span("index.wait"):
+                d, g = dist[:qn].cpu(), gid[:qn].cpu()
+            if k < d.shape[1]:
+                d, g = d[:, :k].contiguous(), g[:, :k].contiguous()
+            return d, g
+
+        return replay
 
     # ------------------------------------------------------------- mutations
 

@@ -50,7 +50,8 @@ An entry whose chunk, segment or cell id is out of range scores nothing;
 lists of the wrong shape raise, on either device. On a CUDA tensor a
 wrapper launches its kernel or raises; `LAUNCHES_EXPANDED`,
 `LAUNCHES_COMPACT`, `LAUNCHES_EXPANDED_INT8` and `LAUNCHES_COMPACT_INT8`
-count launches.
+count launches (a CUDA graph's replay counts those its capture recorded:
+`launches_into`, `count_launches`).
 
 `ivf_probe_search` is the port of `pallas_ivf_search` on the packed layout
 (cell_offsets given; the fixed-stride layout is not used by IVFIndex): the
@@ -69,7 +70,10 @@ and partial-reduction levers) are not ported.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
+import threading
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -99,6 +103,35 @@ LAUNCHES_COMPACT_INT8 = 0   # ivf_candidates_packed_int8 kernel launches
 
 _INT_MAX = torch.iinfo(torch.int32).max
 _sm_counts = {}
+_capturing = threading.local()
+
+
+def _count(name: str) -> None:
+    """Count one launch under the counter `name`; a launch recorded into
+    a CUDA graph goes to the capture's sink and is counted by each replay
+    (launches_into, count_launches)."""
+    sink = getattr(_capturing, "sink", None)
+    if sink is not None:
+        sink[name] += 1
+    else:
+        globals()[name] += 1
+
+
+@contextlib.contextmanager
+def launches_into(sink: collections.Counter):
+    """While open, this thread's launches go to `sink` and not to the
+    counters: a graph's capture records launches that have not run."""
+    _capturing.sink = sink
+    try:
+        yield
+    finally:
+        _capturing.sink = None
+
+
+def count_launches(launches: collections.Counter) -> None:
+    """Count a replay of a graph whose capture recorded `launches`."""
+    for name, n in launches.items():
+        globals()[name] += n
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -461,7 +494,6 @@ def ivf_candidates(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Expanded-form probe: (cand_val f32, cand_idx int32), each
     (Q_pad, 128 * n_segments)."""
-    global LAUNCHES_EXPANDED
     _check_lists("ivf_candidates", queries, query_tile, n_segments, cells,
                  segs=segs)
     if grouped.device.type == "cpu":
@@ -472,7 +504,7 @@ def ivf_candidates(
         "ivf_candidates", queries, grouped, grouped_sq, neg_mask, n_segments,
         query_tile, cells, segs=segs)
     if launched:
-        LAUNCHES_EXPANDED += 1
+        _count("LAUNCHES_EXPANDED")
     return val, idx
 
 
@@ -489,7 +521,6 @@ def ivf_candidates_packed(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Compact-form probe: (cand_val f32, cand_idx int32), each
     (Q_pad, 128 * n_segments)."""
-    global LAUNCHES_COMPACT
     _check_lists("ivf_candidates_packed", queries, query_tile, n_segments,
                  cells, off128=off128)
     if grouped.device.type == "cpu":
@@ -500,7 +531,7 @@ def ivf_candidates_packed(
         "ivf_candidates_packed", queries, grouped, grouped_sq, neg_mask,
         n_segments, query_tile, cells, off128=off128, w128=w128)
     if launched:
-        LAUNCHES_COMPACT += 1
+        _count("LAUNCHES_COMPACT")
     return val, idx
 
 
@@ -596,7 +627,6 @@ def ivf_candidates_int8(
     """Expanded-form probe of int8 cells: (cand_val f32, cand_idx int32),
     each (Q_pad, 128 * n_segments). The whole batch shares one query
     scale."""
-    global LAUNCHES_EXPANDED_INT8
     _check_lists("ivf_candidates_int8", queries, query_tile, n_segments,
                  cells, segs=segs)
     if grouped_i8.device.type == "cpu":
@@ -607,7 +637,7 @@ def ivf_candidates_int8(
         "ivf_candidates_int8", queries, grouped_i8, grouped_sq, neg_mask,
         n_segments, query_tile, cells, segs=segs, cell_scales=cell_scales)
     if launched:
-        LAUNCHES_EXPANDED_INT8 += 1
+        _count("LAUNCHES_EXPANDED_INT8")
     return val, idx
 
 
@@ -625,7 +655,6 @@ def ivf_candidates_packed_int8(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Compact-form probe of int8 cells: (cand_val f32, cand_idx int32),
     each (Q_pad, 128 * n_segments)."""
-    global LAUNCHES_COMPACT_INT8
     _check_lists("ivf_candidates_packed_int8", queries, query_tile,
                  n_segments, cells, off128=off128)
     if grouped_i8.device.type == "cpu":
@@ -637,7 +666,7 @@ def ivf_candidates_packed_int8(
         neg_mask, n_segments, query_tile, cells, off128=off128, w128=w128,
         cell_scales=cell_scales)
     if launched:
-        LAUNCHES_COMPACT_INT8 += 1
+        _count("LAUNCHES_COMPACT_INT8")
     return val, idx
 
 
@@ -659,6 +688,27 @@ class ProbePlan(NamedTuple):
     qc2: torch.Tensor      # (Q_pad, nlist) f32
 
 
+def padded_rows(qn: int, query_tile: int = MAX_QUERY_TILE) -> int:
+    """Rows of the plan's query batch for qn queries: qn rounded up to the
+    tile, min(query_tile, qn) queries."""
+    qt = min(query_tile, max(1, qn))
+    return -(-qn // qt) * qt
+
+
+def _segments(k: int) -> int:
+    """Segments of the expanded form for a search of k (twice that in the
+    compact form)."""
+    return max(4, -(-2 * k // CHUNK))
+
+
+def padded_k(k: int) -> int:
+    """k rounded up to a power of two, cut to the largest k of k's segment
+    count: a search at padded_k(k) probes the same candidates, and its
+    first k answers are the answers at k, bit for bit (one stable sort of
+    the same candidates)."""
+    return min(1 << (k - 1).bit_length(), CHUNK // 2 * _segments(k))
+
+
 def probe_plan(queries, centroids, cell_offsets, cell_pad: int, k: int,
                nprobe: int, query_tile: int = MAX_QUERY_TILE,
                force_compact: bool = False,
@@ -672,7 +722,7 @@ def probe_plan(queries, centroids, cell_offsets, cell_pad: int, k: int,
         raise ValueError("ivf_probe_search: empty query batch")
     qt = min(query_tile, max(1, qn))
     q = queries.to(torch.float32)
-    pad_q = (-qn) % qt
+    pad_q = padded_rows(qn, query_tile) - qn
     if pad_q:
         q = torch.cat([q, q.new_zeros((pad_q, d))])
     c_sq = (centroids * centroids).sum(dim=-1)
@@ -683,7 +733,7 @@ def probe_plan(queries, centroids, cell_offsets, cell_pad: int, k: int,
                        dim=1).values                       # (tiles, U)
     w128 = cell_pad // CHUNK
     off128 = (cell_offsets // CHUNK).to(torch.int32)
-    n_segments = max(4, -(-2 * k // CHUNK))
+    n_segments = _segments(k)
     n_expanded = cells.shape[0] * cells.shape[1] * w128
     always = expanded_chunks is not None
     if always or (n_expanded <= EXPANDED_MAX and not force_compact):
@@ -750,34 +800,38 @@ def ivf_probe_search(
     spill_scales: Optional[torch.Tensor] = None,  # (S,) f32, int8 spill
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dist, grouped_row), each (Q, k): exact ascending squared L2 of the
-    candidates; spill row j has id N_g + j; empty slots +inf / -1. Spans:
-    index.plan (the coarse pick and the lists), index.launch (the rest)."""
+    candidates; spill row j has id N_g + j; empty slots +inf / -1. The
+    epilogue runs on the plan's padded batch and the rows past Q are cut
+    last, so a batch and the batch zero-padded to padded_rows(Q) answer
+    alike, bit for bit: a CUDA graph of the padded batch (index/
+    probe_graphs.py) serves every Q that pads to it. Spans: index.plan
+    (the coarse pick and the lists), index.launch (the rest)."""
     qn = queries.shape[0]
     with span("index.plan"):
         plan = probe_plan(queries, centroids, cell_offsets, cell_pad, k,
                           nprobe, query_tile, force_compact)
     with span("index.launch"):
+        q = plan.queries
         neg_mask = torch.zeros(grouped_valid.shape, dtype=torch.float32,
                                device=grouped.device).masked_fill_(
                                    ~grouped_valid, NEG_INF)
         cand_val, cand_idx = plan_candidates(plan, grouped, grouped_sq,
                                              neg_mask, cell_scales=cell_scales)
-        cand_val, cand_idx = cand_val[:qn], cand_idx[:qn]
         if spill is not None and spill.shape[0] > 0:
             if spill.dtype == torch.int8:
                 # dequantized rows against the unquantized queries
                 spill_f = spill.to(torch.float32) * spill_scales[:, None]
-                sdots = queries.to(torch.float32) @ spill_f.T
+                sdots = q @ spill_f.T
             else:
-                sdots = (queries_like(queries, spill)
-                         @ spill.to(torch.float32).T)
+                sdots = queries_like(q, spill) @ spill.to(torch.float32).T
             sneg = 2.0 * sdots - spill_sq[None, :]
             sneg = torch.where(spill_valid[None, :], sneg,
                                torch.full_like(sneg, NEG_INF))
             sids = grouped.shape[0] + torch.arange(
                 spill.shape[0], dtype=torch.int32, device=grouped.device)
             cand_val = torch.cat([cand_val, sneg], dim=1)
-            cand_idx = torch.cat([cand_idx, sids.expand(qn, -1)], dim=1)
+            cand_idx = torch.cat([cand_idx, sids.expand(q.shape[0], -1)],
+                                 dim=1)
         kk = min(k, cand_val.shape[1])
         # a stable sort: equal scores keep candidate order, as lax.top_k does
         neg, pos = torch.sort(cand_val, dim=1, descending=True, stable=True)
@@ -786,9 +840,8 @@ def ivf_probe_search(
         if kk < k:
             neg = F.pad(neg, (0, k - kk), value=NEG_INF)
             idx = F.pad(idx, (0, k - kk), value=-1)
-        q = queries.to(torch.float32)
         q_sq = (q * q).sum(dim=-1, keepdim=True)
         idx = torch.where(neg <= NEG_INF, torch.full_like(idx, -1), idx)
         dist = torch.where(idx >= 0, q_sq - neg,
                            torch.full_like(neg, float("inf")))
-        return dist, idx
+        return dist[:qn], idx[:qn]
