@@ -20,6 +20,17 @@ corpus it made to `numbers`, which works out three numbers:
   runs of the program read and what the TF32 control reads (PERF.md).
 
 `judge` holds each number to its limit from the configuration's `check`.
+
+A cell whose mix writes beside the searches (perfbench/writes.py) is held
+to the same three numbers by `live_numbers`, against the rows live when
+each call started, and to exact counts whose limit is 0: `stale_answers`
+(a key served with a version deleted or overwritten before the call
+started), `unseen_writes` (a self-query of a fresh row acknowledged
+before its call was sent that did not find that row first),
+`lost_writes` (a written key whose read-back after the crash and the
+reopen is not its last acknowledged write, bit for bit), `wal_tail_missed`
+(records after the last checkpoint that the reopen did not replay) and
+`failed_writes`.
 """
 
 from __future__ import annotations
@@ -104,6 +115,104 @@ def numbers(queries: np.ndarray, ids: np.ndarray, dists: np.ndarray,
         "miss_share": float(1.0 - hits.sum() / hits.size),
         "dist_gap": float(gaps.max()) if gaps.size else float("inf"),
     }
+
+
+def live_numbers(queries: np.ndarray, at: np.ndarray, ret: np.ndarray,
+                 dists: Sequence, keys: Sequence, k: int, versions,
+                 parts: Sequence[np.ndarray], reference, device="cpu"
+                 ) -> Dict[str, float]:
+    """The three numbers of the module docstring for answers given while
+    the store was written, against the versions live at each call's start
+    `at` (perfbench/writes.py `Versions`; the reference's
+    `exact_topk_live`), and `stale_answers`.
+
+    A served key stands for the one of its versions whose exact distance
+    lies nearest the served one, among those that could be visible during
+    the call: live at its start, or written before it returned and
+    acknowledged after it started (an in-flight write, in its old state or
+    its new). A key whose nearest version is one that was overwritten or
+    deleted before the call started is a stale answer; a key with no
+    version visible during the call names no row."""
+    ref_ids, ref_d = reference.exact_topk_live(
+        queries, parts, versions.born_ack, versions.died_ack, at, k,
+        device=device)
+    qn = len(keys)
+    bad = np.zeros(qn, bool)
+    served = np.full((qn, k), np.inf)
+    pairs_q, pairs_v, where = [], [], []
+    for i in range(qn):
+        d = np.asarray(dists[i], np.float64).reshape(-1)
+        row = list(keys[i])
+        if len(row) != k or d.shape[0] != k or len(set(row)) != k \
+                or not np.isfinite(d).all() or np.any(np.diff(d) < 0):
+            bad[i] = True
+        served[i, :min(k, d.shape[0])] = d[:k]
+        for j, key in enumerate(row[:k]):
+            for v in versions.rows_of(key):
+                pairs_q.append(i)
+                pairs_v.append(v)
+                where.append(j)
+    pq = np.asarray(pairs_q, np.int64)
+    pv = np.asarray(pairs_v, np.int64)
+    exact = np.zeros(0)
+    if pq.size:
+        exact = reference.distances64(queries[pq], parts, pv[:, None])[:, 0]
+    q_sq = reference.sqnorms64(queries)
+    v_sq = np.concatenate(
+        [np.zeros(0)] + [reference.sqnorms64(
+            reference.gather(parts, pv[lo:lo + 4096]))
+            for lo in range(0, pv.size, 4096)])
+    best = {}  # (i, j) -> (gap, exact, gone, scale) of the nearest version
+    for n in range(pq.size):
+        i, j, v = int(pq[n]), where[n], int(pv[n])
+        gone = versions.died_ack[v] < at[i]  # before the call started
+        if not gone and versions.born_send[v] >= ret[i]:
+            continue  # sent after the call returned: never visible to it
+        scale = q_sq[i] + v_sq[n]
+        gap = abs(served[i, j] - exact[n]) / scale
+        old = best.get((i, j))
+        if old is None or gap < old[0]:
+            best[(i, j)] = (gap, exact[n], gone, scale)
+    kth = ref_d[:, k - 1]
+    hits = 0
+    stale = 0
+    gaps = []
+    for i in range(qn):
+        for j in range(min(k, len(keys[i]))):
+            got = best.get((i, j))
+            if got is None:
+                bad[i] = True
+                continue
+            gap, ex, gone, scale = got
+            if gone:
+                stale += 1
+                continue
+            if np.isfinite(served[i, j]):
+                gaps.append(gap)
+            if list(keys[i]).index(keys[i][j]) == j \
+                    and ex <= kth[i] + TIE_REL * scale:
+                hits += 1
+    return {
+        "bad_answers": float(bad.sum()),
+        "miss_share": float(1.0 - hits / max(1, qn * k)),
+        "dist_gap": float(max(gaps)) if gaps else float("inf"),
+        "stale_answers": float(stale),
+    }
+
+
+def unseen_writes(self_checks: Sequence[tuple], key_of, sq_of,
+                  dist_gap: float) -> int:
+    """Self-queries whose fresh row, acknowledged before the call was
+    sent, was not served first: not served, or served further than
+    dist_gap (over |q|^2 + |x|^2, here 2 |x|^2) from the first hit. Each
+    check is (write, first key, first distance, the row's own served
+    distance)."""
+    unseen = 0
+    for t, first, d0, own in self_checks:
+        if first == key_of(t):
+            continue
+        unseen += not (own - d0 <= dist_gap * 2.0 * sq_of(t))
+    return unseen
 
 
 def limits(config: dict) -> Dict[str, float]:

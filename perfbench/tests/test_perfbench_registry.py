@@ -17,8 +17,9 @@ def test_every_cell_resolves():
         cell = reg.workload(name)
         cfg = reg.config(cell["config"])
         assert cfg["name"] == cell["config"]
-        reg.traffic(cell["traffic"])
-        reg.reference(cfg["reference"]).exact_topk
+        mix = reg.traffic(cell["traffic"])
+        entry = "exact_topk_live" if mix.get("writers") else "exact_topk"
+        assert callable(getattr(reg.reference(cfg["reference"]), entry))
         for trace in (False, True):
             for m in reg.metrics_for(name, trace):
                 assert callable(reg.metric(m["name"]).read)
@@ -75,6 +76,9 @@ def test_new_entries_are_files_only(tmp_path):
                                "config": "throwaway-cfg",
                                "traffic": "throwaway-mix", "chips": 1,
                                "why": "x"})
+    for m in bench["end_to_end"]:
+        if m["name"] == "search_qps":  # an entry names the cell's metrics
+            m["workloads"].append("throwaway.cell")
     bench["per_layer"].append({"name": "throwaway_metric", "unit": "ms",
                                "better": "lower", "source": "program_span",
                                "layer": "engine", "moves": "search_qps"})

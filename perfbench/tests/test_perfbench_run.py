@@ -123,7 +123,8 @@ def test_command_refuses_without_a_card():
 
 def test_sources_import_nothing_forbidden():
     """No file of the benchmark imports JAX or the JAX package, and the
-    reference imports nothing of the program either."""
+    reference imports nothing of the program either: only its own
+    modules beside the libraries."""
     import ast
     root = os.path.join(REPO, "perfbench")
     for dirpath, _, files in os.walk(root):
@@ -135,10 +136,12 @@ def test_sources_import_nothing_forbidden():
             tops = set()
             for node in ast.walk(tree):
                 if isinstance(node, ast.Import):
-                    tops |= {a.name.split(".")[0] for a in node.names}
+                    tops |= {a.name for a in node.names}
                 elif isinstance(node, ast.ImportFrom) and node.module:
-                    tops.add(node.module.split(".")[0])
+                    tops.add(node.module)
             assert not forbidden_loaded(tops), path
             if os.path.basename(dirpath) == "reference":
-                assert tops <= {"__future__", "contextlib", "typing",
-                                "numpy", "torch"}, (path, tops)
+                own = {t for t in tops if t.startswith("perfbench.reference.")}
+                assert {t.split(".")[0] for t in tops - own} <= {
+                    "__future__", "contextlib", "typing", "numpy", "torch"
+                }, (path, tops)

@@ -23,15 +23,24 @@ def reg(tmp_path_factory):
 @pytest.mark.parametrize("cell", cells())
 def test_traced_run_reports_every_span_metric(reg, cell):
     logged = []
-    res = run_cell(cell, SEED, 0.5, True, device="cpu", registry=reg,
-                   log=logged.append)
+    writes = reg.traffic(reg.workload(cell)["traffic"]).get("writers")
+    # the CPU profiler's start holds a window's first ~0.8 s; a write
+    # cell's b1 calls need the rest to sample some dozens
+    res = run_cell(cell, SEED, 2.0 if writes else 0.5, True, device="cpu",
+                   registry=reg, log=logged.append)
     assert res["correct"], res["checks"]
+    wanted = {m["name"] for m in reg.metrics_for(cell, True)}
     for name in SPAN_METRICS:
+        if name not in wanted:
+            continue  # not among the metrics the cell reports
         assert name in res["metrics"], name
         assert res["metrics"][name]["value"] > 0, name
-    assert any("beyond the p95" in line for line in logged)
+    if "search_tail_host_ms" in wanted:
+        assert any("beyond the p95" in line for line in logged)
     assert any(line.startswith("index.build ") for line in logged)
-    assert any("slow path 0 of" in line for line in logged)
+    # staged deletes send a write-mixed cell's searches down the slow path
+    assert any(("slow path " in line) if writes else ("slow path 0 of" in line)
+               for line in logged)
 
 
 class _OlderRun:

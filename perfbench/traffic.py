@@ -14,6 +14,24 @@ Parameters of a mix:
                  engine's own shape
   check_queries  answers compared with the reference: a seeded uniform
                  sample of ceil(check_queries / batch) calls of the window
+
+A mix may add a writer beside the clients (perfbench/writes.py drives it;
+a mix without these keys takes `drive` below and nothing more):
+  writers           open-loop writer threads: 1
+  write_rate        writes a second summed over the writers, on a fixed
+                    schedule: write i of the window is due at the window's
+                    start + i / write_rate, and its latency runs from then
+                    to its acknowledgement
+  write_mix         shares of "insert" (a fresh key), "overwrite" (a live
+                    base key, a new vector) and "delete" (a live base key);
+                    every block of the mix's smallest size holds them
+                    exactly, in a seeded order
+  self_query_share  the share of each call's queries replaced by the
+                    vectors of the newest fresh rows acknowledged before the
+                    call is sent
+  warm_writes       writes sent back to back in set-up, before the window
+After the window the engine is stopped as a crash would stop it and opened
+again from its data_dir (perfbench/program.py).
 """
 
 from __future__ import annotations
@@ -39,6 +57,10 @@ class Traffic:
             raise ValueError(f"loop {params['loop']!r}: the generator "
                              "drives closed loops")
         self.params = params
+        self.writers = int(params.get("writers", 0))
+        if self.writers not in (0, 1):
+            raise ValueError(f"writers {self.writers}: the generator drives "
+                             "at most one writer")
         self.clients = int(params["clients"])
         self.batch = int(params["batch"])
         self.k = int(params["k"])
