@@ -79,6 +79,9 @@ scatters write in place and raise nothing, so a search instead:
 Together these keep a row from coming back twice. IVF follows the same
 rule with `IVFIndex.version` (bumped by appends and deletes, which write in
 place); an append also bumps the engine generation, as in the reference.
+A search whose lock-free attempts all retried runs under `_flush_lock`,
+which every in-place writer holds: the flat scatter, the IVF flush and
+the compaction swap.
 """
 
 from __future__ import annotations
@@ -115,7 +118,7 @@ from tpuvdb_torch.store.wal import WriteAheadLog
 from tpuvdb_torch.utils.hostmem import memlog, trim_heap
 from tpuvdb_torch.utils.logging import get_logger
 from tpuvdb_torch.utils.sharding_utils import get_shard_id
-from tpuvdb_torch.utils.tracing import StageTimer
+from tpuvdb_torch.utils.tracing import StageTimer, span
 
 logger = get_logger("tpuvdb_torch.engine")
 
@@ -143,6 +146,17 @@ def _check_mesh(mesh, device: torch.device) -> None:
         if dev.type != device.type:
             raise ValueError(f"mesh slot {s} is on {dev}, the engine on "
                              f"{device.type}")
+
+
+# why a lock-free search attempt was thrown away and run again (the stat
+# search_retries_<cause>): no index at the second look ("no_index", a flush
+# raced with a compaction); an in-place write to the index during the
+# device call ("version"); an IVF append or a compaction before the
+# rescore or the key resolution ("generation"); a compaction before a
+# rescored search's key resolution ("slot_generation"); a search that still
+# had to flush after the flush it asked for ("flush")
+RETRY_CAUSES = ("no_index", "version", "generation", "slot_generation",
+                "flush")
 
 
 class VectorDBEngine:
@@ -253,9 +267,19 @@ class VectorDBEngine:
             "puts": 0, "gets": 0, "deletes": 0, "searches": 0,
             "flushes": 0, "compactions": 0, "checkpoints": 0,
             "wal_replayed": 0, "search_retries": 0,
+            # the retries by cause (RETRY_CAUSES), summing to search_retries
+            **{f"search_retries_{c}": 0 for c in RETRY_CAUSES},
             # query rows searched; calls that took _assemble_results' slow
             # path (a dead, padded or staged-deleted candidate)
             "search_queries": 0, "search_slow_path": 0,
+            # rows the searches scored on the host (staged, in flight and
+            # IVF's standing delta), summed over every snapshot
+            "search_delta_rows": 0,
+            # the IVF flush: rows appended into the cells (of them, into the
+            # spill reserve), rows invalidated in place, and the standing
+            # delta's high-water mark
+            "ivf_appends": 0, "ivf_spill_appends": 0,
+            "ivf_invalidated_rows": 0, "ivf_delta_rows_max": 0,
             # adaptive exact rescore: candidates re-ranked / skipped
             "rescored_rows": 0, "rescore_skipped_rows": 0,
         }
@@ -591,7 +615,11 @@ class VectorDBEngine:
     def flush(self):
         """Apply staged mirror writes/deletes to the device index."""
         if self.config.index_type == "ivf":
-            with self._lock:
+            # the flush lock first, as the flat scatter takes it: IVF writes
+            # the index in place, and a search's serialized attempts
+            # (_search_batch_direct) hold this lock so that no flush lands
+            # inside their probe
+            with self._flush_lock, self._lock, self.timers.stage("flush.ivf"):
                 self._flush_ivf()
             return
         self._flush_flat()
@@ -880,6 +908,7 @@ class VectorDBEngine:
                     self._ivf_delta[(s, sl)] = (
                         self.mirrors[s].vector_at(sl).copy())
             self._staged_updates.clear()
+            self._note_ivf_delta()
             # staged deletes drain first: a put-then-deleted slot must not
             # take one of the fixed cell/spill append slots; deletes of rows
             # already in the index are invalidated after the append so the
@@ -895,16 +924,20 @@ class VectorDBEngine:
             if pairs:
                 rows = np.asarray([self._ivf_layout.row_of(s, sl)
                                    for (s, sl), _ in pairs], np.int64)
-                appended = self._ivf.append_rows(
-                    rows, np.stack([v for _, v in pairs]))
+                spilled = self._ivf_spill_used()
+                with self.timers.span("ivf.append"):
+                    appended = self._ivf.append_rows(
+                        rows, np.stack([v for _, v in pairs]))
+                if appended:
+                    self.stats["ivf_spill_appends"] += (
+                        self._ivf_spill_used() - spilled)
             if appended:
                 self._ivf_delta.clear()
                 if del_rows:
-                    self._ivf.invalidate_rows(np.asarray(del_rows, np.int64))
+                    self._ivf_invalidate(del_rows)
                 if pairs or del_rows:
                     self._ivf_packed_epoch += 1
-                self.stats["ivf_appends"] = (
-                    self.stats.get("ivf_appends", 0) + len(pairs))
+                self.stats["ivf_appends"] += len(pairs)
                 # an off-lock search that snapshotted the delta before this
                 # append could score a row twice (delta + appended copy):
                 # the generation bump makes it retry
@@ -925,10 +958,28 @@ class VectorDBEngine:
                 for s, sl in self._staged_deletes:
                     self._ivf_delta.pop((s, sl), None)
                     rows.append(self._ivf_layout.row_of(s, sl))
-                self._ivf.invalidate_rows(np.asarray(rows, np.int64))
+                self._ivf_invalidate(rows)
                 self._ivf_packed_epoch += 1
                 self._staged_deletes.clear()
+            self._note_ivf_delta()
         self.stats["flushes"] += 1
+
+    def _note_ivf_delta(self):
+        """The standing delta's high-water mark (stat ivf_delta_rows_max),
+        taken when the staged inserts have joined it."""
+        self.stats["ivf_delta_rows_max"] = max(
+            self.stats["ivf_delta_rows_max"], len(self._ivf_delta))
+
+    def _ivf_invalidate(self, rows: list):
+        """The flush's in-place deletes of IVF rows (span ivf.invalidate,
+        stat ivf_invalidated_rows)."""
+        with self.timers.span("ivf.invalidate"):
+            self._ivf.invalidate_rows(np.asarray(rows, np.int64))
+        self.stats["ivf_invalidated_rows"] += len(rows)
+
+    def _ivf_spill_used(self) -> int:
+        """The IVF index's spill slots that hold a row (live or deleted)."""
+        return int((np.asarray(self._ivf.spill_row_ids) >= 0).sum())
 
     # ----------------------------------------------------------------- search
 
@@ -1174,8 +1225,10 @@ class VectorDBEngine:
                 return res
             with self._lock:
                 self.stats["search_retries"] += 1
+                self.stats[f"search_retries_{res or status}"] += 1
         # every lock-free snapshot got invalidated: serialize against the
-        # invalidators (scatters and compaction swaps both hold _flush_lock)
+        # invalidators (scatters, IVF flushes and compaction swaps all hold
+        # _flush_lock)
         for _ in range(3):
             with self.timers.stage("search.flush"):
                 self.flush()
@@ -1189,7 +1242,8 @@ class VectorDBEngine:
         """One lock-free search attempt. Returns (status, result):
         "ok" — result is (dists, keys); "flush" — caller must flush and
         retry (no index yet / layout outgrown / staging buffer large);
-        "retry" — a scatter or a compaction overlapped the scan."""
+        "retry" — a scatter or a compaction overlapped the scan, and the
+        result is its cause (RETRY_CAUSES)."""
         with self.timers.span("search.snapshot"):
             with self._lock:
                 ivf_mode = self.config.index_type == "ivf"
@@ -1220,7 +1274,7 @@ class VectorDBEngine:
             with self._lock:
                 index = self._ivf if ivf_mode else self._index
                 if index is None:
-                    return "retry", None  # flush raced with a compaction
+                    return "retry", "no_index"  # flush raced a compaction
                 layout = self._ivf_layout if ivf_mode else index.layout
                 fetch_k = max(2 * k, k + 16) if overfetch else k
                 # the host rescore runs for int8 unless disabled ("none") or
@@ -1279,6 +1333,7 @@ class VectorDBEngine:
                     for (s, sl), v in self._ivf_delta.items():
                         if self.mirrors[s].is_valid(sl):
                             delta.append((layout.row_of(s, sl), v))
+                self.stats["search_delta_rows"] += len(delta)
         # the device call runs OUTSIDE the engine lock; slots are
         # append-only, so concurrent puts/deletes cannot corrupt it
         with self.timers.stage("search.device"):
@@ -1289,7 +1344,7 @@ class VectorDBEngine:
                 dists, rows = self._flat_search_rows(queries, fetch_k, index,
                                                      delta, n_del)
         if index.version != version:
-            return "retry", None  # an in-place write overlapped the probe
+            return "retry", "version"  # an in-place write overlapped
         with self.timers.stage("search.assemble"):
             return self._assemble_results(queries, dists, rows, gen,
                                           slot_gen, rescore, layout, out_k,
@@ -1309,7 +1364,7 @@ class VectorDBEngine:
             # catches that and retries.
             with self._lock:
                 if self._generation != gen:
-                    return "retry", None  # compacted or appended mid-search
+                    return "retry", "generation"  # compacted or appended
                 mirrors = list(self.mirrors)
             # the rescore consumes the full device window (recall lives
             # there) but returns only the caller-visible top plus slack:
@@ -1334,8 +1389,9 @@ class VectorDBEngine:
                 # or the payloads read; only compaction (slot reuse) can
                 stale = (self._slot_generation != slot_gen if rescore
                          else self._generation != gen)
-                if stale:
-                    return "retry", None  # compacted mid-search: slots moved
+                if stale:  # compacted (or, unrescored, appended)
+                    return "retry", ("slot_generation" if rescore
+                                     else "generation")
                 # the scan returns the full width (fetch_k padded by the
                 # staged-delete count): staged-deleted slots resolve to no key
                 # here, so compact live hits to the front and truncate
@@ -1550,26 +1606,28 @@ class VectorDBEngine:
         rows, dropping a delta row the device also returned; full width."""
         if not delta:
             return dists, rows
-        mat = np.stack([v for _, v in delta])
-        q = np.asarray(queries, np.float32)
-        d2 = (np.sum(q * q, axis=1, keepdims=True)
-              + np.einsum("nd,nd->n", mat, mat)[None, :]
-              - 2.0 * (q @ mat.T))
-        drows = np.array([r for r, _ in delta], np.int64)
-        qn = queries.shape[0]
-        qoff = np.arange(qn, dtype=np.int64)[:, None] * total
-        on_device = np.isin(qoff + drows[None, :],
-                            (qoff + rows)[rows >= 0]).reshape(qn, len(delta))
-        d2 = np.where(on_device, np.inf, d2)
-        drows_q = np.where(on_device, -1, drows[None, :])
-        all_d = np.concatenate([dists, d2], axis=1)
-        all_r = np.concatenate([rows, drows_q], axis=1)
-        order = np.argsort(all_d, axis=1, kind="stable")
-        # full width returned (>= k + n_del): the caller drops rows whose
-        # slot was staged-deleted, so truncating here would hand back
-        # deleted slots in place of live candidates
-        return (np.take_along_axis(all_d, order, axis=1),
-                np.take_along_axis(all_r, order, axis=1))
+        with span("index.delta_merge"):
+            mat = np.stack([v for _, v in delta])
+            q = np.asarray(queries, np.float32)
+            d2 = (np.sum(q * q, axis=1, keepdims=True)
+                  + np.einsum("nd,nd->n", mat, mat)[None, :]
+                  - 2.0 * (q @ mat.T))
+            drows = np.array([r for r, _ in delta], np.int64)
+            qn = queries.shape[0]
+            qoff = np.arange(qn, dtype=np.int64)[:, None] * total
+            on_device = np.isin(qoff + drows[None, :],
+                                (qoff + rows)[rows >= 0]).reshape(
+                                    qn, len(delta))
+            d2 = np.where(on_device, np.inf, d2)
+            drows_q = np.where(on_device, -1, drows[None, :])
+            all_d = np.concatenate([dists, d2], axis=1)
+            all_r = np.concatenate([rows, drows_q], axis=1)
+            order = np.argsort(all_d, axis=1, kind="stable")
+            # full width returned (>= k + n_del): the caller drops rows whose
+            # slot was staged-deleted, so truncating here would hand back
+            # deleted slots in place of live candidates
+            return (np.take_along_axis(all_d, order, axis=1),
+                    np.take_along_axis(all_r, order, axis=1))
 
     # ---------------------------------------------------- background flushing
 
